@@ -1,0 +1,17 @@
+"""Yi 9B — llama-architecture GQA.  [arXiv:2403.04652; hf:01-ai/Yi-9B]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-9b",
+    family="dense",
+    num_layers=48,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=4,
+    head_dim=128,
+    d_ff=11008,
+    vocab_size=64000,
+    rope_theta=10_000.0,
+    skip_shapes=("long_500k",),
+    source="arXiv:2403.04652; hf",
+)
