@@ -2,13 +2,17 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each: the device; the kernel build from the sources in
-this checkout (nvcc, sm_90a); every kernel against its plain PyTorch version
-on the card; kernel timings beside their bound and a library yardstick;
-full-width yi-9b (depth 2, float32) engine tokens against the port's greedy
-oracle; full yi-9b (48 layers, bf16) served through ``build_replicaset`` and
-``run_load`` with the kernel launch counts of that run. Then one line with
-every kernel's numbers and, last, ``{"ok": true, "device": {...}}``.
+Phases, one JSON line each: the device; the build of every kernel from the
+sources in this checkout (one nvcc per source, all started together,
+sm_90a); every kernel against its plain PyTorch version on the card; kernel
+timings at the serving shapes beside their bound and a library yardstick;
+full-width (depth 2, float32) engine tokens against a reference for yi-9b
+and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
+same engine on the CPU); then yi-9b, granite-moe-1b-a400m and mamba2-370m
+at full depth in bf16, each served through ``build_replicaset`` and
+``run_load`` with the kernel launch counts of that run, and a breakdown of
+one prefill and one decode step. Then one line with every kernel's numbers
+and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, and prints no result line, without a card, outside a full
 checkout, or when any phase fails. Imports nothing of JAX.
@@ -33,11 +37,32 @@ H100_BF16_FLOPS = 989e12      # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12        # f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 
-# the sweep of tests/test_kernels.py: (B, S, H, KV, D, window, softcap)
+# flash attention: the sweep of tests/test_kernels.py, (B, S, H, KV, D,
+# window, softcap), and the serving prefill shapes at full width
 SWEEP = [(2, 128, 4, 4, 32, 0, 0.0), (2, 192, 4, 2, 64, 0, 0.0),
          (2, 128, 4, 2, 32, 48, 0.0), (2, 128, 2, 2, 64, 0, 30.0),
          (2, 96, 8, 1, 32, 32, 50.0)]
-YI_PREFILL = (4, 1024, 32, 4, 128, 0, 0.0)     # serving prefill at full width
+YI_PREFILL = (4, 1024, 32, 4, 128, 0, 0.0)
+GRANITE_ATTN = (1, 1024, 16, 8, 64, 0, 0.0)
+
+# grouped matmul, (E, C, d, f): tests/test_kernels.py's sweep, then granite's
+# expert products at a 1024-token prefill (C = 320) and a 4-slot decode
+# step (C = 2): wi/wg (d -> f) and wo (f -> d)
+GMM_SWEEP = [(2, 64, 64, 64), (4, 96, 160, 192), (8, 32, 128, 96)]
+GMM_PREFILL = (32, 320, 1024, 512)
+GMM_PREFILL_WO = (32, 320, 512, 1024)
+GMM_DECODE = (32, 2, 1024, 512)
+GMM_DECODE_WO = (32, 2, 512, 1024)
+
+# SSD, (b, s, nh, hd, ds, chunk): tests/test_kernels.py's sweep, mamba2-370m's
+# 1024-token prefill, and a length off the chunk grid through the padded op
+SSD_SWEEP = [(2, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
+             (2, 128, 4, 32, 16, 64)]
+SSD_PREFILL = (1, 1024, 32, 64, 128, 256)
+SSD_RAGGED = (1, 1000, 32, 64, 128, 256)
+
+SERVE = dict(replicas=1, slots=4, max_seq=2048)
+LOAD = dict(requests=8, rate_rps=4.0, max_new_tokens=32, lo=256, hi=1025)
 
 
 def emit(obj):
@@ -64,25 +89,110 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int = 3) -> float:
+    """Host time of ``fn`` to the end of its device work, after one warm
+    call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e3
+
+
+def device_busy_ms(fn) -> float | str:
+    """Device time of one call of ``fn``: the summed durations of the
+    kernels and copies ``torch.profiler`` records on the card (one stream,
+    so they do not overlap). "not measured" where the profiler records no
+    device activity or fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    except Exception as exc:          # a measurement aid, not a check
+        return f"not measured ({type(exc).__name__}: {exc})"
+    return busy / 1e3 if busy > 0 else "not measured (no device events)"
+
+
+def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """The least time for the work: the larger of operations over the peak
+    rate for their type and bytes over the memory rate, in ms."""
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def attention_bound_ms(b, s, h, kv, d, window, dtype) -> tuple[float, str]:
-    """Least time for causal attention on these inputs: the larger of the
-    operations on the unmasked (q, k) pairs (QK^T and PV, 2 flops per
-    multiply-add each) over the peak rate for the dtype, and q, k, v read
-    once plus o written once over the memory rate."""
+    """Causal attention: QK^T and PV on the unmasked (q, k) pairs (2 flops
+    per multiply-add each); q, k, v read once and o written once."""
     qpos = np.arange(s)
     lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(s, int)
     pairs = int(np.sum(qpos - lo + 1))
     flops = 4.0 * d * b * h * pairs
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     nbytes = b * s * (2 * h + 2 * kv) * d * torch.finfo(dtype).bits // 8
-    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return bound(flops, nbytes, peak)
 
 
-def randn(shape, dtype, gen):
-    return torch.randn(shape, generator=gen, device="cuda",
-                       dtype=torch.float32).to(dtype)
+def gmm_bound_ms(e, c, d, f, dtype) -> tuple[float, str]:
+    """Grouped matmul: 2 E C d f flops; x and w read once, out written
+    once."""
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    nbytes = (e * c * d + e * d * f + e * c * f) * torch.finfo(dtype).bits // 8
+    return bound(2.0 * e * c * d * f, nbytes, peak)
+
+
+def ssd_bound_ms(b, nh, nc, c, hd, ds) -> tuple[float, str]:
+    """SSD intra-chunk, f32: the least work the function needs. C.B^T on
+    the causal triangle once per (batch, chunk), since B and C are shared
+    by every head; per head, the weighted triangle times xdt and the
+    (ds x hd) state. a, xdt, B, C read once; y and S written once."""
+    pairs = c * (c + 1) // 2
+    flops = (b * nc * 2.0 * pairs * ds
+             + b * nh * nc * (2.0 * pairs * hd + 2.0 * c * ds * hd))
+    nbytes = 4 * (b * nh * nc * c + 2 * b * nh * nc * c * hd
+                  + 2 * b * nc * c * ds + b * nh * nc * ds * hd)
+    return bound(flops, nbytes, H100_F32_FLOPS)
+
+
+def randn(shape, dtype, gen, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+def close(out, ref, tol):
+    """(max abs error, within atol = rtol = tol everywhere)."""
+    diff = (out.float() - ref.float()).abs()
+    return float(diff.max()), bool((diff <= tol + tol * ref.float().abs())
+                                   .all())
+
+
+def ssd_inputs(b, s, nh, hd, ds, gen):
+    x = randn((b, s, nh, hd), torch.float32, gen, 0.3)
+    dt = torch.nn.functional.softplus(randn((b, s, nh), torch.float32, gen))
+    A = -torch.exp(torch.linspace(0.0, 1.0, nh, device="cuda"))
+    B = randn((b, s, ds), torch.float32, gen, 0.3)
+    C = randn((b, s, ds), torch.float32, gen, 0.3)
+    return x, dt, A, B, C
+
+
+def ssd_kernel_inputs(x, dt, A, B, C, ch):
+    """The intra-chunk kernel's inputs, as ``ssd_chunked`` forms them."""
+    b, s, nh, hd = x.shape
+    nc, ds = s // ch, B.shape[-1]
+    dtc = dt.reshape(b, nc, ch, nh)
+    a = (dtc * A).permute(0, 3, 1, 2).contiguous()
+    xdt = (x.reshape(b, nc, ch, nh, hd) * dtc[..., None]).permute(
+        0, 3, 1, 2, 4).contiguous()
+    return a, xdt, B.reshape(b, nc, ch, ds), C.reshape(b, nc, ch, ds)
 
 
 def main():
@@ -96,17 +206,31 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
     from repro_torch.launch.serve import (build_replicaset, make_prompts,
                                           run_load)
+    from repro_torch.models.mamba2 import ssd_ref
     from repro_torch.models.model import build_model
+    from repro_torch.models.params import to_device
     from repro_torch.serving.engine import ServingEngine, greedy_generate
 
-    kernels = {"flash_attention": {
-        "name": "flash_attention", "route": "cuda",
-        "source": str(fa_ops.SOURCE.relative_to(ROOT)),
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
-        "tpu_kernel": "src/repro/kernels/flash_attention/kernel.py:"
-                      "flash_attention_kernel"}}
+    ops = {"flash_attention": fa_ops, "grouped_matmul": gmm_ops,
+           "ssd": ssd_ops}
+    replaces = {
+        "flash_attention": ("src/repro/kernels/flash_attention/kernel.py:68",
+                            "flash_attention_kernel"),
+        "grouped_matmul": ("src/repro/kernels/grouped_matmul/kernel.py:34",
+                           "grouped_matmul_kernel"),
+        "ssd": ("src/repro/kernels/ssd/kernel.py:49", "ssd_intra_chunk")}
+    kernels = {name: {"name": name, "route": "cuda",
+                      "source": str(op.SOURCE.relative_to(ROOT)),
+                      "replaces": replaces[name][0],
+                      "tpu_kernel": f"{replaces[name][0].rsplit(':', 1)[0]}:"
+                                    f"{replaces[name][1]}"}
+               for name, op in ops.items()}
 
     # -- 1. device -------------------------------------------------------
     t0 = time.perf_counter()
@@ -127,10 +251,9 @@ def main():
 
     # -- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    sources = {"flash_attention": fa_ops.SOURCE}
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        built = {n: pool.submit(_build.build, src)
-                 for n, src in sources.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(ops)) as pool:
+        built = {n: pool.submit(_build.build, op.SOURCE)
+                 for n, op in ops.items()}
         built = {n: f.result() for n, f in built.items()}
     for name, (lib, report, secs) in built.items():
         ptxas = [ln.strip() for ln in report.splitlines()
@@ -138,14 +261,15 @@ def main():
                  or "Compiling entry" in ln]
         emit({"phase": "build", "kernel": name, "library": lib.name,
               "nvcc_seconds": secs, "ptxas": ptxas})
-    fa_ops.load_library()
+    for op in ops.values():
+        op.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
 
-    # -- 3. kernel vs plain version on the card ----------------------------
+    # -- 3. every kernel vs its plain version on the card ------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    misses, main_err = [], {}
-    for case in SWEEP + [YI_PREFILL]:
+    misses = []
+    for case in SWEEP + [YI_PREFILL, GRANITE_ATTN]:
         b, s, h, kv, d, win, cap = case
         for dtype in (torch.float32, torch.bfloat16):
             q = randn((b, s, h, d), dtype, gen)
@@ -158,25 +282,79 @@ def main():
             # rounding, the kernel keeps probabilities in f32
             tol = 2e-2 if dtype == torch.bfloat16 else (
                 1e-4 if s >= 1024 else 2e-5)
-            diff = (out.float() - ref.float()).abs()
-            err = float(diff.max())
-            ok = bool((diff <= tol + tol * ref.float().abs()).all())
+            err, ok = close(out, ref, tol)
             emit({"phase": "kernel_vs_plain", "kernel": "flash_attention",
                   "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
                   "window": win, "softcap": cap,
                   "dtype": str(dtype).removeprefix("torch."),
                   "max_abs_err": err, "tol": tol, "ok": ok})
             if not ok:
-                misses.append(case)
+                misses.append(("flash_attention", case, str(dtype)))
             if case == YI_PREFILL and dtype == torch.bfloat16:
-                main_err = {"max_abs_err": err, "max_err": err, "tol": tol}
+                kernels["flash_attention"].update(
+                    max_abs_err=err, max_err=err, tol=tol)
+    for case in GMM_SWEEP + [GMM_PREFILL, GMM_PREFILL_WO, GMM_DECODE,
+                             GMM_DECODE_WO]:
+        e, c, d, f = case
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn((e, c, d), dtype, gen, 0.3)
+            w = randn((e, d, f), dtype, gen, 0.3)
+            out = gmm_ops.grouped_matmul(x, w)
+            torch.cuda.synchronize()
+            # JAX's tolerances: f32 summation order, bf16 one output rounding
+            tol = 3e-4 if dtype == torch.float32 else 3e-2
+            err, ok = close(out, grouped_matmul_ref(x, w), tol)
+            emit({"phase": "kernel_vs_plain", "kernel": "grouped_matmul",
+                  "shape": {"E": e, "C": c, "d": d, "f": f},
+                  "dtype": str(dtype).removeprefix("torch."),
+                  "max_abs_err": err, "tol": tol, "ok": ok})
+            if not ok:
+                misses.append(("grouped_matmul", case, str(dtype)))
+            if case == GMM_PREFILL and dtype == torch.bfloat16:
+                kernels["grouped_matmul"].update(
+                    max_abs_err=err, max_err=err, tol=tol)
+    # tests/test_kernels.py's SSD tolerance, f32 throughout
+    ssd_tol = dict(atol=5e-4, rtol=5e-3)
+    for case in SSD_SWEEP + [SSD_PREFILL]:
+        b, s, nh, hd, ds, ch = case
+        a, xdt, Bc, Cc = ssd_kernel_inputs(*ssd_inputs(b, s, nh, hd, ds, gen),
+                                           ch)
+        y, S = ssd_ops.ssd_intra_chunk(a, xdt, Bc, Cc)
+        torch.cuda.synchronize()
+        ry, rS = ssd_intra_chunk_ref(a, xdt, Bc, Cc)
+        err = max(float((y - ry).abs().max()), float((S - rS).abs().max()))
+        ok = all(torch.allclose(o, r, **ssd_tol) for o, r in ((y, ry),
+                                                               (S, rS)))
+        emit({"phase": "kernel_vs_plain", "kernel": "ssd",
+              "shape": {"b": b, "nh": nh, "nc": s // ch, "c": ch, "hd": hd,
+                        "ds": ds}, "dtype": "float32", "max_abs_err": err,
+              "tol": ssd_tol, "ok": ok})
+        if not ok:
+            misses.append(("ssd", case, "float32"))
+        if case == SSD_PREFILL:
+            kernels["ssd"].update(max_abs_err=err, max_err=err, tol=ssd_tol)
+    # the op at a length off the chunk grid (dt = 0 padding) against the
+    # sequential scan
+    b, s, nh, hd, ds, ch = SSD_RAGGED
+    inputs = ssd_inputs(b, s, nh, hd, ds, gen)
+    y, st = ssd_ops.ssd_chunked(*inputs, ch)
+    ry, rst = ssd_ref(*inputs)
+    err = max(float((y - ry).abs().max()), float((st - rst).abs().max()))
+    ok = torch.allclose(y, ry, **ssd_tol) and torch.allclose(st, rst,
+                                                             **ssd_tol)
+    emit({"phase": "kernel_vs_plain", "kernel": "ssd", "op": "ssd_chunked",
+          "against": "sequential ssd_ref", "shape": {
+              "b": b, "S": s, "nh": nh, "hd": hd, "ds": ds, "chunk": ch},
+          "dtype": "float32", "max_abs_err": err, "tol": ssd_tol, "ok": ok})
+    if not ok:
+        misses.append(("ssd_chunked", SSD_RAGGED, "float32"))
     if misses:
-        fail(f"flash_attention disagrees with its plain version: {misses}")
-    kernels["flash_attention"].update(main_err)
+        fail(f"kernels disagree with their plain versions: {misses}")
     emit({"phase": "kernel_vs_plain", "seconds": time.perf_counter() - t0})
 
-    # -- 4. timing at the serving prefill shape, bf16 -----------------------
+    # -- 4. timing at the serving shapes ------------------------------------
     t0 = time.perf_counter()
+    timings = {}
     b, s, h, kv, d, win, cap = YI_PREFILL
     dtype = torch.bfloat16
     q, k, v = (randn((b, s, n, d), dtype, gen) for n in (h, kv, kv))
@@ -190,112 +368,225 @@ def main():
     except TypeError:       # a torch without enable_gqa: no yardstick
         library_ms = None
     bound_ms, bound_by = attention_bound_ms(b, s, h, kv, d, win, dtype)
-    timing = {"kernel_ms": kernel_ms, "ms": kernel_ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by}
-    kernels["flash_attention"].update(timing)
+    timings["flash_attention"] = {
+        "kernel_ms": kernel_ms, "ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     emit({"phase": "timing", "kernel": "flash_attention",
           "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
-          "dtype": "bfloat16", **timing,
+          "dtype": "bfloat16", **timings["flash_attention"],
           "kernel_tflops": 4.0 * d * b * h * (s * (s + 1) // 2)
-          / (kernel_ms * 1e-3) / 1e12,
-          "card": smi, "seconds": time.perf_counter() - t0})
+          / (kernel_ms * 1e-3) / 1e12, "card": smi})
+    b, s, h, kv, d, win, cap = GRANITE_ATTN
+    q, k, v = (randn((b, s, n, d), dtype, gen) for n in (h, kv, kv))
+    granite_flash_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
+    emit({"phase": "timing", "kernel": "flash_attention",
+          "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
+          "dtype": "bfloat16", "kernel_ms": granite_flash_ms,
+          "bound_ms": attention_bound_ms(b, s, h, kv, d, win, dtype)[0],
+          "card": smi})
     del q, k, v, qt, kt, vt
 
-    # -- 5. full width, depth 2, float32: engine tokens == oracle ----------
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=2,
-                              dtype="float32")
-    model = build_model(cfg, device="cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(1))
-    eng = ServingEngine(model, params, slots=4, max_seq=640, device="cuda")
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(1, cfg.vocab_size, size=n)
-               for n in (64, 200, 377, 512)]
-    futs = [eng.submit(p, max_new_tokens=16) for p in prompts]
-    eng.run_until_idle()
-    mismatched = []
-    for i, (p, f) in enumerate(zip(prompts, futs)):
-        got, want = f.result(), greedy_generate(model, params, p, 16, 640)
-        if got.shape != (16,) or not np.array_equal(got, want):
-            mismatched.append({"prompt_len": len(p), "engine": got.tolist(),
-                               "oracle": want.tolist()})
-    emit({"phase": "parity_full_width_f32", "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "prompt_lens": [len(p) for p in prompts],
-          "new_tokens": 16, "identical": not mismatched,
-          "mismatched": mismatched, "seconds": time.perf_counter() - t0})
-    if mismatched:
-        fail("engine tokens differ from the greedy oracle at full width")
-    del model, params, eng
+    gmm_ms = {}
+    for label, (e, c, d, f) in (("prefill_wi", GMM_PREFILL),
+                                ("prefill_wo", GMM_PREFILL_WO),
+                                ("decode_wi", GMM_DECODE),
+                                ("decode_wo", GMM_DECODE_WO)):
+        x = randn((e, c, d), dtype, gen, 0.3)
+        w = randn((e, d, f), dtype, gen, 0.3)
+        t = {"kernel_ms": cuda_ms(lambda: gmm_ops.grouped_matmul(x, w), 20),
+             "plain_ms": cuda_ms(lambda: grouped_matmul_ref(x, w), 10),
+             "library_ms": cuda_ms(lambda: torch.bmm(x, w), 20)}
+        t["bound_ms"], t["bound_by"] = gmm_bound_ms(e, c, d, f, dtype)
+        gmm_ms[label] = t["kernel_ms"]
+        emit({"phase": "timing", "kernel": "grouped_matmul", "call": label,
+              "shape": {"E": e, "C": c, "d": d, "f": f}, "dtype": "bfloat16",
+              **t, "kernel_tflops": 2.0 * e * c * d * f
+              / (t["kernel_ms"] * 1e-3) / 1e12,
+              "kernel_tb_per_s": (e * c * d + e * d * f + e * c * f) * 2
+              / (t["kernel_ms"] * 1e-3) / 1e12, "card": smi})
+        if label == "prefill_wi":
+            timings["grouped_matmul"] = dict(t, ms=t["kernel_ms"])
+
+    b, s, nh, hd, ds, ch = SSD_PREFILL
+    a, xdt, Bc, Cc = ssd_kernel_inputs(*ssd_inputs(b, s, nh, hd, ds, gen), ch)
+    t = {"kernel_ms": cuda_ms(lambda: ssd_ops.ssd_intra_chunk(a, xdt, Bc, Cc),
+                              20),
+         "plain_ms": cuda_ms(lambda: ssd_intra_chunk_ref(a, xdt, Bc, Cc), 10),
+         "library_ms": None}       # no one PyTorch call computes it
+    t["bound_ms"], t["bound_by"] = ssd_bound_ms(b, nh, s // ch, ch, hd, ds)
+    timings["ssd"] = dict(t, ms=t["kernel_ms"])
+    emit({"phase": "timing", "kernel": "ssd",
+          "shape": {"b": b, "nh": nh, "nc": s // ch, "c": ch, "hd": hd,
+                    "ds": ds}, "dtype": "float32", **t, "card": smi,
+          "seconds": time.perf_counter() - t0})
+    del a, xdt, Bc, Cc
+    for name, t in timings.items():
+        kernels[name].update(t)
+
+    # -- 5. full width, depth 2, float32: engine tokens == a reference -----
+    def parity(arch, lens, against):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                                  dtype="float32")
+        model = build_model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(1))
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in lens]
+
+        def engine_tokens(m, p, dev):
+            eng = ServingEngine(m, p, slots=4, max_seq=640, device=dev)
+            futs = [eng.submit(x, max_new_tokens=16) for x in prompts]
+            eng.run_until_idle()
+            return [f.result() for f in futs], eng.metrics["prefills"]
+
+        got, prefills = engine_tokens(model, params, "cuda")
+        if against == "cpu_engine":
+            cpu_model = build_model(cfg, device="cpu")
+            want, cpu_prefills = engine_tokens(
+                cpu_model, to_device(params, "cpu"), "cpu")
+            if cpu_prefills != prefills:
+                fail(f"{arch}: {prefills} prefill calls on the card, "
+                     f"{cpu_prefills} on the CPU")
+        else:
+            want = [greedy_generate(model, params, x, 16, 640)
+                    for x in prompts]
+        mismatched = [{"prompt_len": len(p), "engine": g.tolist(),
+                       "reference": w.tolist()}
+                      for p, g, w in zip(prompts, got, want)
+                      if g.shape != (16,) or not np.array_equal(g, w)]
+        emit({"phase": "parity_full_width_f32", "arch": arch,
+              "layers": cfg.num_layers, "d_model": cfg.d_model,
+              "against": against, "prompt_lens": list(lens),
+              "prefill_calls": prefills, "new_tokens": 16,
+              "identical": not mismatched, "mismatched": mismatched,
+              "seconds": time.perf_counter() - t0})
+        if mismatched:
+            fail(f"{arch}: engine tokens differ from the {against} at full "
+                 f"width")
+        torch.cuda.empty_cache()
+
+    parity("yi-9b", (64, 200, 377, 512), "greedy_oracle")
+    # one repeated length: granite admits one exact group per length
+    parity("granite-moe-1b-a400m", (64, 200, 200, 377), "cpu_engine")
+    parity("mamba2-370m", (64, 200, 377, 512), "greedy_oracle")
+
+    # -- 6. serve each model at full depth, bf16, through the entry points --
+    def serve(arch, expect):
+        """Drive the served path with every launch count set to 0 just
+        before and read just after; fail unless every request completes and
+        the counts are ``expect(prefill calls, decode steps)``."""
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        rs = build_replicaset(cfg, monitor=Monitor(), **SERVE)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        prompts = make_prompts(LOAD["requests"], cfg.vocab_size, rng,
+                               lo=LOAD["lo"], hi=LOAD["hi"])
+        for op in ops.values():
+            op.launches = 0
+        rs.start()
+        try:
+            report = run_load(rs, prompts, rate_rps=LOAD["rate_rps"],
+                              max_new_tokens=LOAD["max_new_tokens"], rng=rng,
+                              timeout_s=600.0)
+        finally:
+            rs.stop()
+        launches = {name: op.launches for name, op in ops.items()}
+        total = rs.metrics()["total"]
+        prefills, steps = total["prefills"], total["decode_steps"]
+        want = expect(prefills, steps)
+        emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+              "dtype": cfg.dtype, **SERVE,
+              "prompt_lens": [len(p) for p in prompts],
+              "rate_rps": LOAD["rate_rps"],
+              "max_new_tokens": LOAD["max_new_tokens"], "report": report,
+              "prefill_calls": prefills, "decode_steps": steps,
+              "launches": launches, "expected_launches": want,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "init_seconds": init_s, "card": smi,
+              "seconds": time.perf_counter() - t0})
+        n = LOAD["requests"]
+        if report["completed"] != n or \
+                report["tokens"] != n * LOAD["max_new_tokens"]:
+            fail(f"{arch}: served {report['completed']}/{n} requests, "
+                 f"{report['tokens']}/{n * LOAD['max_new_tokens']} tokens")
+        if prefills <= 0 or launches != want:
+            fail(f"{arch}: kernel launches {launches}, expected {want} for "
+                 f"{prefills} prefill calls and {steps} decode steps")
+        return rs, cfg, launches
+
+    def breakdown(rs, cfg, rows, shares):
+        """Where a step's time goes (after the counted run): one prefill of
+        ``rows`` x 1024 tokens and one fused 4-slot decode step, host clock
+        to the end of the device work, beside the device's busy time in a
+        profiled call and so its idle share; ``shares`` maps a kernel to
+        its measured time per prefill."""
+        t0 = time.perf_counter()
+        eng = rs.engines[0]
+        times = {}
+        with torch.inference_mode():
+            toks = torch.randint(1, cfg.vocab_size, (4, 1024), device="cuda",
+                                 generator=torch.Generator("cuda")
+                                 .manual_seed(2))
+            for label, fn in (
+                    (f"prefill_{rows}x1024",
+                     lambda: eng.model.prefill(eng.params, toks[:rows],
+                                               2048)),
+                    ("decode_step_4_slots",
+                     lambda: eng.model.decode(
+                         eng.params, eng.cache, toks[:, :1],
+                         torch.full((4,), 1500, device="cuda")))):
+                wall = times[f"{label}_ms"] = host_ms(fn)
+                busy = times[f"{label}_device_busy_ms"] = device_busy_ms(fn)
+                if isinstance(busy, float):
+                    times[f"{label}_device_idle_share"] = 1 - busy / wall
+        prefill_ms = times[f"prefill_{rows}x1024_ms"]
+        for name, ms in shares.items():
+            times[f"{name}_share_of_prefill"] = ms / prefill_ms
+        emit({"phase": "serve_breakdown", "arch": cfg.name, **times,
+              "card": smi, "seconds": time.perf_counter() - t0})
+        return times
+
+    counts = {}
+    yi = get_config("yi-9b")
+    rs, cfg, counts["yi-9b"] = serve(
+        "yi-9b", lambda p, s: {"flash_attention": yi.num_layers * p,
+                               "grouped_matmul": 0, "ssd": 0})
+    breakdown(rs, cfg, 4, {"flash_attention": cfg.num_layers * kernel_ms})
+    del rs
     torch.cuda.empty_cache()
 
-    # -- 6. serve full yi-9b (48 layers, bf16) through the entry points ----
-    t0 = time.perf_counter()
-    cfg = get_config("yi-9b")
-    torch.cuda.reset_peak_memory_stats()
-    rs = build_replicaset(cfg, replicas=1, slots=4, max_seq=2048,
-                          monitor=Monitor())
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    prompts = make_prompts(8, cfg.vocab_size, rng, lo=256, hi=1025)
-    fa_ops.launches = 0                 # count only the main path's launches
-    rs.start()
-    try:
-        report = run_load(rs, prompts, rate_rps=4.0, max_new_tokens=32,
-                          rng=rng, timeout_s=600.0)
-    finally:
-        rs.stop()
-    launches = {"flash_attention": fa_ops.launches}
-    prefills = rs.metrics()["total"]["prefills"]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
-          "dtype": cfg.dtype, "replicas": 1, "slots": 4, "max_seq": 2048,
-          "prompt_lens": [len(p) for p in prompts], "rate_rps": 4.0,
-          "max_new_tokens": 32, "report": report,
-          "prefill_calls": prefills, "launches": launches,
-          "peak_memory_gb": peak_gb, "init_seconds": init_s, "card": smi,
-          "seconds": time.perf_counter() - t0})
-    if report["completed"] != 8 or report["tokens"] != 8 * 32:
-        fail(f"served {report['completed']}/8 requests, "
-             f"{report['tokens']}/{8 * 32} tokens")
-    if prefills <= 0 or launches["flash_attention"] != \
-            cfg.num_layers * prefills:
-        fail(f"flash_attention launched {launches['flash_attention']} times "
-             f"for {prefills} prefill calls of {cfg.num_layers} layers")
+    granite = get_config("granite-moe-1b-a400m")
+    rs, cfg, counts["granite-moe-1b-a400m"] = serve(
+        "granite-moe-1b-a400m", lambda p, s: {
+            "flash_attention": granite.num_layers * p,
+            "grouped_matmul": 3 * granite.num_layers * (p + s), "ssd": 0})
+    breakdown(rs, cfg, 1, {
+        "flash_attention": cfg.num_layers * granite_flash_ms,
+        "grouped_matmul": cfg.num_layers * (2 * gmm_ms["prefill_wi"]
+                                            + gmm_ms["prefill_wo"])})
+    del rs
+    torch.cuda.empty_cache()
 
-    # where a step's time goes (after the counted run): one prefill at the
-    # largest serving shape and one fused decode step, host clock + sync
-    t0 = time.perf_counter()
-    eng = rs.engines[0]
-    with torch.inference_mode():
-        toks = torch.randint(1, cfg.vocab_size, (4, 1024), device="cuda",
-                             generator=torch.Generator("cuda").manual_seed(2))
-        times = {}
-        for label, fn in (
-                ("prefill_4x1024_ms",
-                 lambda: eng.model.prefill(eng.params, toks, 2048)),
-                ("decode_step_4_slots_ms",
-                 lambda: eng.model.decode(
-                     eng.params, eng.cache, toks[:, :1],
-                     torch.full((4,), 1500, device="cuda")))):
-            fn()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-            times[label] = (time.perf_counter() - t) / 3 * 1e3
-    times["flash_share_of_prefill"] = (
-        cfg.num_layers * kernel_ms / times["prefill_4x1024_ms"])
-    emit({"phase": "serve_breakdown", **times, "card": smi,
-          "seconds": time.perf_counter() - t0})
-    del rs, eng
+    mamba = get_config("mamba2-370m")
+    rs, cfg, counts["mamba2-370m"] = serve(
+        "mamba2-370m", lambda p, s: {"flash_attention": 0, "grouped_matmul": 0,
+                                  "ssd": mamba.num_layers * p})
+    breakdown(rs, cfg, 1, {"ssd": cfg.num_layers * timings["ssd"]["ms"]})
+    del rs
     torch.cuda.empty_cache()
 
     # -- 7. kernels, 8. result -------------------------------------------
-    for name, n in launches.items():
-        kernels[name]["launches"] = n
+    # each kernel's launches on its own path's served run
+    own_path = {"flash_attention": "yi-9b",
+                "grouped_matmul": "granite-moe-1b-a400m", "ssd": "mamba2-370m"}
+    for name, arch in own_path.items():
+        kernels[name]["launches"] = counts[arch][name]
+        kernels[name]["launches_path"] = arch
+        kernels[name]["launches_by_path"] = {a: c[name]
+                                             for a, c in counts.items()}
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": device})
 

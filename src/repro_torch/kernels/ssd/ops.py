@@ -1,0 +1,135 @@
+"""Public SSD ops: the intra-chunk kernel and the chunked scan around it.
+
+``ssd_intra_chunk`` is the counterpart of the JAX package's
+``ssd_intra_chunk``: CPU tensors take the plain version
+(``ref.ssd_intra_chunk_ref``); CUDA tensors launch the hand-written kernel
+in ``csrc/ssd.cu`` or raise. ``ssd_chunked`` is the counterpart of
+``ssd_chunked_pallas``: the kernel for the intra-chunk dual form, the short
+inter-chunk recurrence in torch.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
+HEAD_DIMS = (16, 32, 64, 128)
+
+# kernel launches in this process; a run resets it to show which calls went
+# through the kernel
+launches = 0
+_lib = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library, with its C
+    signature declared."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = _build.load(SOURCE)
+    fn = lib.ssd_intra_chunk_fwd
+    # a, xdt, B, C, y, S; b, nh, nc, c, hd, ds; stream
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _check(a, xdt, B, C):
+    if a.ndim != 4 or xdt.ndim != 5 or B.ndim != 4 or C.ndim != 4:
+        raise ValueError("ssd_intra_chunk wants a (b,nh,nc,c), xdt "
+                         "(b,nh,nc,c,hd), B/C (b,nc,c,ds)")
+    b, nh, nc, c = a.shape
+    if xdt.shape[:4] != (b, nh, nc, c) or B.shape != C.shape or \
+            B.shape[:3] != (b, nc, c):
+        raise ValueError(f"shape mismatch: a {tuple(a.shape)}, xdt "
+                         f"{tuple(xdt.shape)}, B {tuple(B.shape)}, "
+                         f"C {tuple(C.shape)}")
+    if not all(t.dtype == torch.float32 for t in (a, xdt, B, C)):
+        raise ValueError("ssd_intra_chunk takes float32 tensors")
+    if not all(t.device == a.device for t in (xdt, B, C)):
+        raise ValueError("a, xdt, B and C must be on one device")
+
+
+def ssd_intra_chunk(a, xdt, B, C):
+    """a: (b, nh, nc, c) log-decays; xdt: (b, nh, nc, c, hd); B/C:
+    (b, nc, c, ds); float32. Returns (y_intra (b, nh, nc, c, hd), S_local
+    (b, nh, nc, ds, hd)), float32."""
+    global launches
+    _check(a, xdt, B, C)
+    if a.device.type == "cpu":
+        return ssd_intra_chunk_ref(a, xdt, B, C)
+    if a.device.type != "cuda":
+        raise ValueError(f"ssd_intra_chunk runs on cpu or cuda, not "
+                         f"{a.device.type}")
+    b, nh, nc, c = a.shape
+    hd, ds = xdt.shape[-1], B.shape[-1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {hd}")
+    if not all(t.is_contiguous() for t in (a, xdt, B, C)):
+        raise ValueError("the kernel reads its inputs in place: pass "
+                         "contiguous tensors")
+    lib = load_library()
+    y = torch.empty_like(xdt)
+    S = torch.empty((b, nh, nc, ds, hd), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.ssd_intra_chunk_fwd(
+            a.data_ptr(), xdt.data_ptr(), B.data_ptr(), C.data_ptr(),
+            y.data_ptr(), S.data_ptr(), b, nh, nc, c, hd, ds,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_intra_chunk kernel launch failed with CUDA "
+                           f"error {err} (b={b}, nh={nh}, nc={nc}, c={c}, "
+                           f"hd={hd}, ds={ds})")
+    launches += 1
+    return y, S
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int):
+    """Chunked SSD for any length. x: (b, s, nh, hd); dt: (b, s, nh) f32
+    (after softplus); A: (nh,) negative; B/C: (b, s, ds). Returns (y
+    (b, s, nh, hd) in x's dtype, final state (b, nh, hd, ds) f32).
+
+    A tail that does not fill a chunk is padded with dt = 0: there the log
+    decay ``dt * A`` and the input ``dt * x`` are 0, so the outputs at real
+    positions and the final state are those of the unpadded sequence."""
+    b, s, nh, hd = x.shape
+    ds = B.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    nc = (s + pad) // chunk
+    f32 = torch.float32
+    dtc = dt.reshape(b, nc, chunk, nh).to(f32)
+    a = (dtc * A).permute(0, 3, 1, 2).contiguous()            # (b,nh,nc,c)
+    xc = x.reshape(b, nc, chunk, nh, hd)
+    xdt = (xc.to(f32) * dtc[..., None]).permute(0, 3, 1, 2, 4).contiguous()
+    Bc = B.reshape(b, nc, chunk, ds).to(f32).contiguous()
+    Cc = C.reshape(b, nc, chunk, ds).to(f32).contiguous()
+
+    y_intra, s_loc = ssd_intra_chunk(a, xdt, Bc, Cc)
+
+    # inter-chunk recurrence: S_n = exp(acs_n[-1]) S_{n-1} + S_n_local
+    acs = torch.cumsum(a, dim=-1)
+    chunk_decay = torch.exp(acs[..., -1])                      # (b,nh,nc)
+    state = torch.zeros((b, nh, ds, hd), dtype=f32, device=x.device)
+    prev = []
+    for n in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, :, n, None, None] + s_loc[:, :, n]
+    s_prev = torch.stack(prev, dim=2)                          # (b,nh,nc,ds,hd)
+    y_inter = torch.einsum("bncs,bhnsp->bhncp", Cc, s_prev) \
+        * torch.exp(acs)[..., None]
+    y = (y_intra + y_inter).permute(0, 2, 3, 1, 4).reshape(b, s + pad, nh, hd)
+    # the final state in the model's (b, nh, hd, ds) layout
+    return y[:, :s].to(x.dtype), state.transpose(-1, -2)

@@ -7,7 +7,14 @@ not adapt to the system, so queueing and latency under load are measured.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --requests 24 --rate 4.0            # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m         # MoE: grouped-matmul kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mamba2-370m                  # SSM: SSD kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu ...
+
+An arch name serves its reduced config; ``build_replicaset(get_config(...))``
+serves the full widths.
 
 Not ported yet: chunked prefill, the prefix cache, speculative decoding and
 the flight recorder (their flags), and the elastic serve loop.

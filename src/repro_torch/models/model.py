@@ -1,5 +1,6 @@
-"""The dense transformer, ported from the JAX package's ``repro.models.model``
-(``_build_transformer`` and the sub-layer it scans):
+"""The port's models, from the JAX package's ``repro.models.model``: the
+transformer (``_build_transformer`` and the sub-layer it scans, dense or MoE
+FFN) and the pure SSM stack (``_build_ssm``):
 
     model = build_model(cfg, device="cuda")
     params = model.init(generator)
@@ -7,15 +8,21 @@
     logits, caches = model.decode(params, caches, tokens, pos)
     caches = model.init_cache(batch, max_seq)
 
-Params keep the JAX pytree and layouts: ``{"embed": {"tok"}, "blocks":
-[per-sub dict stacked on a leading n_super axis], "final_norm"}``, so
-``repro_torch.models.params`` carries JAX-initialised weights across
-unchanged. Caches are a list (one per sub) of ``{"k", "v"}`` tensors of shape
-(n_super, B, max_seq, KV, hd). Where JAX returns a new cache, the port writes
-the cache in place: decode updates the cache it is given and returns it.
+Params keep the JAX pytrees and layouts, so ``repro_torch.models.params``
+carries JAX-initialised weights across unchanged: the transformer's
+``{"embed": {"tok"}, "blocks": [per-sub dict stacked on a leading n_super
+axis], "final_norm"}`` and the SSM's ``{"embed", "mamba": {"ln", "mamba":
+{...}} stacked on a leading layer axis, "final_norm"}``. The transformer's
+caches are a list (one per sub) of ``{"k", "v"}`` tensors of shape
+(n_super, B, max_seq, KV, hd); the SSM's are ``{"conv": {"x", "B", "C"},
+"ssd"}`` stacked on the layer axis. Where JAX returns a new cache, the port
+writes the cache in place: decode updates the cache it is given and returns
+it.
 
-The slice ported so far is the dense, all-global, token-input family
-(``yi-9b``); other configs raise ``NotImplementedError``.
+Ported so far: the dense and MoE all-global token families (``yi-9b``,
+``granite-moe-1b-a400m``, ``llama4`` at reduced size) and the pure SSM
+family (``mamba2-370m``); other configs raise ``NotImplementedError``.
+``model.kernel_ops`` lists the kernel modules the model's path launches.
 """
 from __future__ import annotations
 
@@ -28,7 +35,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 
 # ---------------------------------------------------------------------------
 # Sub-block descriptors
@@ -62,7 +74,7 @@ def program(cfg: ModelConfig):
 def _unsupported(cfg: ModelConfig) -> list:
     """Features of ``cfg`` outside the ported slice."""
     checks = {
-        f"family {cfg.family!r}": cfg.family != "dense",
+        f"family {cfg.family!r}": cfg.family not in ("dense", "moe", "ssm"),
         f"input_mode {cfg.input_mode!r}": cfg.input_mode != "tokens",
         "sliding-window (rolling cache) layers": bool(
             cfg.sliding_window or cfg.local_global_pattern),
@@ -78,13 +90,17 @@ def _unsupported(cfg: ModelConfig) -> list:
 # ---------------------------------------------------------------------------
 
 
-def sub_init(gen, cfg: ModelConfig, dtype, n_super: int):
+def sub_init(gen, cfg: ModelConfig, sub: Sub, dtype, n_super: int):
     """One sub-layer's params, stacked on a leading ``n_super`` axis."""
     shape = (n_super, cfg.d_model)
-    return {"ln1": torch.zeros(shape, dtype=dtype, device=gen.device),
-            "attn": L.attn_init(gen, cfg, dtype, n_super),
-            "ln2": torch.zeros(shape, dtype=dtype, device=gen.device),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, n_super)}
+    p = {"ln1": torch.zeros(shape, dtype=dtype, device=gen.device),
+         "attn": L.attn_init(gen, cfg, dtype, n_super),
+         "ln2": torch.zeros(shape, dtype=dtype, device=gen.device)}
+    if sub.ffn == "dense":
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, n_super)
+    else:
+        p["moe"] = MOE.moe_init(gen, cfg, dtype, n_super)
+    return p
 
 
 def _build_prefill_cache(k, v, cache_len: int):
@@ -119,7 +135,11 @@ def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
         raise ValueError(f"mode {mode!r} is not ported (prefill, decode)")
     h = h + L.out_proj(attn, p["attn"]["wo"])
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + L.mlp_apply(p["mlp"], hn), new_cache
+    if sub.ffn == "dense":
+        mo = L.mlp_apply(p["mlp"], hn)
+    else:
+        mo, _ = MOE.moe_apply(p["moe"], cfg, hn)
+    return h + mo, new_cache
 
 
 def init_sub_cache(cfg, n_super: int, batch: int, max_seq: int, dtype,
@@ -145,14 +165,20 @@ def _layer(tree: dict, i: int) -> dict:
 
 
 def build_model(cfg: ModelConfig, device=None):
-    """The dense transformer for ``cfg`` on ``device`` (default: the current
-    CUDA device; raises when there is none)."""
+    """The model for ``cfg`` on ``device`` (default: the current CUDA
+    device; raises when there is none)."""
     missing = _unsupported(cfg)
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            f"covers the dense all-global family)")
+            f"covers the dense and MoE all-global families and pure SSM)")
     device = resolve_device(device)
+    if cfg.family == "ssm":
+        return _build_ssm(cfg, device)
+    return _build_transformer(cfg, device)
+
+
+def _build_transformer(cfg: ModelConfig, device: torch.device):
     n_super, subs = program(cfg)
     dtype = _dtype(cfg)
 
@@ -162,7 +188,8 @@ def build_model(cfg: ModelConfig, device=None):
         if gen is None:
             gen = torch.Generator(device=device).manual_seed(0)
         return {"embed": L.embed_init(gen, cfg, dtype),
-                "blocks": [sub_init(gen, cfg, dtype, n_super) for _ in subs],
+                "blocks": [sub_init(gen, cfg, sub, dtype, n_super)
+                           for sub in subs],
                 "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
                                           device=gen.device)}
 
@@ -206,6 +233,74 @@ def build_model(cfg: ModelConfig, device=None):
         return [init_sub_cache(cfg, n_super, batch, max_seq, dtype,
                                cache_device or device) for _ in subs]
 
+    kernel_ops = (flash_ops,) + ((gmm_ops,) if any(
+        s.ffn == "moe" for s in subs) else ())
     return SimpleNamespace(cfg=cfg, device=device, init=init, prefill=prefill,
                            decode=decode, init_cache=init_cache,
-                           n_super=n_super, subs=subs)
+                           n_super=n_super, subs=subs, kernel_ops=kernel_ops)
+
+
+def _build_ssm(cfg: ModelConfig, device: torch.device):
+    """The pure Mamba2 stack: ``num_layers`` x (norm, Mamba2 block), run as
+    a Python loop over the stacked layers."""
+    dtype = _dtype(cfg)
+    n = cfg.num_layers
+
+    def init(gen: Optional[torch.Generator] = None):
+        """Random params with the JAX package's distributions, drawn from
+        ``gen`` (default: seed 0 on the model's device)."""
+        if gen is None:
+            gen = torch.Generator(device=device).manual_seed(0)
+        return {"embed": L.embed_init(gen, cfg, dtype),
+                "mamba": {"ln": torch.zeros((n, cfg.d_model), dtype=dtype,
+                                            device=gen.device),
+                          "mamba": M.mamba_init(gen, cfg, dtype, n)},
+                "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
+                                          device=gen.device)}
+
+    def prefill(params, inputs, max_seq: int):
+        """inputs: (B, S) token ids. Returns (logits of the last position,
+        caches)."""
+        if inputs.shape[1] > max_seq:
+            raise ValueError(f"prompt of {inputs.shape[1]} tokens exceeds "
+                             f"max_seq={max_seq}")
+        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        per_layer = []
+        for i in range(n):
+            p = _layer(params["mamba"], i)
+            out, cache = M.mamba_prefill(
+                p["mamba"], cfg, L.rms_norm(h, p["ln"], cfg.norm_eps))
+            h = h + out
+            per_layer.append(cache)
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        caches = {"conv": {k: torch.stack([c["conv"][k] for c in per_layer])
+                           for k in ("x", "B", "C")},
+                  "ssd": torch.stack([c["ssd"] for c in per_layer])}
+        return L.unembed_apply(params["embed"], cfg, h[:, -1:]), caches
+
+    def decode(params, caches, inputs, pos):
+        """inputs: (B, 1) token ids (``pos`` is unused: the state carries
+        the position). Writes the new states into ``caches`` in place;
+        returns (logits, caches)."""
+        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        for i in range(n):
+            p = _layer(params["mamba"], i)
+            cache = _layer(caches, i)
+            out, new = M.mamba_decode(
+                p["mamba"], cfg, L.rms_norm(h, p["ln"], cfg.norm_eps), cache)
+            h = h + out
+            for k in ("x", "B", "C"):
+                cache["conv"][k].copy_(new["conv"][k])
+            cache["ssd"].copy_(new["ssd"])
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return L.unembed_apply(params["embed"], cfg, h), caches
+
+    def init_cache(batch: int, max_seq: int, cache_device=None):
+        """Zeroed caches on ``cache_device`` (default: the model's device);
+        real tensors, since decode writes them in place."""
+        return M.init_mamba_cache(cfg, batch, dtype, cache_device or device,
+                                  n)
+
+    return SimpleNamespace(cfg=cfg, device=device, init=init, prefill=prefill,
+                           decode=decode, init_cache=init_cache,
+                           kernel_ops=(ssd_ops,))

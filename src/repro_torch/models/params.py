@@ -1,11 +1,16 @@
 """Carry params and caches between the JAX package and the port as numpy.
 
-The JAX model's param pytree (``{"embed": {"tok"}, "blocks": [stacked
-per-sub dict], "final_norm"}``) and cache list (``[{"k", "v"}]`` per sub, each
-(n_super, B, max_seq, KV, hd)) have the same structure and layouts in the
-port, so the conversion is leaf by leaf and exact. The caller turns JAX
-arrays into numpy (``jax.tree.map(np.asarray, tree)``); this module never
-sees JAX. bfloat16 numpy arrays (``ml_dtypes.bfloat16``) cross bit for bit.
+The JAX models' param pytrees (the transformer's ``{"embed": {"tok"},
+"blocks": [stacked per-sub dict], "final_norm"}``, the SSM's ``{"embed",
+"mamba": {"ln", "mamba": {...}}, "final_norm"}``) and caches (a list of
+``{"k", "v"}`` per sub, each (n_super, B, max_seq, KV, hd); the SSM's
+``{"conv": {"x", "B", "C"}, "ssd"}`` stacked on the layer axis) have the same
+structure and layouts in the port, so the conversion is leaf by leaf and
+exact: every leaf keeps its dtype, so the f32 leaves of a bf16 model
+(``router``, ``A_log``, ``D``, ``dt_bias``, the SSD state) stay f32. The
+caller turns JAX arrays into numpy (``jax.tree.map(np.asarray, tree)``); this
+module never sees JAX. bfloat16 numpy arrays (``ml_dtypes.bfloat16``) cross
+bit for bit.
 """
 from __future__ import annotations
 
@@ -37,16 +42,29 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _keys(tree):
+    return set(tree) if isinstance(tree, dict) else None
+
+
 def _check_params(tree):
-    if not isinstance(tree, dict) or set(tree) != {"embed", "blocks",
-                                                   "final_norm"}:
-        raise ValueError("params must be {'embed', 'blocks', 'final_norm'}")
+    if _keys(tree) == {"embed", "blocks", "final_norm"}:
+        return
+    if _keys(tree) == {"embed", "mamba", "final_norm"} and \
+            _keys(tree["mamba"]) == {"ln", "mamba"}:
+        return
+    raise ValueError("params must be {'embed', 'blocks', 'final_norm'} or "
+                     "{'embed', 'mamba': {'ln', 'mamba'}, 'final_norm'}")
 
 
 def _check_caches(caches):
-    if not isinstance(caches, (list, tuple)) or not all(
-            isinstance(c, dict) and set(c) == {"k", "v"} for c in caches):
-        raise ValueError("caches must be a list of {'k', 'v'} dicts")
+    if isinstance(caches, (list, tuple)) and all(
+            _keys(c) == {"k", "v"} for c in caches):
+        return
+    if _keys(caches) == {"conv", "ssd"} and \
+            _keys(caches["conv"]) == {"x", "B", "C"}:
+        return
+    raise ValueError("caches must be a list of {'k', 'v'} dicts or "
+                     "{'conv': {'x', 'B', 'C'}, 'ssd'}")
 
 
 def params_from_numpy(tree, device) -> dict:
@@ -60,17 +78,17 @@ def params_to_numpy(params) -> dict:
     return _map(params, _leaf_to_numpy)
 
 
-def caches_from_numpy(caches, device) -> list:
+def caches_from_numpy(caches, device):
     _check_caches(caches)
     return _map(caches, lambda x: _leaf_to_torch(x, device))
 
 
-def caches_to_numpy(caches) -> list:
+def caches_to_numpy(caches):
     _check_caches(caches)
     return _map(caches, _leaf_to_numpy)
 
 
 def to_device(tree, device):
     """Move a param or cache tree to ``device`` (no copy where it is
-    already there)."""
+    already there; no leaf changes dtype)."""
     return _map(tree, lambda t: t.to(device))

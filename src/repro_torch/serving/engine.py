@@ -2,12 +2,14 @@
 JAX package's ``repro.serving.engine`` (its plain path).
 
 Each ``ServingEngine`` is one replica on one device. ``start()`` runs the
-decode loop on a background thread that admits waiting requests through a
-single *padded batched prefill* (one ``prefill`` call for every newly
-admitted slot) and then runs one fused single-token decode over all active
-slots per step; ``stop()`` signals it through a ``threading.Event``. The
-synchronous ``run_until_idle`` path is kept for deterministic use (tests,
-oracles).
+decode loop on a background thread that admits waiting requests and then
+runs one fused single-token decode over all active slots per step;
+``stop()`` signals it through a ``threading.Event``. Admission is a single
+*padded batched prefill* (one ``prefill`` call for every newly admitted
+slot) where padding is exact (all-global attention), and one exact
+prefill call per prompt length, with no pad rows, for SSM and MoE models.
+The synchronous ``run_until_idle`` path is kept for deterministic use
+(tests, oracles).
 
 Not ported yet: chunked prefill, the prefix cache, speculative decoding,
 rolling caches and the flight recorder (the JAX engine's ``chunk_tokens``,
@@ -72,6 +74,18 @@ class Request:
         self.trace.open("queue_wait", retry=self.retries)
 
 
+def _leaf_pairs(full, new):
+    """(full, new) leaf pairs of two cache trees of one structure."""
+    if isinstance(full, dict):
+        for k in full:
+            yield from _leaf_pairs(full[k], new[k])
+    elif isinstance(full, (list, tuple)):
+        for f, n in zip(full, new, strict=True):
+            yield from _leaf_pairs(f, n)
+    else:
+        yield full, new
+
+
 def _padding_safe(model, max_seq: int) -> bool:
     """Right-padded batched prefill is exact only when every sub-layer is
     global attention at this ``max_seq``: decode overwrites cache position
@@ -99,15 +113,12 @@ class ServingEngine:
     def __init__(self, model, params, *, slots: int = 4, max_seq: int = 256,
                  name: str = "engine0", monitor=None, device=None):
         self.device = resolve_device(device)
-        if not _padding_safe(model, max_seq):
-            raise NotImplementedError(
-                "exact per-length prefill groups (rolling/SSM/MoE models) "
-                "are not ported yet")
         if self.device.type == "cuda":
-            # build the kernels now: the first prefill must not stall the
-            # decode loop past the replica health timeout
-            from repro_torch.kernels.flash_attention.ops import load_library
-            load_library()
+            # build every kernel of the model's path now: the first prefill
+            # must not stall the decode loop past the replica health timeout
+            for op in model.kernel_ops:
+                op.load_library()
+        self._pad_ok = _padding_safe(model, max_seq)
         self.model = model
         self.cfg = model.cfg
         self.params = to_device(params, self.device)
@@ -156,22 +167,27 @@ class ServingEngine:
         return torch.as_tensor(a, dtype=torch.long).to(self.device)
 
     def _prefill_group(self, grp: List[Request]):
-        """One prefill call for a group of newly admitted requests, padded to
-        ``slots`` rows and a bucket-multiple length, then scattered into the
-        requests' slots of the engine cache in place (JAX:
-        ``full.at[:, slots].set(new[:, rows])``; axis 0 is n_super, axis 1
-        the slot)."""
-        maxlen = self._bucket_len(max(len(r.tokens) for r in grp))
-        toks = np.zeros((self.slots, maxlen), np.int32)
+        """One prefill call for a group of newly admitted requests, then a
+        scatter into the requests' slots of the engine cache in place, leaf
+        by leaf (JAX: ``full.at[:, slots].set(new[:, rows])``; axis 0 is the
+        layer or super-block stack, axis 1 the slot). Where padding is safe
+        the call is padded to ``slots`` rows and a bucket-multiple length;
+        otherwise the group is one prompt length and runs exact, with no pad
+        rows: pad tokens would enter SSM state, and pad rows would take MoE
+        expert capacity and shift real tokens' routing."""
+        maxlen = max(len(r.tokens) for r in grp)
+        rows = self.slots if self._pad_ok else len(grp)
+        if self._pad_ok:
+            maxlen = self._bucket_len(maxlen)
+        toks = np.zeros((rows, maxlen), np.int32)
         for j, r in enumerate(grp):
             r.trace.open("prefill", mode="batched", group=len(grp))
             toks[j, :len(r.tokens)] = r.tokens
         _, grp_cache = self.model.prefill(self.params, self._tensor(toks),
                                           self.max_seq)
         slots_idx = self._tensor(np.asarray([r.slot for r in grp]))
-        for full, new in zip(self.cache, grp_cache):
-            for key in ("k", "v"):
-                full[key][:, slots_idx] = new[key][:, :len(grp)]
+        for full, new in _leaf_pairs(self.cache, grp_cache):
+            full[:, slots_idx] = new[:, :len(grp)]
         self.metrics["prefills"] += 1
         self.metrics["prefill_requests"] += len(grp)
         for r in grp:
@@ -181,7 +197,8 @@ class ServingEngine:
             r.trace.open("decode")
 
     def _admit(self):
-        """Fill free slots from the queue with one padded batched prefill."""
+        """Fill free slots from the queue: one padded batched prefill, or
+        one exact prefill per prompt length where padding is unsafe."""
         batch: List[Request] = []
         for slot in range(self.slots):
             if self.active[slot] is not None:
@@ -198,18 +215,26 @@ class ServingEngine:
             batch.append(r)
         if not batch:
             return
-        try:
-            self._prefill_group(batch)
-        except Exception as exc:
-            # fail just this group: the requests were already pulled off the
-            # queue, so an unhandled raise would strand them
+        if self._pad_ok:
+            groups = [batch]
+        else:                   # SSM/MoE: exact lengths, no pad rows
+            by_len: dict = {}
             for r in batch:
-                r.slot = -1
-                if not r.future.done():
-                    r.future.set_exception(exc)
-            if self.monitor is not None:
-                self.monitor.log(self.name, "prefill_error",
-                                 error=repr(exc), requests=len(batch))
+                by_len.setdefault(len(r.tokens), []).append(r)
+            groups = list(by_len.values())
+        for grp in groups:
+            try:
+                self._prefill_group(grp)
+            except Exception as exc:
+                # fail just this group: the requests were already pulled off
+                # the queue, so an unhandled raise would strand them
+                for r in grp:
+                    r.slot = -1
+                    if not r.future.done():
+                        r.future.set_exception(exc)
+                if self.monitor is not None:
+                    self.monitor.log(self.name, "prefill_error",
+                                     error=repr(exc), requests=len(grp))
 
     # -- decode step -------------------------------------------------------
     @torch.inference_mode()
@@ -256,7 +281,9 @@ class ServingEngine:
         toks = np.zeros((self.slots, 1), np.int32)
         # idle rows decode a scratch token at position max_seq-1 (never
         # written or attended by a real request: admission requires
-        # len+1 <= max_seq and decode stops at pos+1 >= max_seq)
+        # len+1 <= max_seq and decode stops at pos+1 >= max_seq; an idle
+        # row's SSM state is overwritten when its slot is next admitted).
+        # They route through the MoE experts like real rows, as in JAX
         pos = np.full((self.slots,), self.max_seq - 1, np.int32)
         for i in active:
             r = self.active[i]

@@ -1,0 +1,68 @@
+"""The port's grouped matmul op (plain version on CPU tensors) against the
+JAX package's Pallas kernel in interpret mode and its jnp oracle, over the
+sweep of tests/test_kernels.py. Inputs are made with numpy from a seed and
+handed to both frameworks."""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels.grouped_matmul.ops import grouped_matmul as jax_gmm  # noqa: E402
+from repro.kernels.grouped_matmul.ref import grouped_matmul_ref as jax_ref  # noqa: E402
+from repro_torch.kernels.grouped_matmul import ops  # noqa: E402
+
+# (E, C, d, f, block_c, block_f, block_d): tests/test_kernels.py's sweep
+# (the JAX blocks only steer the Pallas tiling) and a reduced-granite shape
+SWEEP = [
+    (2, 64, 64, 64, 64, 64, 64),
+    (4, 96, 160, 192, 64, 64, 64),     # non-multiples (the padding path)
+    (8, 32, 128, 96, 32, 32, 128),
+    (8, 5, 64, 64, 128, 128, 256),     # reduced granite: tiny capacity
+]
+# the tolerances of tests/test_kernels.py: f32 agrees to summation order;
+# bf16 differs by one rounding of the output
+TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+
+
+def _inputs(e, c, d, f, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((e, c, d), np.float32) * 0.3
+    w = rng.standard_normal((e, d, f), np.float32) * 0.3
+    jx, jw = (jnp.asarray(a).astype(dtype) for a in (x, w))
+    tx, tw = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        getattr(torch, dtype)) for a in (jx, jw))
+    return (jx, jw), (tx, tw)
+
+
+@pytest.mark.parametrize("e,c,d,f,bc,bf,bd", SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_port_grouped_matmul_matches_pallas_kernel(e, c, d, f, bc, bf, bd,
+                                                   dtype):
+    (jx, jw), (tx, tw) = _inputs(e, c, d, f, dtype)
+    before = ops.launches
+    out = ops.grouped_matmul(tx, tw)
+    assert ops.launches == before          # CPU tensors: the plain version
+    assert out.dtype == tx.dtype and out.shape == (e, c, f)
+    want = jax_gmm(jx, jw, block_c=bc, block_f=bf, block_d=bd)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(jax_ref(jx, jw), np.float32),
+                               atol=tol, rtol=tol)
+
+
+def test_wrapper_rejects_bad_inputs():
+    x = torch.zeros((2, 3, 4))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.grouped_matmul(x, torch.zeros((2, 5, 6)))
+    with pytest.raises(ValueError, match="mixed dtypes"):
+        ops.grouped_matmul(x, torch.zeros((2, 4, 6), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="wants x"):
+        ops.grouped_matmul(x[0], torch.zeros((4, 6)))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.grouped_matmul(x.to("meta"), torch.zeros((2, 4, 6),
+                                                     device="meta"))

@@ -1,6 +1,6 @@
-"""The CUDA flash attention kernel against its plain version on the card
-(``pytest -m gpu``). Needs no JAX; skips without a card, decided inside the
-test so every worker collects the same tests."""
+"""The CUDA kernels (flash attention, grouped matmul, SSD) against their
+plain versions on the card (``pytest -m gpu``). Needs no JAX; skips without
+a card, decided inside the test so every worker collects the same tests."""
 import pytest
 import torch
 
@@ -46,3 +46,76 @@ def test_cuda_kernel_matches_plain_version(b, s, h, kv, d, win, cap, dtype):
     ref = attention_ref(q, k, v, window=win, softcap=cap)
     tol = _tol(dtype, s)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+# (E, C, d, f): tests/test_kernels.py's sweep, granite's capacity at a
+# 4-slot decode step and at a 1024-token prefill (C = 320)
+GMM_CASES = [(2, 64, 64, 64), (4, 96, 160, 192), (8, 32, 128, 96),
+             (32, 2, 1024, 512), (32, 2, 512, 1024), (32, 320, 1024, 512),
+             (32, 320, 512, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", GMM_CASES)
+def test_grouped_matmul_kernel_matches_plain_version(e, c, d, f, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_matmul import ops as gmm
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, w = ((torch.randn(shape, generator=gen, device="cuda") * 0.3).to(dtype)
+            for shape in ((e, c, d), (e, d, f)))
+    before = gmm.launches
+    out = gmm.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert gmm.launches == before + 1
+    # JAX's tolerances: f32 summation order; bf16 one output rounding
+    tol = 3e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), grouped_matmul_ref(x, w).float(),
+                               atol=tol, rtol=tol)
+
+
+# (b, s, nh, hd, ds, chunk): tests/test_kernels.py's sweep, mamba2-370m's
+# prefill shape, and lengths off the chunk grid through the padded op
+SSD_CASES = [(2, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
+             (2, 128, 4, 32, 16, 64), (1, 1024, 32, 64, 128, 256),
+             (1, 1000, 32, 64, 128, 256), (2, 77, 4, 128, 16, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,nh,hd,ds,ch", SSD_CASES)
+def test_ssd_kernel_matches_plain_version(b, s, nh, hd, ds, ch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd import ops as ssd
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+    from repro_torch.models.mamba2 import ssd_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = rnd(b, s, nh, hd) * 0.3
+    dt = torch.nn.functional.softplus(rnd(b, s, nh))
+    A = -torch.exp(torch.linspace(0.0, 1.0, nh, device="cuda"))
+    B, C = rnd(b, s, ds) * 0.3, rnd(b, s, ds) * 0.3
+    if s % ch == 0:        # the kernel alone against its plain version
+        nc = s // ch
+        a = (dt.reshape(b, nc, ch, nh) * A).permute(0, 3, 1, 2).contiguous()
+        xdt = (x.reshape(b, nc, ch, nh, hd) * dt.reshape(b, nc, ch, nh, 1)
+               ).permute(0, 3, 1, 2, 4).contiguous()
+        Bc, Cc = (v.reshape(b, nc, ch, ds) for v in (B, C))
+        before = ssd.launches
+        y, S = ssd.ssd_intra_chunk(a, xdt, Bc, Cc)
+        torch.cuda.synchronize()
+        assert ssd.launches == before + 1
+        ry, rS = ssd_intra_chunk_ref(a, xdt, Bc, Cc)
+        torch.testing.assert_close(y, ry, atol=5e-4, rtol=5e-3)
+        torch.testing.assert_close(S, rS, atol=5e-4, rtol=5e-3)
+    # the op (padded to the chunk grid) against the sequential scan
+    y, st = ssd.ssd_chunked(x, dt, A, B, C, ch)
+    ry, rst = ssd_ref(x, dt, A, B, C)
+    torch.testing.assert_close(y, ry, atol=5e-4, rtol=5e-3)
+    torch.testing.assert_close(st, rst, atol=5e-4, rtol=5e-3)

@@ -1,7 +1,8 @@
-"""The port's dense transformer against the JAX package's, from the same
+"""The port's models against the JAX package's, from the same
 JAX-initialised params carried across as numpy (``repro_torch.models.params``).
 Reduced yi-9b in float32 on the CPU: prefill caches and logits, then 16
-decode steps of logits, then greedy tokens."""
+decode steps of logits, then greedy tokens; reduced granite-moe, llama4 and
+mamba2: prefill logits and caches, then 8 decode steps of logits."""
 import dataclasses
 from types import SimpleNamespace
 
@@ -25,15 +26,20 @@ from repro_torch.serving.engine import greedy_generate  # noqa: E402
 # 64-wide matmuls and a 503-way unembed (logits are O(10))
 TOL = 2e-5
 MAX_SEQ = 48
+# the families of this slice; f32 on both sides, as above, over a second
+# layer of routing (MoE) or a chunked against a sequential scan (SSM)
+GRANITE, LLAMA4, MAMBA = ("granite-moe-1b-a400m",
+                          "llama4-maverick-400b-a17b", "mamba2-370m")
+FAMILY_TOL = 5e-5
 
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _models(dtype="float32"):
-    jcfg = dataclasses.replace(reduced(get_config("yi-9b")), dtype=dtype)
-    tcfg = dataclasses.replace(t_reduced(t_get_config("yi-9b")), dtype=dtype)
+def _models(dtype="float32", arch="yi-9b"):
+    jcfg = dataclasses.replace(reduced(get_config(arch)), dtype=dtype)
+    tcfg = dataclasses.replace(t_reduced(t_get_config(arch)), dtype=dtype)
     eager = jax_build(jcfg)
     jp, _ = eager.init(jax.random.PRNGKey(0))
     # the same model functions, jitted: eager scans re-trace every call
@@ -89,6 +95,90 @@ def test_bridge_rejects_foreign_trees():
         bridge.params_from_numpy({"embed": {}}, "cpu")
     with pytest.raises(ValueError):
         bridge.caches_from_numpy([{"k": np.zeros(1)}], "cpu")
+    # the hybrid model's trees (zamba2: a shared attention block beside the
+    # mamba stack; caches as a (mamba, attention) pair) are not ported
+    z = np.zeros(1)
+    with pytest.raises(ValueError):
+        bridge.params_from_numpy({"embed": {"tok": z}, "mamba": {"ln": z},
+                                  "shared": {}, "final_norm": z}, "cpu")
+    with pytest.raises(ValueError):
+        bridge.params_from_numpy({"embed": {"tok": z}, "mamba": {"ln": z},
+                                  "final_norm": z}, "cpu")
+    with pytest.raises(ValueError):
+        bridge.caches_from_numpy(({"conv": {}, "ssd": z}, {"k": z, "v": z}),
+                                 "cpu")
+    with pytest.raises(ValueError):
+        bridge.caches_from_numpy({"conv": {"x": z}, "ssd": z}, "cpu")
+
+
+@pytest.mark.parametrize("arch", [GRANITE, MAMBA])
+def test_bridge_carries_moe_and_ssm_trees_bit_exact(arch):
+    """bf16 models: every leaf keeps its dtype across the bridge and
+    ``to_device``; the f32 leaves (router, A_log, D, dt_bias, the SSD state)
+    stay f32."""
+    jm, jp, tm, tp = _models("bfloat16", arch)
+    _assert_tree_equal(_np_tree(jp), bridge.params_to_numpy(tp))
+    moved = bridge.to_device(tp, "cpu")
+    f32 = [path for path, leaf in jax.tree_util.tree_leaves_with_path(
+        bridge.params_to_numpy(moved)) if leaf.dtype == np.float32]
+    names = {str(path[-1].key) for path in f32}
+    assert names == ({"router"} if arch == GRANITE
+                     else {"A_log", "D", "dt_bias"})
+    toks = np.random.default_rng(0).integers(1, 503, (2, 9))
+    _, jc = jm.prefill(jp, jnp.asarray(toks, jnp.int32), MAX_SEQ)
+    jc = _np_tree(jc)
+    tc = bridge.caches_from_numpy(jc, "cpu")
+    _assert_tree_equal(jc, bridge.caches_to_numpy(tc))
+    if arch == MAMBA:
+        assert tc["ssd"].dtype == torch.float32
+        assert tc["conv"]["x"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", [GRANITE, MAMBA])
+def test_port_init_matches_jax_layout_and_scales_moe_ssm(arch):
+    """The MoE and SSM inits draw every leaf with the JAX init's shape,
+    dtype and scale, f32 leaves included."""
+    jm, jp, tm, _ = _models("bfloat16", arch)
+    tp = tm.init(torch.Generator().manual_seed(0))
+    jl = jax.tree_util.tree_leaves_with_path(_np_tree(jp))
+    tl = jax.tree_util.tree_leaves_with_path(bridge.params_to_numpy(tp))
+    assert [p for p, _ in jl] == [p for p, _ in tl]
+    for (path, a), (_, b) in zip(jl, tl):
+        assert a.shape == b.shape and a.dtype == b.dtype, path
+        a, b = a.astype(np.float32), b.astype(np.float32)
+        if a.std() > 0 and a.size > 64:
+            np.testing.assert_allclose(b.std(), a.std(), rtol=0.15)
+
+
+@pytest.mark.parametrize("arch", [GRANITE, LLAMA4, MAMBA])
+def test_prefill_and_decode_match_jax_moe_ssm(arch):
+    jm, jp, tm, tp = _models(arch=arch)
+    toks = np.random.default_rng(3).integers(1, 503, (2, 37))
+    jl, jc = jm.prefill(jp, jnp.asarray(toks, jnp.int32), MAX_SEQ)
+    tol = FAMILY_TOL
+    with torch.inference_mode():
+        tl, tc = tm.prefill(tp, torch.from_numpy(toks), MAX_SEQ)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=tol,
+                                   rtol=tol)
+        for (path, a), (_, b) in zip(
+                jax.tree_util.tree_leaves_with_path(
+                    bridge.caches_to_numpy(tc)),
+                jax.tree_util.tree_leaves_with_path(_np_tree(jc))):
+            np.testing.assert_allclose(a, b, atol=tol, rtol=tol,
+                                       err_msg=str(path))
+        pos = np.full((2,), 37)
+        nxt = np.asarray(jnp.argmax(jl[:, -1, :503], -1))
+        for _ in range(8):
+            jl, jc = jm.decode(jp, jc, jnp.asarray(nxt[:, None], jnp.int32),
+                               jnp.asarray(pos, jnp.int32))
+            tl, tc = tm.decode(tp, tc, torch.from_numpy(nxt[:, None].copy()),
+                               torch.from_numpy(pos))
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=tol,
+                                       rtol=tol)
+            nxt = np.asarray(jnp.argmax(jl[:, 0, :503], -1))
+            np.testing.assert_array_equal(
+                tl[:, 0, :503].argmax(-1).numpy(), nxt)
+            pos = pos + 1
 
 
 def test_prefill_and_decode_match_jax():
@@ -130,7 +220,7 @@ def test_greedy_tokens_match_jax():
 
 
 def test_unported_configs_raise():
-    for arch in ("qwen2-72b", "gemma2-27b", "mamba2-370m",
-                 "granite-moe-1b-a400m"):
+    for arch in ("qwen2-72b", "gemma2-27b", "zamba2-1.2b",
+                 "musicgen-medium"):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(t_reduced(t_get_config(arch)), device="cpu")

@@ -1,7 +1,9 @@
 """The port's serving plane on the CPU: engine tokens against the JAX
 package's ``greedy_generate`` (float32, params bridged from the JAX model),
 slot reuse, a 2-replica ReplicaSet, the Poisson driver, and entry points
-that refuse to fall back to the CPU silently."""
+that refuse to fall back to the CPU silently. For the MoE and SSM families
+(exact per-length prefill groups): engine tokens and prefill counts against
+the JAX engine's."""
 import dataclasses
 import time
 from types import SimpleNamespace
@@ -14,6 +16,7 @@ import torch  # noqa: E402
 
 from repro.configs import get_config, reduced  # noqa: E402
 from repro.models.model import build_model as jax_build  # noqa: E402
+from repro.serving.engine import ServingEngine as JaxEngine  # noqa: E402
 from repro.serving.engine import greedy_generate as jax_greedy  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs import reduced as t_reduced  # noqa: E402
@@ -162,3 +165,60 @@ def test_entry_points_without_a_device_raise_on_a_cpu_host(models,
         serve.build_replicaset("yi-9b", replicas=1, slots=2, max_seq=64)
     with pytest.raises(RuntimeError, match=match):
         serve.main(["--requests", "1"])
+
+
+def _family_models(arch):
+    jcfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+    jm = jax_build(jcfg)
+    jp, _ = jm.init(jax.random.PRNGKey(0))
+    tcfg = dataclasses.replace(t_reduced(t_get_config(arch)),
+                               dtype="float32")
+    tm = build_model(tcfg, device="cpu")
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return jm, jp, tm, tp
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m"])
+def test_exact_length_groups_match_the_jax_engine(arch):
+    """MoE and SSM models admit one exact prefill call per prompt length
+    (no pad rows: they would take expert capacity or enter SSM state). A
+    mixed batch with one repeated length gives the JAX engine's tokens and
+    its number of prefill calls; idle decode rows route like JAX's."""
+    jm, jp, tm, tp = _family_models(arch)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 503, size=n) for n in (9, 21, 9, 4, 40, 33)]
+    engines = (JaxEngine(jm, jp, slots=3, max_seq=64),
+               ServingEngine(tm, tp, slots=3, max_seq=64, device="cpu"))
+    outs = []
+    for eng in engines:
+        futs = [eng.submit(p, max_new_tokens=5) for p in prompts]
+        eng.run_until_idle()
+        outs.append([f.result() for f in futs])
+    for want, got in zip(*outs):
+        np.testing.assert_array_equal(got, want)
+    jax_eng, eng = engines
+    # slots 3: (9, 21, 9) admit as groups {9: 2 rows, 21}, then the rest
+    assert eng.metrics["prefills"] == jax_eng.metrics["prefills"] >= 5
+    assert eng.metrics["prefill_requests"] == len(prompts)
+    assert eng.metrics["decode_steps"] == jax_eng.metrics["decode_steps"]
+
+
+def test_mamba_engine_matches_greedy_generate():
+    """With no capacity routing, a row's tokens do not depend on its batch
+    mates: the SSM engine emits the batch-1 greedy oracle's tokens."""
+    _, _, tm, tp = _family_models("mamba2-370m")
+    eng = ServingEngine(tm, tp, slots=3, max_seq=MAX_SEQ, device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 503, size=n) for n in (4, 17, 17, 50, 2)]
+    futs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+    eng.run_until_idle()
+    for p, f in zip(prompts, futs):
+        np.testing.assert_array_equal(
+            f.result(), greedy_generate(tm, tp, p, 6, MAX_SEQ))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m"])
+def test_main_serves_moe_and_ssm_archs_on_cpu(arch):
+    rep = serve.main(["--arch", arch, "--device", "cpu", "--requests", "4",
+                      "--rate", "0", "--max-new", "3", "--replicas", "1"])
+    assert rep["completed"] == 4 and rep["tokens"] == 12

@@ -1,0 +1,97 @@
+"""The port's SSD ops (plain version on CPU tensors) against the JAX
+package: ``ssd_intra_chunk`` against the Pallas kernel in interpret mode,
+``ssd_chunked`` against ``ssd_chunked_pallas`` and the sequential
+``ssd_ref``, over the sweep of tests/test_kernels.py and lengths that are
+not a multiple of the chunk (the port pads those with dt = 0). Inputs are
+made with numpy from a seed and handed to both frameworks."""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels.ssd.kernel import ssd_intra_chunk as jax_intra  # noqa: E402
+from repro.kernels.ssd.ops import ssd_chunked_pallas  # noqa: E402
+from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd import ops  # noqa: E402
+
+# (s, nh, hd, ds, chunk): tests/test_kernels.py's sweep
+SWEEP = [(64, 2, 16, 8, 16), (128, 4, 32, 16, 32), (128, 4, 32, 16, 64)]
+# lengths off the chunk grid: one short tail, one short of a single chunk
+RAGGED = [(100, 4, 32, 16, 32), (13, 2, 16, 8, 16)]
+# tests/test_kernels.py's tolerance: f32 throughout, summation order and the
+# chunked against the sequential association of the decays
+ATOL, RTOL = 5e-4, 5e-3
+
+
+def _inputs(s, nh, hd, ds, seed=0, b=2):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, nh, hd), np.float32) * 0.3
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, nh)))).astype(np.float32)
+    A = (-np.exp(np.linspace(0.0, 1.0, nh))).astype(np.float32)
+    B = rng.standard_normal((b, s, ds), np.float32) * 0.3
+    C = rng.standard_normal((b, s, ds), np.float32) * 0.3
+    arrays = (x, dt, A, B, C)
+    return (tuple(jnp.asarray(a) for a in arrays),
+            tuple(torch.from_numpy(a) for a in arrays))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("s,nh,hd,ds,ch", SWEEP)
+def test_intra_chunk_matches_pallas_kernel(s, nh, hd, ds, ch):
+    rng = np.random.default_rng(1)
+    b, nc = 2, s // ch
+    a = -np.abs(rng.standard_normal((b, nh, nc, ch), np.float32)) * 0.5
+    xdt = rng.standard_normal((b, nh, nc, ch, hd), np.float32) * 0.3
+    B = rng.standard_normal((b, nc, ch, ds), np.float32) * 0.3
+    C = rng.standard_normal((b, nc, ch, ds), np.float32) * 0.3
+    before = ops.launches
+    y, S = ops.ssd_intra_chunk(*(torch.from_numpy(v) for v in (a, xdt, B, C)))
+    assert ops.launches == before          # CPU tensors: the plain version
+    jy, jS = jax_intra(*(jnp.asarray(v) for v in (a, xdt, B, C)),
+                       interpret=True)
+    assert y.shape == jy.shape and S.shape == jS.shape
+    _close(y, jy)
+    _close(S, jS)
+
+
+@pytest.mark.parametrize("s,nh,hd,ds,ch", SWEEP)
+def test_chunked_matches_pallas_op_and_sequential_ref(s, nh, hd, ds, ch):
+    j, t = _inputs(s, nh, hd, ds)
+    y, st = ops.ssd_chunked(*t, chunk=ch)
+    assert y.shape == (2, s, nh, hd) and st.shape == (2, nh, hd, ds)
+    jy, jst = ssd_chunked_pallas(*j, chunk=ch)
+    _close(y, jy)
+    _close(st, jst)
+    ry, rst = jax_ssd_ref(*j)
+    _close(y, ry)
+    _close(st, rst)
+
+
+@pytest.mark.parametrize("s,nh,hd,ds,ch", RAGGED)
+def test_chunked_pads_a_ragged_tail_exactly(s, nh, hd, ds, ch):
+    """y and the final state at a length off the chunk grid agree with the
+    sequential scan: the dt = 0 padding changes nothing."""
+    j, t = _inputs(s, nh, hd, ds, seed=2)
+    y, st = ops.ssd_chunked(*t, chunk=ch)
+    assert y.shape == (2, s, nh, hd)
+    ry, rst = jax_ssd_ref(*j)
+    _close(y, ry)
+    _close(st, rst)
+
+
+def test_wrapper_rejects_bad_inputs():
+    a = torch.zeros((1, 2, 1, 8))
+    xdt = torch.zeros((1, 2, 1, 8, 16))
+    B = torch.zeros((1, 1, 8, 4))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.ssd_intra_chunk(a, xdt[:, :1], B, B)
+    with pytest.raises(ValueError, match="float32"):
+        ops.ssd_intra_chunk(a, xdt, B.bfloat16(), B.bfloat16())
+    with pytest.raises(ValueError, match="wants a"):
+        ops.ssd_intra_chunk(a[0], xdt, B, B)
