@@ -4,8 +4,10 @@
 
 Phases, one JSON line each: the device; the build of every kernel from the
 sources in this checkout (one nvcc per source, all started together,
-sm_90a); every kernel against its plain PyTorch version on the card; kernel
-timings at the serving shapes beside their bound and a library yardstick;
+sm_90a), with each kernel's tensor-core instruction count from
+``cuobjdump -sass``; every kernel against its plain PyTorch version on the
+card; kernel timings at the serving shapes beside their bound and a library
+yardstick (the grouped matmul also with a cold L2);
 full-width (depth 2, float32) engine tokens against a reference for yi-9b
 and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
 same engine on the CPU); then yi-9b, granite-moe-1b-a400m and mamba2-370m
@@ -22,6 +24,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -45,10 +48,21 @@ SWEEP = [(2, 128, 4, 4, 32, 0, 0.0), (2, 192, 4, 2, 64, 0, 0.0),
 YI_PREFILL = (4, 1024, 32, 4, 128, 0, 0.0)
 GRANITE_ATTN = (1, 1024, 16, 8, 64, 0, 0.0)
 
+# the bf16 kernel's edges: D = 16 and 256 with window and softcap, S off the
+# q tile
+FLASH_EDGES = [(2, 100, 4, 2, 16, 40, 30.0), (1, 200, 2, 1, 256, 64, 50.0),
+               (2, 77, 4, 4, 128, 0, 20.0)]
+
 # grouped matmul, (E, C, d, f): tests/test_kernels.py's sweep, then granite's
 # expert products at a 1024-token prefill (C = 320) and a 4-slot decode
 # step (C = 2): wi/wg (d -> f) and wo (f -> d)
 GMM_SWEEP = [(2, 64, 64, 64), (4, 96, 160, 192), (8, 32, 128, 96)]
+# the bf16 dispatch edges at granite's widths: C = 1, 2, 3, the streaming
+# threshold (16) and one either side, ragged prefill capacities; and a
+# streaming call ragged in d and f
+GMM_EDGES = [(32, c, 1024, 512) for c in (1, 2, 3, 15, 16, 17, 80, 157)] + [
+    (4, 5, 104, 72)]
+L2_BYTES = 50 * 2**20         # H100 L2; cold timing rotates past it
 GMM_PREFILL = (32, 320, 1024, 512)
 GMM_PREFILL_WO = (32, 320, 512, 1024)
 GMM_DECODE = (32, 2, 1024, 512)
@@ -75,18 +89,93 @@ def fail(msg: str):
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls. The
+    device first spins (``torch.cuda._sleep``) while the host queues every
+    call, so a call whose host side outlasts its kernel is timed by its
+    kernel, not by the host; the spin doubles until the queue is ahead, and
+    a reading the host still held back is a failure, not a time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    spin = 200_000 * iters        # cycles, ~0.1 ms a call at ~2 GHz
+    for _ in range(8):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(spin)
+        marks[1].record()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        queued_ms = (time.perf_counter() - t) * 1e3
+        marks[2].record()
+        marks[2].synchronize()
+        if queued_ms < marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / iters
+        spin *= 2
+    fail(f"timing: the host took {queued_ms:.3f} ms to queue {iters} calls, "
+         f"longer than the device's longest spin")
+
+
+def cold_ms(fn, sets, iters: int) -> float:
+    """``cuda_ms`` of ``fn(s)`` over a rotation of ``sets`` whose total
+    exceeds the L2, so each call finds its operand in device memory."""
+    i = [0]
+
+    def call():
+        i[0] += 1
+        return fn(sets[i[0] % len(sets)])
+    return cuda_ms(call, iters)
+
+
+def sass_mma_counts(lib: Path) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel of a built
+    library, from ``cuobjdump -sass`` of the toolkit that built it; each
+    kernel named by ``cu++filt``, without its parameters."""
+    from repro_torch.kernels import _build
+    tools = Path(_build.nvcc()).parent
+    sass = subprocess.run([str(tools / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    names = subprocess.run([str(tools / "cu++filt"), *counts],
+                           capture_output=True, text=True, timeout=60,
+                           check=True).stdout.splitlines()
+    labels = [without_params(re.sub(r"^void |<unnamed>::|\(anonymous "
+                                    r"namespace\)::", "", n)) for n in names]
+    if len(set(labels)) != len(counts):
+        fail(f"cu++filt named {len(set(labels))} of {len(counts)} kernels: "
+             f"{labels}")
+    return dict(zip(labels, counts.values()))
+
+
+def without_params(name: str) -> str:
+    """A demangled function name without its trailing parameter list (the
+    template arguments may hold parentheses too, as in ``(int)128``)."""
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i]
+    return name
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Host time to issue one call of ``fn`` (no wait for the device), in
+    microseconds: what a call costs a host-bound step."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     for _ in range(iters):
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def host_ms(fn, iters: int = 3) -> float:
@@ -259,8 +348,19 @@ def main():
         ptxas = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln
                  or "Compiling entry" in ln]
+        mma = sass_mma_counts(lib)
         emit({"phase": "build", "kernel": name, "library": lib.name,
-              "nvcc_seconds": secs, "ptxas": ptxas})
+              "nvcc_seconds": secs, "ptxas": ptxas,
+              "sass_tensor_core_instructions": mma})
+        # the bf16 products must run on the tensor cores
+        bf16 = {k: n for k, n in mma.items() if any(
+            s in k for s in ("flash_fwd_bf16_kernel", "gmm_tile_kernel",
+                             "gmm_stream_kernel"))}
+        if name in ("flash_attention", "grouped_matmul") and (
+                not bf16 or min(bf16.values()) == 0):
+            fail(f"{name}: a bf16 kernel issues no tensor-core instruction "
+                 f"({mma})")
+        kernels[name]["sass_tensor_core_instructions"] = mma
     for op in ops.values():
         op.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
@@ -269,7 +369,7 @@ def main():
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     misses = []
-    for case in SWEEP + [YI_PREFILL, GRANITE_ATTN]:
+    for case in SWEEP + FLASH_EDGES + [YI_PREFILL, GRANITE_ATTN]:
         b, s, h, kv, d, win, cap = case
         for dtype in (torch.float32, torch.bfloat16):
             q = randn((b, s, h, d), dtype, gen)
@@ -279,7 +379,8 @@ def main():
             torch.cuda.synchronize()
             ref = attention_ref(q, k, v, window=win, softcap=cap)
             # f32: summation order (longer rows at S=1024); bf16: output
-            # rounding, the kernel keeps probabilities in f32
+            # rounding, and the kernel rounds probabilities to bf16 before
+            # P.V (relative error at most 2^-9 each)
             tol = 2e-2 if dtype == torch.bfloat16 else (
                 1e-4 if s >= 1024 else 2e-5)
             err, ok = close(out, ref, tol)
@@ -294,19 +395,26 @@ def main():
                 kernels["flash_attention"].update(
                     max_abs_err=err, max_err=err, tol=tol)
     for case in GMM_SWEEP + [GMM_PREFILL, GMM_PREFILL_WO, GMM_DECODE,
-                             GMM_DECODE_WO]:
+                             GMM_DECODE_WO] + GMM_EDGES:
         e, c, d, f = case
         for dtype in (torch.float32, torch.bfloat16):
             x = randn((e, c, d), dtype, gen, 0.3)
             w = randn((e, d, f), dtype, gen, 0.3)
+            variant = ("f32" if dtype == torch.float32
+                       else gmm_ops._plan(c, d, f))
+            before = dict(gmm_ops.launches_by_variant)
             out = gmm_ops.grouped_matmul(x, w)
             torch.cuda.synchronize()
+            went = {k: n - before[k]
+                    for k, n in gmm_ops.launches_by_variant.items()}
             # JAX's tolerances: f32 summation order, bf16 one output rounding
             tol = 3e-4 if dtype == torch.float32 else 3e-2
             err, ok = close(out, grouped_matmul_ref(x, w), tol)
+            ok = ok and went == {k: int(k == variant) for k in went}
             emit({"phase": "kernel_vs_plain", "kernel": "grouped_matmul",
                   "shape": {"E": e, "C": c, "d": d, "f": f},
                   "dtype": str(dtype).removeprefix("torch."),
+                  "variant": variant, "launched": went,
                   "max_abs_err": err, "tol": tol, "ok": ok})
             if not ok:
                 misses.append(("grouped_matmul", case, str(dtype)))
@@ -370,7 +478,9 @@ def main():
     bound_ms, bound_by = attention_bound_ms(b, s, h, kv, d, win, dtype)
     timings["flash_attention"] = {
         "kernel_ms": kernel_ms, "ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "share_of_bound": bound_ms / kernel_ms,
+        "host_us_per_call": host_us(lambda: fa_ops.flash_attention(q, k, v))}
     emit({"phase": "timing", "kernel": "flash_attention",
           "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
           "dtype": "bfloat16", **timings["flash_attention"],
@@ -392,11 +502,26 @@ def main():
                                 ("decode_wi", GMM_DECODE),
                                 ("decode_wo", GMM_DECODE_WO)):
         x = randn((e, c, d), dtype, gen, 0.3)
-        w = randn((e, d, f), dtype, gen, 0.3)
-        t = {"kernel_ms": cuda_ms(lambda: gmm_ops.grouped_matmul(x, w), 20),
+        # weight sets past the L2: the served path's 24 layers each hold
+        # their own experts, so a call finds its weights in device memory
+        nbytes_w = e * d * f * 2
+        ws = [randn((e, d, f), dtype, gen, 0.3)
+              for _ in range(2 + 2 * L2_BYTES // nbytes_w)]
+        w = ws[0]
+        t = {"kernel_ms": cold_ms(lambda w: gmm_ops.grouped_matmul(x, w), ws,
+                                  40),
+             "kernel_warm_ms": cuda_ms(lambda: gmm_ops.grouped_matmul(x, w),
+                                       40),
              "plain_ms": cuda_ms(lambda: grouped_matmul_ref(x, w), 10),
-             "library_ms": cuda_ms(lambda: torch.bmm(x, w), 20)}
+             "library_ms": cold_ms(lambda w: torch.bmm(x, w), ws, 40),
+             "library_warm_ms": cuda_ms(lambda: torch.bmm(x, w), 40),
+             "weight_sets": len(ws), "variant": gmm_ops._plan(c, d, f)}
         t["bound_ms"], t["bound_by"] = gmm_bound_ms(e, c, d, f, dtype)
+        t["share_of_bound"] = t["bound_ms"] / t["kernel_ms"]
+        t["share_of_bound_warm"] = t["bound_ms"] / t["kernel_warm_ms"]
+        # above 1 the reading came from the L2: not a result
+        t["warm_l2_reading"] = t["share_of_bound"] > 1
+        t["host_us_per_call"] = host_us(lambda: gmm_ops.grouped_matmul(x, w))
         gmm_ms[label] = t["kernel_ms"]
         emit({"phase": "timing", "kernel": "grouped_matmul", "call": label,
               "shape": {"E": e, "C": c, "d": d, "f": f}, "dtype": "bfloat16",
@@ -406,6 +531,7 @@ def main():
               / (t["kernel_ms"] * 1e-3) / 1e12, "card": smi})
         if label == "prefill_wi":
             timings["grouped_matmul"] = dict(t, ms=t["kernel_ms"])
+        del x, w, ws
 
     b, s, nh, hd, ds, ch = SSD_PREFILL
     a, xdt, Bc, Cc = ssd_kernel_inputs(*ssd_inputs(b, s, nh, hd, ds, gen), ch)
@@ -471,6 +597,8 @@ def main():
     parity("mamba2-370m", (64, 200, 377, 512), "greedy_oracle")
 
     # -- 6. serve each model at full depth, bf16, through the entry points --
+    variant_counts = {}      # grouped matmul kernels of each served run
+
     def serve(arch, expect):
         """Drive the served path with every launch count set to 0 just
         before and read just after; fail unless every request completes and
@@ -486,6 +614,8 @@ def main():
                                lo=LOAD["lo"], hi=LOAD["hi"])
         for op in ops.values():
             op.launches = 0
+        gmm_ops.launches_by_variant.update(
+            dict.fromkeys(gmm_ops.launches_by_variant, 0))
         rs.start()
         try:
             report = run_load(rs, prompts, rate_rps=LOAD["rate_rps"],
@@ -494,6 +624,8 @@ def main():
         finally:
             rs.stop()
         launches = {name: op.launches for name, op in ops.items()}
+        by_variant = variant_counts[cfg.name] = dict(
+            gmm_ops.launches_by_variant)
         total = rs.metrics()["total"]
         prefills, steps = total["prefills"], total["decode_steps"]
         want = expect(prefills, steps)
@@ -504,6 +636,7 @@ def main():
               "max_new_tokens": LOAD["max_new_tokens"], "report": report,
               "prefill_calls": prefills, "decode_steps": steps,
               "launches": launches, "expected_launches": want,
+              "grouped_matmul_launches_by_variant": by_variant,
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
               "init_seconds": init_s, "card": smi,
               "seconds": time.perf_counter() - t0})
@@ -515,6 +648,15 @@ def main():
         if prefills <= 0 or launches != want:
             fail(f"{arch}: kernel launches {launches}, expected {want} for "
                  f"{prefills} prefill calls and {steps} decode steps")
+        # bf16 MoE: every prefill group's capacity (>= 80 at 256 tokens)
+        # takes the tile kernel, every 4-slot decode step's (2) the
+        # streaming kernel
+        per_call = want["grouped_matmul"] // max(prefills + steps, 1)
+        want_variants = {"tile": per_call * prefills,
+                         "stream": per_call * steps, "f32": 0}
+        if by_variant != want_variants:
+            fail(f"{arch}: grouped matmul kernels {by_variant}, expected "
+                 f"{want_variants}")
         return rs, cfg, launches
 
     def breakdown(rs, cfg, rows, shares):
@@ -587,6 +729,8 @@ def main():
         kernels[name]["launches_path"] = arch
         kernels[name]["launches_by_path"] = {a: c[name]
                                              for a, c in counts.items()}
+    kernels["grouped_matmul"]["launches_by_variant"] = variant_counts[
+        "granite-moe-1b-a400m"]
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": device})
 

@@ -1,10 +1,11 @@
 """Build a kernel source with ``nvcc`` into a shared library at first use.
 
 Each ``csrc/*.cu`` file exposes a plain C interface and is loaded with
-``ctypes``. The library goes into ``build/kernels/`` at the root of the
-checkout (listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused. There
-is no fallback: without ``nvcc`` the build raises.
+``ctypes``; the headers they share live in ``kernels/csrc/``. The library
+goes into ``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``), named by a hash of the source, the shared headers and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. There is no fallback: without ``nvcc`` the build raises.
 """
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ import time
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(INCLUDE_DIR))
 
 _lock = threading.Lock()
 _loaded: dict = {}      # library path -> ctypes.CDLL, one load per process
@@ -43,8 +46,11 @@ def build(source: Path) -> tuple[Path, str, float]:
     library path, the compiler's ``-Xptxas -v`` report and the seconds the
     build took (0.0 when the library was already there)."""
     source = Path(source)
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS[:-1]).encode())   # not the checkout's path
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{digest}.so"
     log = lib.with_suffix(".log")
     if lib.exists():

@@ -8,26 +8,49 @@
 //
 // What bounds it on this card: at the serving prefill shape (bf16, B=4,
 // S=1024, H=32, KV=4, D=128, causal) the work is ~34 GFLOP against ~76 MB of
-// q/k/v/o traffic, so the tensor cores would bound it (~35 us at 989 TFLOP/s).
-// This first version does not use them: both products run as f32 FMAs on the
-// CUDA cores from shared-memory tiles, so it is bound by the FMA rate and the
-// shared-memory bandwidth that feeds it, far above the tensor-core bound.
-// What the design does about the rest:
-//   * score/probability tiles never reach device memory (shared memory only);
+// q/k/v/o traffic, so the tensor cores bound it (~35 us at 989 TFLOP/s).
+// Both dtypes share what keeps work and traffic down:
+//   * score/probability tiles never reach device memory;
 //   * KV tiles wholly above the causal diagonal or wholly outside the window
 //     are skipped, not visited and masked as the TPU grid does;
 //   * GQA maps q head h to kv head h / (H / KV): K and V are never repeated;
 //   * q, k, v are read in place in the model's (B, S, H, D) / (B, S, KV, D)
 //     layout (no transpose, no padding copy); the kernel masks the tail;
 //   * q tiles are issued last-first so the long causal rows start early.
-// wgmma, TMA and warp specialisation are left for a later version.
+//
+// bf16 (the serving path): both products on the tensor cores as warpgroup
+// products (wgmma.m64nNk16, bf16 operands, f32 accumulation). A block of
+// one warpgroup owns 64 q rows of one (b, h). K and V tiles arrive with
+// cp.async in a ring of shared-memory stages, in 128-byte-swizzled rows,
+// so the next tile's copy overlaps this tile's products. S = Q.K^T runs
+// from shared memory (Q and K K-major) into registers; the online softmax
+// runs on that fragment (a row lives in the 4 threads of a quad, so its
+// max and sum are two __shfl_xor); P, rounded to bf16, is the A operand of
+// P.V straight from registers (the TPU kernel keeps P in f32: a relative
+// error of at most 2^-9 a probability), with V the MN-major B operand. The
+// block issues Q.K^T of tile j and P.V of tile j - 1 together and runs the
+// softmax of tile j while P.V is on the tensor cores. m and l stay f32.
+// What holds it back: every thread copies K and V (cp.async, not TMA),
+// each block reads K and V for only 64 q rows, and Q.K^T still waits for
+// the softmax before it; TMA loads from one producer thread and 128-row q
+// tiles shared by two warpgroups scheduled apart (as FlashAttention-3
+// does) are the next step.
+//
+// f32 (the parity runs, where TF32 would change tokens): f32 FMAs on the
+// CUDA cores from padded shared-memory tiles, far above the bound.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core FMAs
+namespace f32 {
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // kv rows per tile
@@ -38,19 +61,6 @@ constexpr int CJ = BK / TPR;    // score columns per thread
 constexpr int NWARP = NT / 32;
 static_assert(BK == 64, "the softmax pass gives each lane two columns");
 static_assert(BQ % NWARP == 0, "the softmax pass splits rows over warps");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -64,11 +74,12 @@ constexpr size_t smem_bytes() {
 // One block per (q tile, b * H + h). Thread (ty, tx) owns query rows
 // ty + 16 i and score columns tx + 16 j; for the output it owns rows
 // ty + 16 i and head-dim columns tx + 16 j.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int KV, float scale, int causal, int window, float softcap) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int S, int H, int KV, float scale, int causal,
+                     int window, float softcap) {
   static_assert(D % TPR == 0, "head dim must be a multiple of 16");
   constexpr int LD = D + 1;
   constexpr int LP = BK + 1;
@@ -92,14 +103,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KV);
   const long q_stride = long(H) * D;     // between sequence positions
   const long kv_stride = long(KV) * D;
-  const T* qb = q + (long(b) * S * H + h) * D;
-  const T* kb = k + (long(b) * S * KV + kvh) * D;
-  const T* vb = v + (long(b) * S * KV + kvh) * D;
-  T* ob = o + (long(b) * S * H + h) * D;
+  const float* qb = q + (long(b) * S * H + h) * D;
+  const float* kb = k + (long(b) * S * KV + kvh) * D;
+  const float* vb = v + (long(b) * S * KV + kvh) * D;
+  float* ob = o + (long(b) * S * H + h) * D;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D, s = q0 + r;
-    sQ[r * LD + c] = s < S ? to_f32(qb[s * q_stride + c]) : 0.f;
+    sQ[r * LD + c] = s < S ? qb[s * q_stride + c] : 0.f;
   }
   if (tid < BQ) {
     sM[tid] = -INFINITY;
@@ -122,8 +133,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, c = i % D, s = k0 + r;
       const bool ok = s < S;
-      sK[r * LD + c] = ok ? to_f32(kb[s * kv_stride + c]) : 0.f;
-      sV[r * D + c] = ok ? to_f32(vb[s * kv_stride + c]) : 0.f;
+      sK[r * LD + c] = ok ? kb[s * kv_stride + c] : 0.f;
+      sV[r * D + c] = ok ? vb[s * kv_stride + c] : 0.f;
     }
     __syncthreads();
 
@@ -221,40 +232,358 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(sL[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      ob[s * q_stride + tx + TPR * j] = from_f32<T>(acc[i][j] / denom);
+      ob[s * q_stride + tx + TPR * j] = acc[i][j] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int KV, int causal, int window,
                    float softcap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_f32_kernel<D>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return e;
   }
+  if (B * H > 65535) return cudaErrorInvalidValue;
   const float scale = float(1.0 / sqrt(double(D)));
   dim3 grid((S + BQ - 1) / BQ, B * H);
   kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, scale, causal,
-      window, softcap);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, scale,
+      causal, window, softcap);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int H, int KV, int D, int causal,
-                       int window, float softcap, cudaStream_t stream) {
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bf16: warpgroup tensor-core products (wgmma), cp.async 2-stage K/V ring
+namespace bf16wg {
+
+using namespace mma_bf16;
+
+// One warpgroup a block: two blocks share an SM and, not meeting at a
+// barrier, run their softmaxes and products out of step (two warpgroups
+// in one block, meeting every tile, were slower).
+constexpr int NT = 128;
+constexpr int BQ = 64;          // q rows a block
+constexpr int ST = 3;           // stages of the K/V ring
+constexpr float LOG2E = 1.4426950408889634f;
+
+// head dim as stored in shared memory: whole 64-column swizzle blocks,
+// columns past D zero-filled (they add nothing to Q.K^T, and the output
+// columns they make are not stored)
+template <int D>
+__host__ __device__ constexpr int padded() { return D < 64 ? 64 : D; }
+// kv rows a tile: 64, or 32 at D = 256, where the output fragment alone
+// is 128 registers a thread
+template <int D>
+__host__ __device__ constexpr int kv_tile() { return D >= 256 ? 32 : 64; }
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // Q, then ST stages of K and V, each row padded<D>() bf16; 1024 bytes
+  // of slack to align the swizzle blocks
+  return sizeof(bf16) * size_t(BQ + 2 * ST * kv_tile<D>()) * padded<D>() +
+         1024;
+}
+
+// ROWS x D tile of rows s0.. of a (S, *, D) tensor whose rows are `stride`
+// elements apart, into 128-byte-swizzled column blocks of 64; rows at or
+// past S and columns at or past D are zero-filled.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long stride, int s0, int S,
+                                          int tid) {
+  constexpr int CH = padded<D>() / 8;   // 16-byte chunks a row
+  static_assert(ROWS * CH % NT == 0, "every thread copies as many chunks");
+#pragma unroll
+  for (int j = 0; j < ROWS * CH / NT; ++j) {
+    const int i = tid + j * NT, r = i / CH, c = i % CH, s = s0 + r;
+    const bool ok = s < S && c * 8 < D;
+    cp_async16(dst + (c / 8) * ROWS * 64 + sw128(r, c % 8),
+               src + (ok ? long(s) * stride + c * 8 : 0), ok);
+  }
+}
+
+// Q.K^T for one k16 step: the score tile is BK wide
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t desc_q,
+                                         uint64_t desc_k, int scale_d) {
+  if constexpr (BK == 64) wgmma_ss_n64<0>(d, desc_q, desc_k, scale_d);
+  else wgmma_ss_n32<0>(d, desc_q, desc_k, scale_d);
+}
+
+// P.V for one k16 step: the output fragment is padded<D>() wide
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_v) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, desc_v);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, desc_v);
+  else wgmma_rs_n256(d, a, desc_v);
+}
+
+// The scores of one BK-wide tile (sc, in the wgmma accumulator layout, only
+// read) to probabilities: scale (log2 units), softcap, mask, the online max
+// and sum over each row's quad; P, rounded to bf16, into p (the A operands
+// of P.V) and the rescale of the earlier state into alpha. The softcap is a
+// template argument: its tanh, present but not taken, slowed the kernel
+// without one.
+template <int BK, bool SOFTCAP>
+struct Softmax {
+  float scale, scale_log2, softcap;
+  int S, causal, window, q0, q_last, row_g, t;
+  float m_run[2] = {-INFINITY, -INFINITY};   // rows g, g + 8; log2 units
+  float l_run[2] = {0.f, 0.f};               // this thread's part of the sum
+
+  __device__ __forceinline__ void tile(const float (&sc)[BK / 2], int k0,
+                                       uint32_t (&p)[BK / 16][4],
+                                       float (&alpha)[2]) {
+    // a tile wholly inside every row's range skips the mask
+    const bool inside = k0 + BK <= S && (!causal || k0 + BK - 1 <= q0) &&
+                        (window <= 0 || q_last - k0 < window);
+    float s[BK / 2];
+#pragma unroll
+    for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = sc[4 * nb + i];
+        if constexpr (SOFTCAP)
+          x = tanhf(x * scale / softcap) * (softcap * LOG2E);
+        else
+          x *= scale_log2;
+        if (!inside) {
+          const int qpos = row_g + (i >> 1) * 8;
+          const int kpos = k0 + nb * 8 + 2 * t + (i & 1);
+          bool ok = kpos < S;
+          if (causal) ok = ok && qpos >= kpos;
+          if (window > 0) ok = ok && qpos - kpos < window;
+          if (!ok) x = -INFINITY;
+        }
+        s[4 * nb + i] = x;
+      }
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int nb = 0; nb < BK / 8; ++nb) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * nb], s[4 * nb + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * nb + 2], s[4 * nb + 3]));
+    }
+    float base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with nothing unmasked yet keeps p = 0 and alpha = 0
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = exp2_ftz(m_run[r] - base[r]);
+      m_run[r] = mx[r];
+    }
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < BK / 8; ++nb) {
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        e[i] = exp2_ftz(s[4 * nb + i] - base[i >> 1]);
+        rsum[i >> 1] += e[i];
+      }
+      // two n8 score blocks make one k16 step of P.V
+      p[nb / 2][(nb % 2) * 2] = pack_bf16(e[0], e[1]);
+      p[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(e[2], e[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rsum[r];
+  }
+};
+
+// One block (one warpgroup) per (b * H + h, q tile of 64 rows); warp w
+// owns q rows q0 + 16 w .. q0 + 16 w + 15, lane (g, t) rows g and g + 8 of
+// those. The block issues Q.K^T of tile j and P.V of tile j - 1 together,
+// and runs the softmax of tile j while P.V is on the tensor cores; so the
+// ring holds tiles j - 1, j and, in flight, j + 1.
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(NT)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      int S, int H, int KV, float scale, int causal,
+                      int window, float softcap) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int DP = padded<D>();
+  constexpr int BK = kv_tile<D>();
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* sK = sQ + BQ * DP;        // [ST][DP / 64][BK][64]
+  bf16* sV = sK + ST * BK * DP;   // [ST][DP / 64][BK][64]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const long q_stride = long(H) * D;
+  const long kv_stride = long(KV) * D;
+  const bf16* kb = k + (long(b) * S * KV + kvh) * D;
+  const bf16* vb = v + (long(b) * S * KV + kvh) * D;
+
+  // KV tiles that can be unmasked for some row of this q tile
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int kv_end = causal ? q_last + 1 : S;                 // exclusive
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int tile0 = kv_begin / BK;
+  const int n_tiles = (kv_end + BK - 1) / BK - tile0;
+
+  load_tile<BQ, D>(sQ, q + (long(b) * S * H + h) * D, q_stride, q0, S, tid);
+  load_tile<BK, D>(sK, kb, kv_stride, tile0 * BK, S, tid);
+  load_tile<BK, D>(sV, vb, kv_stride, tile0 * BK, S, tid);
+  cp_async_commit();
+
+  Softmax<BK, SOFTCAP> sm{scale, scale * LOG2E, softcap, S, causal, window,
+                          q0, q_last, q0 + warp * 16 + g, lane % 4};
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float s[BK / 2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  uint32_t p[BK / 16][4], pn[BK / 16][4];
+  float alpha[2];
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = (tile0 + it) * BK;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();   // tile it has landed; P.V of it - 2 is done
+    if (it + 1 < n_tiles) {
+      const int nx = (it + 1) % ST;
+      load_tile<BK, D>(sK + nx * BK * DP, kb, kv_stride, k0 + BK, S, tid);
+      load_tile<BK, D>(sV + nx * BK * DP, vb, kv_stride, k0 + BK, S, tid);
+      cp_async_commit();
+    }
+
+    // S = Q K^T: Q (64 x DP) and K (BK x DP) both K-major in shared
+    // memory; a k16 step is 32 bytes into a 128-byte swizzle row
+    const bf16* cK = sK + (it % ST) * BK * DP;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_qk<BK>(s,
+                   gmma_desc(sQ + (kk / 4) * BQ * 64 + (kk % 4) * 16, 16,
+                             1024),
+                   gmma_desc(cK + (kk / 4) * BK * 64 + (kk % 4) * 16, 16,
+                             1024),
+                   kk > 0);
+    wgmma_commit();
+    // O += P V of the last tile: P from registers, V (BK x DP) MN-major in
+    // shared memory (its rows run along the reduced kv dimension), a k16
+    // step 16 rows
+    if (it > 0) {
+      const bf16* cV = sV + ((it - 1) % ST) * BK * DP;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_pv<DP>(acc, p[kk],
+                     gmma_desc(cV + kk * 16 * 64, BK * 64 * sizeof(bf16),
+                               1024));
+      wgmma_commit();
+      wgmma_wait<1>();        // Q.K^T; P.V runs on during the softmax
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(s);
+    sm.tile(s, k0, pn, alpha);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(p);            // P's registers were read until here
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[kk][i] = pn[kk][i];
+  }
+  {
+    const bf16* cV = sV + ((n_tiles - 1) % ST) * BK * DP;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_pv<DP>(acc, p[kk],
+                   gmma_desc(cV + kk * 16 * 64, BK * 64 * sizeof(bf16),
+                             1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // epilogue: the row sum over the quad, divide (floor 1e-30), round, store
+  bf16* ob = o + (long(b) * S * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = sm.l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const int qpos = sm.row_g + 8 * r;
+    if (qpos >= S) continue;
+    bf16* orow = ob + long(qpos) * q_stride + 2 * sm.t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int H, int KV, int causal, int window,
+                   float softcap, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  auto kernel = softcap > 0.f ? flash_fwd_bf16_kernel<D, true>
+                              : flash_fwd_bf16_kernel<D, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  const int n_q = (S + BQ - 1) / BQ;
+  if (n_q > 65535) return cudaErrorInvalidValue;
+  const float scale = float(1.0 / sqrt(double(D)));
+  dim3 grid(B * H, n_q);
+  kernel<<<grid, NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV, scale,
+      causal, window, softcap);
+  return cudaGetLastError();
+}
+
+}  // namespace bf16wg
+
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
+                     int dtype, int B, int S, int H, int KV, int causal,
+                     int window, float softcap, cudaStream_t st) {
+  if (dtype == 0)
+    return f32::launch<D>(q, k, v, o, B, S, H, KV, causal, window, softcap, st);
+  if (dtype == 1)
+    return bf16wg::launch<D>(q, k, v, o, B, S, H, KV, causal, window,
+                             softcap, st);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
+                     int dtype, int B, int S, int H, int KV, int D,
+                     int causal, int window, float softcap, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KV, causal, window, softcap, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, window, softcap, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, window, softcap, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, window, softcap, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, H, KV, causal, window, softcap, stream);
+    case 16: return launch_d<16>(q, k, v, o, dtype, B, S, H, KV, causal, window, softcap, st);
+    case 32: return launch_d<32>(q, k, v, o, dtype, B, S, H, KV, causal, window, softcap, st);
+    case 64: return launch_d<64>(q, k, v, o, dtype, B, S, H, KV, causal, window, softcap, st);
+    case 128: return launch_d<128>(q, k, v, o, dtype, B, S, H, KV, causal, window, softcap, st);
+    case 256: return launch_d<256>(q, k, v, o, dtype, B, S, H, KV, causal, window, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -267,12 +596,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int dtype, int B, int S, int H,
                                    int KV, int D, int causal, int window,
                                    float softcap, void* stream) {
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || B * H > 65535)
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0)
     return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return int(dispatch_d<float>(q, k, v, o, B, S, H, KV, D, causal, window, softcap, st));
-    case 1: return int(dispatch_d<__nv_bfloat16>(q, k, v, o, B, S, H, KV, D, causal, window, softcap, st));
-    default: return int(cudaErrorInvalidValue);
-  }
+  return int(dispatch(q, k, v, o, dtype, B, S, H, KV, D, causal, window,
+                      softcap, static_cast<cudaStream_t>(stream)));
 }

@@ -75,6 +75,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel reads q, k, v in place: pass contiguous "
                          "tensors")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("the bf16 kernel copies 16-byte rows: q, k and v "
+                         "must start on a 16-byte boundary")
     lib = load_library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -1,8 +1,11 @@
 """Public grouped (per-expert) matmul op: ``x[e] @ w[e]`` for every expert.
 
 CPU tensors take the plain version (``ref.grouped_matmul_ref``); CUDA tensors
-launch the hand-written kernel in ``csrc/grouped_matmul.cu`` or raise. There
-is no fallback from the card to the plain version.
+launch a hand-written kernel in ``csrc/grouped_matmul.cu`` or raise. There
+is no fallback from the card to the plain version. On the card, bf16 takes
+one of two tensor-core kernels by the capacity C (``_plan``): the tile
+kernel for prefill-sized C, the weight-streaming kernel for decode-sized C;
+f32 takes the CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -17,10 +20,26 @@ from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches in this process; a run resets it to show which calls went
-# through the kernel
+# bf16 calls with C at most this take the streaming kernel (its rows: the
+# C rows of x[e] zero-filled to 16), larger C the tile kernel
+STREAM_MAX_C = 16
+
+# kernel launches in this process, and per kernel ("tile", "stream" for
+# bf16, "f32"); a run resets them to show which calls went through which
+# kernel
 launches = 0
+launches_by_variant = {"tile": 0, "stream": 0, "f32": 0}
 _lib = None
+
+
+def _plan(c: int, d: int, f: int) -> str:
+    """The bf16 kernel that serves x (E, c, d) @ w (E, d, f): "stream" for
+    decode-sized c, "tile" above. Raises unless d and f are multiples of 8
+    (the kernels copy 16-byte rows)."""
+    if d % 8 or f % 8:
+        raise ValueError(f"the kernels take d and f in multiples of 8, not "
+                         f"d={d}, f={f}")
+    return "stream" if c <= STREAM_MAX_C else "tile"
 
 
 def load_library() -> ctypes.CDLL:
@@ -33,6 +52,10 @@ def load_library() -> ctypes.CDLL:
     fn = lib.grouped_matmul_fwd
     # x, w, o; dtype, E, C, D, F; stream
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.grouped_matmul_stream_fwd
+    # x, w, o; E, C, D, F; stream
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -67,15 +90,28 @@ def grouped_matmul(x, w):
                          "tensors")
     e, c, d = x.shape
     f = w.shape[2]
+    variant = "f32"
+    if x.dtype == torch.bfloat16:
+        variant = _plan(c, d, f)
+        if x.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError("the bf16 kernels copy 16-byte rows: x and w "
+                             "must start on a 16-byte boundary")
     lib = load_library()
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.grouped_matmul_fwd(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype],
-            e, c, d, f, torch.cuda.current_stream(x.device).cuda_stream)
+        if variant == "stream":
+            err = lib.grouped_matmul_stream_fwd(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
+                stream)
+        else:
+            err = lib.grouped_matmul_fwd(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                _DTYPE_CODE[x.dtype], e, c, d, f, stream)
     if err:
-        raise RuntimeError(f"grouped_matmul kernel launch failed with CUDA "
-                           f"error {err} (E={e}, C={c}, d={d}, f={f}, "
-                           f"{x.dtype})")
+        raise RuntimeError(f"grouped_matmul {variant} kernel launch failed "
+                           f"with CUDA error {err} (E={e}, C={c}, d={d}, "
+                           f"f={f}, {x.dtype})")
     launches += 1
+    launches_by_variant[variant] += 1
     return out

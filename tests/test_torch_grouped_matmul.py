@@ -66,3 +66,43 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.grouped_matmul(x.to("meta"), torch.zeros((2, 4, 6),
                                                      device="meta"))
+
+
+# The bf16 kernels' choice on the card (``_plan``), pure Python: the
+# streaming kernel up to STREAM_MAX_C rows, the tile kernel above.
+@pytest.mark.parametrize("c,variant", [(1, "stream"), (2, "stream"),
+                                       (3, "stream"), (15, "stream"),
+                                       (16, "stream"), (17, "tile"),
+                                       (80, "tile"), (157, "tile"),
+                                       (320, "tile")])
+def test_plan_picks_the_kernel_by_capacity(c, variant):
+    assert ops._plan(c, 1024, 512) == variant
+    assert (variant == "stream") == (c <= ops.STREAM_MAX_C)
+
+
+# Every MoE configuration's expert products, full width and reduced, are
+# shapes the bf16 kernels take: wi/wg (d_model -> expert_d_ff) and wo back,
+# at a 4-slot decode step's capacity and a 1024-token prefill's.
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("size", ["full", "reduced"])
+@pytest.mark.parametrize("c,variant", [(2, "stream"), (320, "tile")])
+def test_plan_takes_every_moe_config(arch, size, c, variant):
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(arch)
+    if size == "reduced":
+        cfg = reduced(cfg)
+    d, f = cfg.d_model, cfg.moe.expert_d_ff
+    assert ops._plan(c, d, f) == variant
+    assert ops._plan(c, f, d) == variant
+
+
+@pytest.mark.parametrize("d,f", [(100, 64), (64, 100), (12, 8)])
+def test_plan_rejects_rows_off_16_bytes(d, f):
+    for c in (2, 64):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ops._plan(c, d, f)
+    # the CPU branch takes the plain version for any shape
+    x, w = torch.ones((4, 2, d)), torch.ones((4, d, f))
+    torch.testing.assert_close(ops.grouped_matmul(x, w),
+                               torch.full((4, 2, f), float(d)))

@@ -18,12 +18,18 @@ CASES = [
     (3, 37, 4, 2, 16, 0, 0.0),
     (1, 300, 2, 1, 256, 0, 0.0),
     (4, 1024, 32, 4, 128, 0, 0.0),
+    # the bf16 kernel's edges: D = 16 and 256 with window and softcap, S off
+    # the 64-row q tile
+    (2, 100, 4, 2, 16, 40, 30.0),
+    (1, 200, 2, 1, 256, 64, 50.0),
+    (2, 77, 4, 4, 128, 0, 20.0),
 ]
 
 
 def _tol(dtype, s):
     # f32: summation order only (longer rows at S=1024); bf16: output
-    # rounding, the kernel keeps probabilities in f32
+    # rounding, and the kernel rounds probabilities to bf16 before P.V
+    # (relative error at most 2^-9 each)
     if dtype == torch.bfloat16:
         return 2e-2
     return 1e-4 if s >= 1024 else 2e-5
@@ -49,10 +55,16 @@ def test_cuda_kernel_matches_plain_version(b, s, h, kv, d, win, cap, dtype):
 
 
 # (E, C, d, f): tests/test_kernels.py's sweep, granite's capacity at a
-# 4-slot decode step and at a 1024-token prefill (C = 320)
+# 4-slot decode step and at a 1024-token prefill (C = 320); then the bf16
+# dispatch edges: C = 1, 2, 3, the streaming threshold and one either side,
+# ragged prefill capacities, and a streaming call ragged in d and f
 GMM_CASES = [(2, 64, 64, 64), (4, 96, 160, 192), (8, 32, 128, 96),
              (32, 2, 1024, 512), (32, 2, 512, 1024), (32, 320, 1024, 512),
-             (32, 320, 512, 1024)]
+             (32, 320, 512, 1024),
+             (8, 1, 256, 128), (8, 2, 256, 128), (8, 3, 256, 128),
+             (8, 15, 256, 128), (8, 16, 256, 128), (8, 17, 256, 128),
+             (8, 80, 1024, 512), (8, 157, 1024, 512), (4, 320, 512, 1024),
+             (4, 5, 104, 72)]
 
 
 @pytest.mark.gpu
@@ -67,10 +79,16 @@ def test_grouped_matmul_kernel_matches_plain_version(e, c, d, f, dtype):
     gen = torch.Generator(device="cuda").manual_seed(0)
     x, w = ((torch.randn(shape, generator=gen, device="cuda") * 0.3).to(dtype)
             for shape in ((e, c, d), (e, d, f)))
+    variant = ("f32" if dtype == torch.float32 else gmm._plan(c, d, f))
+    assert variant == "f32" or (variant == "stream") == (
+        c <= gmm.STREAM_MAX_C)
     before = gmm.launches
+    by_variant = dict(gmm.launches_by_variant)
     out = gmm.grouped_matmul(x, w)
     torch.cuda.synchronize()
     assert gmm.launches == before + 1
+    by_variant[variant] += 1
+    assert gmm.launches_by_variant == by_variant
     # JAX's tolerances: f32 summation order; bf16 one output rounding
     tol = 3e-4 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(out.float(), grouped_matmul_ref(x, w).float(),
