@@ -7,7 +7,7 @@ sources in this checkout (one nvcc per source, all started together,
 sm_90a), with each kernel's tensor-core instruction count from
 ``cuobjdump -sass``; every kernel against its plain PyTorch version on the
 card; kernel timings at the serving shapes beside their bound and a library
-yardstick (the grouped matmul also with a cold L2);
+yardstick (the grouped matmul and SSD also with a cold L2);
 full-width (depth 2, float32) engine tokens against a reference for yi-9b
 and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
 same engine on the CPU); then yi-9b, granite-moe-1b-a400m and mamba2-370m
@@ -38,6 +38,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BF16_FLOPS = 989e12      # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12        # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12      # dense TF32 tensor-core peak
 H100_BYTES_PER_S = 3.35e12
 
 # flash attention: the sweep of tests/test_kernels.py, (B, S, H, KV, D,
@@ -69,11 +70,21 @@ GMM_DECODE = (32, 2, 1024, 512)
 GMM_DECODE_WO = (32, 2, 512, 1024)
 
 # SSD, (b, s, nh, hd, ds, chunk): tests/test_kernels.py's sweep, mamba2-370m's
-# 1024-token prefill, and a length off the chunk grid through the padded op
+# 1024- and 256-token prefills, and a length off the chunk grid through the
+# padded op
 SSD_SWEEP = [(2, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
              (2, 128, 4, 32, 16, 64)]
 SSD_PREFILL = (1, 1024, 32, 64, 128, 256)
+SSD_PREFILL_256 = (1, 256, 32, 64, 128, 256)
 SSD_RAGGED = (1, 1000, 32, 64, 128, 256)
+# the tensor-core kernel's tiling edges: zamba2's d_state 64, a chunk off the
+# 64-row tile, head dims 16 and 128 at d_state 128, three batches of 32
+# heads, and d_state 7 (4-byte copies)
+SSD_EDGES = [(1, 512, 32, 64, 64, 256), (2, 96, 4, 32, 16, 48),
+             (1, 256, 4, 16, 128, 256), (1, 256, 4, 128, 128, 256),
+             (3, 512, 32, 64, 128, 256), (1, 64, 2, 16, 7, 32)]
+# mamba2's initial decay range, A = -linspace(1, 16, nh)
+SSD_WIDE_DECAY = [SSD_PREFILL, (2, 96, 4, 32, 16, 48)]
 
 SERVE = dict(replicas=1, slots=4, max_seq=2048)
 LOAD = dict(requests=8, rate_rps=4.0, max_new_tokens=32, lo=256, hi=1025)
@@ -239,17 +250,21 @@ def gmm_bound_ms(e, c, d, f, dtype) -> tuple[float, str]:
     return bound(2.0 * e * c * d * f, nbytes, peak)
 
 
-def ssd_bound_ms(b, nh, nc, c, hd, ds) -> tuple[float, str]:
+def ssd_bound_ms(b, nh, nc, c, hd, ds, peak=H100_TF32_FLOPS,
+                 passes=3) -> tuple[float, str]:
     """SSD intra-chunk, f32: the least work the function needs. C.B^T on
     the causal triangle once per (batch, chunk), since B and C are shared
     by every head; per head, the weighted triangle times xdt and the
-    (ds x hd) state. a, xdt, B, C read once; y and S written once."""
+    (ds x hd) state. a, xdt, B, C read once; y and S written once. By
+    default for the kernel's instruction class, split TF32: three TF32
+    products for each f32 one at the TF32 peak; ``peak=H100_F32_FLOPS,
+    passes=1`` gives the bound on the CUDA cores."""
     pairs = c * (c + 1) // 2
     flops = (b * nc * 2.0 * pairs * ds
              + b * nh * nc * (2.0 * pairs * hd + 2.0 * c * ds * hd))
     nbytes = 4 * (b * nh * nc * c + 2 * b * nh * nc * c * hd
                   + 2 * b * nc * c * ds + b * nh * nc * ds * hd)
-    return bound(flops, nbytes, H100_F32_FLOPS)
+    return bound(passes * flops, nbytes, peak)
 
 
 def randn(shape, dtype, gen, scale=1.0):
@@ -264,10 +279,13 @@ def close(out, ref, tol):
                                    .all())
 
 
-def ssd_inputs(b, s, nh, hd, ds, gen):
+def ssd_inputs(b, s, nh, hd, ds, gen, wide_decay=False):
+    """x, dt, A, B, C as the model forms them; ``wide_decay`` takes
+    mamba2's initial A = -linspace(1, 16, nh)."""
     x = randn((b, s, nh, hd), torch.float32, gen, 0.3)
     dt = torch.nn.functional.softplus(randn((b, s, nh), torch.float32, gen))
-    A = -torch.exp(torch.linspace(0.0, 1.0, nh, device="cuda"))
+    A = -(torch.linspace(1.0, 16.0, nh, device="cuda") if wide_decay else
+          torch.exp(torch.linspace(0.0, 1.0, nh, device="cuda")))
     B = randn((b, s, ds), torch.float32, gen, 0.3)
     C = randn((b, s, ds), torch.float32, gen, 0.3)
     return x, dt, A, B, C
@@ -282,6 +300,13 @@ def ssd_kernel_inputs(x, dt, A, B, C, ch):
     xdt = (x.reshape(b, nc, ch, nh, hd) * dtc[..., None]).permute(
         0, 3, 1, 2, 4).contiguous()
     return a, xdt, B.reshape(b, nc, ch, ds), C.reshape(b, nc, ch, ds)
+
+
+def ssd_set_bytes(b, s, nh, hd, ds, ch) -> int:
+    """Bytes of one set of the kernel's inputs and outputs."""
+    nc = s // ch
+    return 4 * (b * nh * s + 2 * b * nh * s * hd + 2 * b * s * ds
+                + b * nh * nc * ds * hd)
 
 
 def main():
@@ -352,14 +377,15 @@ def main():
         emit({"phase": "build", "kernel": name, "library": lib.name,
               "nvcc_seconds": secs, "ptxas": ptxas,
               "sass_tensor_core_instructions": mma})
-        # the bf16 products must run on the tensor cores
-        bf16 = {k: n for k, n in mma.items() if any(
+        # the bf16 products and the SSD kernel's split-TF32 products must
+        # run on the tensor cores
+        tc = {k: n for k, n in mma.items() if any(
             s in k for s in ("flash_fwd_bf16_kernel", "gmm_tile_kernel",
-                             "gmm_stream_kernel"))}
-        if name in ("flash_attention", "grouped_matmul") and (
-                not bf16 or min(bf16.values()) == 0):
-            fail(f"{name}: a bf16 kernel issues no tensor-core instruction "
-                 f"({mma})")
+                             "gmm_stream_kernel", "ssd_first_kernel",
+                             "ssd_y_kernel"))}
+        if not tc or min(tc.values()) == 0:
+            fail(f"{name}: a tensor-core kernel issues no tensor-core "
+                 f"instruction ({mma})")
         kernels[name]["sass_tensor_core_instructions"] = mma
     for op in ops.values():
         op.load_library()
@@ -423,23 +449,32 @@ def main():
                     max_abs_err=err, max_err=err, tol=tol)
     # tests/test_kernels.py's SSD tolerance, f32 throughout
     ssd_tol = dict(atol=5e-4, rtol=5e-3)
-    for case in SSD_SWEEP + [SSD_PREFILL]:
+    for case, wide in ([(c, False) for c in SSD_SWEEP + [
+            SSD_PREFILL, SSD_PREFILL_256] + SSD_EDGES]
+            + [(c, True) for c in SSD_WIDE_DECAY]):
         b, s, nh, hd, ds, ch = case
-        a, xdt, Bc, Cc = ssd_kernel_inputs(*ssd_inputs(b, s, nh, hd, ds, gen),
-                                           ch)
+        a, xdt, Bc, Cc = ssd_kernel_inputs(
+            *ssd_inputs(b, s, nh, hd, ds, gen, wide), ch)
+        before = ssd_ops.launches
         y, S = ssd_ops.ssd_intra_chunk(a, xdt, Bc, Cc)
         torch.cuda.synchronize()
+        launched = ssd_ops.launches - before
         ry, rS = ssd_intra_chunk_ref(a, xdt, Bc, Cc)
         err = max(float((y - ry).abs().max()), float((S - rS).abs().max()))
         ok = all(torch.allclose(o, r, **ssd_tol) for o, r in ((y, ry),
                                                                (S, rS)))
+        ok = ok and launched == 1
         emit({"phase": "kernel_vs_plain", "kernel": "ssd",
               "shape": {"b": b, "nh": nh, "nc": s // ch, "c": ch, "hd": hd,
-                        "ds": ds}, "dtype": "float32", "max_abs_err": err,
-              "tol": ssd_tol, "ok": ok})
+                        "ds": ds},
+              "decay": "A=-linspace(1,16)" if wide else "A=-exp(linspace(0,1))",
+              "y_blocks": ssd_ops.y_blocks(b, nh, s // ch, ch),
+              "launched": launched,
+              "dtype": "float32", "max_abs_err": err, "tol": ssd_tol,
+              "ok": ok})
         if not ok:
-            misses.append(("ssd", case, "float32"))
-        if case == SSD_PREFILL:
+            misses.append(("ssd", case, "float32", wide))
+        if case == SSD_PREFILL and not wide:
             kernels["ssd"].update(max_abs_err=err, max_err=err, tol=ssd_tol)
     # the op at a length off the chunk grid (dt = 0 padding) against the
     # sequential scan
@@ -533,19 +568,38 @@ def main():
             timings["grouped_matmul"] = dict(t, ms=t["kernel_ms"])
         del x, w, ws
 
-    b, s, nh, hd, ds, ch = SSD_PREFILL
-    a, xdt, Bc, Cc = ssd_kernel_inputs(*ssd_inputs(b, s, nh, hd, ds, gen), ch)
-    t = {"kernel_ms": cuda_ms(lambda: ssd_ops.ssd_intra_chunk(a, xdt, Bc, Cc),
-                              20),
-         "plain_ms": cuda_ms(lambda: ssd_intra_chunk_ref(a, xdt, Bc, Cc), 10),
-         "library_ms": None}       # no one PyTorch call computes it
-    t["bound_ms"], t["bound_by"] = ssd_bound_ms(b, nh, s // ch, ch, hd, ds)
-    timings["ssd"] = dict(t, ms=t["kernel_ms"])
-    emit({"phase": "timing", "kernel": "ssd",
-          "shape": {"b": b, "nh": nh, "nc": s // ch, "c": ch, "hd": hd,
-                    "ds": ds}, "dtype": "float32", **t, "card": smi,
-          "seconds": time.perf_counter() - t0})
-    del a, xdt, Bc, Cc
+    for case in (SSD_PREFILL, SSD_PREFILL_256):
+        b, s, nh, hd, ds, ch = case
+        nc = s // ch
+        # input sets past the L2: each of the served path's 48 layers calls
+        # the kernel on its own inputs
+        sets = [ssd_kernel_inputs(*ssd_inputs(b, s, nh, hd, ds, gen), ch)
+                for _ in range(2 + 2 * L2_BYTES
+                               // ssd_set_bytes(b, s, nh, hd, ds, ch))]
+        a, xdt, Bc, Cc = sets[0]
+        t = {"kernel_ms": cold_ms(lambda st: ssd_ops.ssd_intra_chunk(*st),
+                                  sets, 40),
+             "kernel_warm_ms": cuda_ms(
+                 lambda: ssd_ops.ssd_intra_chunk(a, xdt, Bc, Cc), 40),
+             "plain_ms": cuda_ms(lambda: ssd_intra_chunk_ref(a, xdt, Bc, Cc),
+                                 10),
+             "library_ms": None,     # no one PyTorch call computes it
+             "input_sets": len(sets),
+             "y_blocks": ssd_ops.y_blocks(b, nh, nc, ch)}
+        t["bound_ms"], t["bound_by"] = ssd_bound_ms(b, nh, nc, ch, hd, ds)
+        t["bound_f32_simt_ms"], t["bound_f32_simt_by"] = ssd_bound_ms(
+            b, nh, nc, ch, hd, ds, peak=H100_F32_FLOPS, passes=1)
+        t["share_of_bound"] = t["bound_ms"] / t["kernel_ms"]
+        t["share_of_f32_simt_bound"] = t["bound_f32_simt_ms"] / t["kernel_ms"]
+        t["host_us_per_call"] = host_us(
+            lambda: ssd_ops.ssd_intra_chunk(a, xdt, Bc, Cc))
+        emit({"phase": "timing", "kernel": "ssd",
+              "shape": {"b": b, "nh": nh, "nc": nc, "c": ch, "hd": hd,
+                        "ds": ds}, "dtype": "float32", **t, "card": smi,
+              "seconds": time.perf_counter() - t0})
+        if case == SSD_PREFILL:
+            timings["ssd"] = dict(t, ms=t["kernel_ms"])
+        del a, xdt, Bc, Cc, sets
     for name, t in timings.items():
         kernels[name].update(t)
 

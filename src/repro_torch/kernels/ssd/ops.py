@@ -2,10 +2,12 @@
 
 ``ssd_intra_chunk`` is the counterpart of the JAX package's
 ``ssd_intra_chunk``: CPU tensors take the plain version
-(``ref.ssd_intra_chunk_ref``); CUDA tensors launch the hand-written kernel
-in ``csrc/ssd.cu`` or raise. ``ssd_chunked`` is the counterpart of
-``ssd_chunked_pallas``: the kernel for the intra-chunk dual form, the short
-inter-chunk recurrence in torch.
+(``ref.ssd_intra_chunk_ref``); CUDA tensors launch the hand-written kernels
+in ``csrc/ssd.cu`` (split TF32 on the tensor cores: C·Bᵀ once per (batch,
+chunk) and the state product in a first grid, y in a second, one head a
+block) or raise.
+``ssd_chunked`` is the counterpart of ``ssd_chunked_pallas``: the kernel for
+the intra-chunk dual form, the short inter-chunk recurrence in torch.
 """
 from __future__ import annotations
 
@@ -21,10 +23,26 @@ from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 
+TILE = 64           # rows of y a block computes
+KEY_PART = 128      # keys a block of y reduces over; y adds up the parts
+
 # kernel launches in this process; a run resets it to show which calls went
 # through the kernel
 launches = 0
 _lib = None
+
+
+def _y_units(c: int) -> int:
+    """Blocks of y for one (batch, chunk, head): for each 64-row tile, one
+    for each part of ``KEY_PART`` keys it reduces over (a row tile reaches
+    the keys up to its last row)."""
+    return sum(-(-min(r0 + TILE, c) // KEY_PART) for r0 in range(0, c, TILE))
+
+
+def y_blocks(b: int, nh: int, nc: int, c: int) -> int:
+    """Blocks in the kernels' grid of y, the larger of their two grids: one
+    head a block, ``_y_units(c)`` blocks for each (batch, chunk, head)."""
+    return b * nc * nh * _y_units(c)
 
 
 def load_library() -> ctypes.CDLL:
@@ -35,8 +53,9 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = _build.load(SOURCE)
     fn = lib.ssd_intra_chunk_fwd
-    # a, xdt, B, C, y, S; b, nh, nc, c, hd, ds; stream
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    # a, xdt, B, C, y, S, workspaces for C·Bᵀ and the cumsums; b, nh, nc,
+    # c, hd, ds; stream
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -79,10 +98,14 @@ def ssd_intra_chunk(a, xdt, B, C):
     lib = load_library()
     y = torch.empty_like(xdt)
     S = torch.empty((b, nh, nc, ds, hd), dtype=torch.float32, device=a.device)
+    # the kernels' workspace: C·Bᵀ (b, nc, c, c), then the cumsums of a
+    n_cb = b * nc * c * c
+    ws = torch.empty(n_cb + a.numel(), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         err = lib.ssd_intra_chunk_fwd(
             a.data_ptr(), xdt.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), S.data_ptr(), b, nh, nc, c, hd, ds,
+            y.data_ptr(), S.data_ptr(), ws.data_ptr(),
+            ws.data_ptr() + 4 * n_cb, b, nh, nc, c, hd, ds,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_intra_chunk kernel launch failed with CUDA "

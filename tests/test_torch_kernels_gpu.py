@@ -96,15 +96,36 @@ def test_grouped_matmul_kernel_matches_plain_version(e, c, d, f, dtype):
 
 
 # (b, s, nh, hd, ds, chunk): tests/test_kernels.py's sweep, mamba2-370m's
-# prefill shape, and lengths off the chunk grid through the padded op
+# prefill shape, and lengths off the chunk grid through the padded op; then
+# the edges of the tensor-core kernel's tiling: zamba2's d_state 64, a chunk
+# off the 64-row tile (48), head dims 16 and 128 at d_state 128, one chunk
+# at full width, and three batches of 32 heads
 SSD_CASES = [(2, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
              (2, 128, 4, 32, 16, 64), (1, 1024, 32, 64, 128, 256),
-             (1, 1000, 32, 64, 128, 256), (2, 77, 4, 128, 16, 32)]
+             (1, 1000, 32, 64, 128, 256), (2, 77, 4, 128, 16, 32),
+             (1, 512, 32, 64, 64, 256), (2, 96, 4, 32, 16, 48),
+             (1, 256, 4, 16, 128, 256), (1, 256, 4, 128, 128, 256),
+             (1, 256, 32, 64, 128, 256), (3, 512, 32, 64, 128, 256)]
+# mamba2's initial decay range, A = -linspace(1, 16, nh): the cumulative log
+# decay reaches the thousands within a chunk
+SSD_WIDE_DECAY_CASES = [(1, 1024, 32, 64, 128, 256), (2, 96, 4, 32, 16, 48)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,nh,hd,ds,ch", SSD_CASES)
 def test_ssd_kernel_matches_plain_version(b, s, nh, hd, ds, ch):
+    _check_ssd(b, s, nh, hd, ds, ch, wide_decay=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,nh,hd,ds,ch", SSD_WIDE_DECAY_CASES)
+def test_ssd_kernel_at_mamba2_decay_range(b, s, nh, hd, ds, ch):
+    _check_ssd(b, s, nh, hd, ds, ch, wide_decay=True)
+
+
+def _check_ssd(b, s, nh, hd, ds, ch, wide_decay):
+    """The kernel alone against its plain version (one launch), then the
+    padded op against the sequential scan (one launch)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.kernels.ssd import ops as ssd
@@ -117,7 +138,8 @@ def test_ssd_kernel_matches_plain_version(b, s, nh, hd, ds, ch):
         return torch.randn(shape, generator=gen, device="cuda")
     x = rnd(b, s, nh, hd) * 0.3
     dt = torch.nn.functional.softplus(rnd(b, s, nh))
-    A = -torch.exp(torch.linspace(0.0, 1.0, nh, device="cuda"))
+    A = -(torch.linspace(1.0, 16.0, nh, device="cuda") if wide_decay else
+          torch.exp(torch.linspace(0.0, 1.0, nh, device="cuda")))
     B, C = rnd(b, s, ds) * 0.3, rnd(b, s, ds) * 0.3
     if s % ch == 0:        # the kernel alone against its plain version
         nc = s // ch
@@ -133,7 +155,10 @@ def test_ssd_kernel_matches_plain_version(b, s, nh, hd, ds, ch):
         torch.testing.assert_close(y, ry, atol=5e-4, rtol=5e-3)
         torch.testing.assert_close(S, rS, atol=5e-4, rtol=5e-3)
     # the op (padded to the chunk grid) against the sequential scan
+    before = ssd.launches
     y, st = ssd.ssd_chunked(x, dt, A, B, C, ch)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
     ry, rst = ssd_ref(x, dt, A, B, C)
     torch.testing.assert_close(y, ry, atol=5e-4, rtol=5e-3)
     torch.testing.assert_close(st, rst, atol=5e-4, rtol=5e-3)

@@ -25,11 +25,13 @@ RAGGED = [(100, 4, 32, 16, 32), (13, 2, 16, 8, 16)]
 ATOL, RTOL = 5e-4, 5e-3
 
 
-def _inputs(s, nh, hd, ds, seed=0, b=2):
+def _inputs(s, nh, hd, ds, seed=0, b=2, A=None):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, s, nh, hd), np.float32) * 0.3
     dt = np.log1p(np.exp(rng.standard_normal((b, s, nh)))).astype(np.float32)
-    A = (-np.exp(np.linspace(0.0, 1.0, nh))).astype(np.float32)
+    if A is None:
+        A = -np.exp(np.linspace(0.0, 1.0, nh))
+    A = np.asarray(A, np.float32)
     B = rng.standard_normal((b, s, ds), np.float32) * 0.3
     C = rng.standard_normal((b, s, ds), np.float32) * 0.3
     arrays = (x, dt, A, B, C)
@@ -95,3 +97,43 @@ def test_wrapper_rejects_bad_inputs():
         ops.ssd_intra_chunk(a, xdt, B.bfloat16(), B.bfloat16())
     with pytest.raises(ValueError, match="wants a"):
         ops.ssd_intra_chunk(a[0], xdt, B, B)
+
+
+def test_chunked_at_mamba2_decay_range():
+    """A = -linspace(1, 16) (mamba2's initial decays): the cumulative log
+    decay reaches the hundreds within a chunk, so exp(acs_i) and
+    exp(-acs_j) alone would under- and overflow in f32; the decays are
+    taken from differences of acs, as in the JAX op and the sequential
+    scan."""
+    s, nh, hd, ds, ch = 128, 4, 16, 16, 64
+    j, t = _inputs(s, nh, hd, ds, seed=3, A=-np.linspace(1.0, 16.0, nh))
+    acs = np.cumsum(t[1].numpy()[0, :ch] * t[2].numpy(), axis=0)
+    assert acs.min() < -100          # the range the test is about
+    y, st = ops.ssd_chunked(*t, chunk=ch)
+    jy, jst = ssd_chunked_pallas(*j, chunk=ch)
+    _close(y, jy)
+    _close(st, jst)
+    ry, rst = jax_ssd_ref(*j)
+    _close(y, ry)
+    _close(st, rst)
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4])
+@pytest.mark.parametrize("nc", [1, 2, 3, 4])
+def test_y_grid_fills_the_card_at_served_shapes(b, nc):
+    """mamba2-370m's prefill groups (nh = 32, chunk 256): one head a block
+    leaves at least one block of y for each of the H100's 132 SMs, even for
+    one chunk of one prompt."""
+    nh, c = 32, 256
+    # y: row tiles 0, 1 reach one part of 128 keys each, tiles 2, 3 two
+    assert ops.y_blocks(b, nh, nc, c) == b * nc * nh * 6
+    assert ops.y_blocks(b, nh, nc, c) >= 132
+
+
+def test_y_grid_small_and_odd_chunks():
+    """Chunks off the 64-row tile and past 256 keys: a row tile has one
+    block for each part of 128 keys up to its last row."""
+    assert ops._y_units(16) == 1 and ops._y_units(48) == 1
+    assert ops._y_units(300) == 1 + 1 + 2 + 2 + 3
+    assert ops._y_units(512) == 20
+    assert ops.y_blocks(2, 4, 2, 32) == 2 * 2 * 4 * 1
