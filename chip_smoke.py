@@ -10,11 +10,16 @@ card; kernel timings at the serving shapes beside their bound and a library
 yardstick (the grouped matmul and SSD also with a cold L2);
 full-width (depth 2, float32) engine tokens against a reference for yi-9b
 and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
-same engine on the CPU); then yi-9b, granite-moe-1b-a400m and mamba2-370m
-at full depth in bf16, each served through ``build_replicaset`` and
-``run_load`` with the kernel launch counts of that run, and a breakdown of
-one prefill and one decode step. Then one line with every kernel's numbers
-and, last, ``{"ok": true, "device": {...}}``.
+same engine on the CPU), and for yi-9b with chunked prefill, the prefix
+cache, speculative decoding (n-gram and model drafts, and a prompt that runs
+into max_seq) and speculation with chunking; then yi-9b, granite-moe-1b-a400m
+and mamba2-370m at full depth in bf16, each served through
+``build_replicaset`` and ``run_load`` with the kernel launch counts of that
+run, yi-9b also with chunked prefill and the prefix cache and with
+speculation (n-gram and model drafts), and a breakdown of one prefill and
+one decode step (for yi-9b also a batched chunk call, a verify step, a
+prefix restore and a chunk extract). Then one line with every kernel's
+numbers and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, and prints no result line, without a card, outside a full
 checkout, or when any phase fails. Imports nothing of JAX.
@@ -88,6 +93,12 @@ SSD_WIDE_DECAY = [SSD_PREFILL, (2, 96, 4, 32, 16, 48)]
 
 SERVE = dict(replicas=1, slots=4, max_seq=2048)
 LOAD = dict(requests=8, rate_rps=4.0, max_new_tokens=32, lo=256, hi=1025)
+# yi-9b's chunk + prefix run: 256-token chunks, a 1 GiB prefix cache; four
+# short prompts (batched prefill) and four on two shared 512-token heads
+CHUNKED = dict(chunk_tokens=256, prefix_cache_mb=1024.0)
+SHORT, HEAD, TAIL = (32, 201), 512, (128, 513)
+# events that fail the check wherever they are logged
+FAULTS = ("prefix_restore_error", "prefill_error", "step_error")
 
 
 def emit(obj):
@@ -330,6 +341,8 @@ def main():
     from repro_torch.models.model import build_model
     from repro_torch.models.params import to_device
     from repro_torch.serving.engine import ServingEngine, greedy_generate
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.speculative import build_draft
 
     ops = {"flash_attention": fa_ops, "grouped_matmul": gmm_ops,
            "ssd": ssd_ops}
@@ -604,12 +617,44 @@ def main():
         kernels[name].update(t)
 
     # -- 5. full width, depth 2, float32: engine tokens == a reference -----
-    def parity(arch, lens, against):
-        t0 = time.perf_counter()
+    def faults(monitor) -> list:
+        return [e for e in monitor.events() if e["event"] in FAULTS]
+
+    def parity_model(arch):
         cfg = dataclasses.replace(get_config(arch), num_layers=2,
                                   dtype="float32")
         model = build_model(cfg, device="cuda")
         params = model.init(torch.Generator(device="cuda").manual_seed(1))
+        return cfg, model, params
+
+    def margin(model, params, prompt, want, got):
+        """Where tokens differ: the oracle's logit margin between its token
+        and the engine's at the first differing position (a near tie shows
+        as a margin near 0)."""
+        i = int(np.argmax(want[:len(got)] != got[:len(want)]))
+        ctx = np.concatenate([prompt, want[:i]])
+        with torch.inference_mode():
+            logits, _ = model.prefill(params, torch.as_tensor(
+                ctx, dtype=torch.long, device="cuda")[None], len(ctx))
+        lg = logits[0, -1]
+        return {"position": i, "oracle": int(want[i]), "engine": int(got[i]),
+                "margin": float(lg[int(want[i])] - lg[int(got[i])])}
+
+    def check_tokens(phase, model, params, prompts, got, want, **info):
+        mismatched = [{"prompt_len": len(p), "engine": g.tolist(),
+                       "reference": w.tolist(),
+                       **(margin(model, params, p, w, g)
+                          if len(g) and len(w) else {})}
+                      for p, g, w in zip(prompts, got, want)
+                      if g.shape != w.shape or not np.array_equal(g, w)]
+        emit({"phase": phase, **info, "prompt_lens": [len(p) for p in prompts],
+              "identical": not mismatched, "mismatched": mismatched})
+        if mismatched:
+            fail(f"{phase} {info}: engine tokens differ from the reference")
+
+    def parity(arch, lens, against, built=None):
+        t0 = time.perf_counter()
+        cfg, model, params = built or parity_model(arch)
         rng = np.random.default_rng(1)
         prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in lens]
 
@@ -630,22 +675,147 @@ def main():
         else:
             want = [greedy_generate(model, params, x, 16, 640)
                     for x in prompts]
-        mismatched = [{"prompt_len": len(p), "engine": g.tolist(),
-                       "reference": w.tolist()}
-                      for p, g, w in zip(prompts, got, want)
-                      if g.shape != (16,) or not np.array_equal(g, w)]
-        emit({"phase": "parity_full_width_f32", "arch": arch,
-              "layers": cfg.num_layers, "d_model": cfg.d_model,
-              "against": against, "prompt_lens": list(lens),
-              "prefill_calls": prefills, "new_tokens": 16,
-              "identical": not mismatched, "mismatched": mismatched,
-              "seconds": time.perf_counter() - t0})
-        if mismatched:
-            fail(f"{arch}: engine tokens differ from the {against} at full "
-                 f"width")
+        check_tokens("parity_full_width_f32", model, params, prompts, got,
+                     want, arch=arch, layers=cfg.num_layers,
+                     d_model=cfg.d_model, against=against,
+                     prefill_calls=prefills, new_tokens=16,
+                     seconds=time.perf_counter() - t0)
         torch.cuda.empty_cache()
 
-    parity("yi-9b", (64, 200, 377, 512), "greedy_oracle")
+    def feature_parity(cfg, model, params):
+        """yi-9b's chunked prefill, prefix cache and speculation at full
+        width: (a) chunks of 128, (b) a 384-token shared head then the head
+        alone twice (whole-prompt hits), (c) speculate 4 with each draft and
+        a prompt that runs into max_seq, (d) speculation with chunking."""
+        rng = np.random.default_rng(2)
+        lens = (64, 200, 377, 512)
+        prompts = [rng.integers(1, cfg.vocab_size, size=n)
+                   for n in lens + (600,)]
+        oracle = {}
+
+        def want(p, n=16):
+            key = (len(p), int(p[0]), n)
+            if key not in oracle:
+                oracle[key] = greedy_generate(model, params, p, n, 640)
+            return oracle[key]
+
+        def run(case, ps, against=None, n=16, **kw):
+            t0 = time.perf_counter()
+            mon = Monitor()
+            eng = ServingEngine(model, params, slots=4, max_seq=640,
+                                device="cuda", monitor=mon, **kw)
+            futs = [eng.submit(p, max_new_tokens=n) for p in ps]
+            eng.run_until_idle()
+            got = [f.result() for f in futs]
+            ref = against or [want(p, n) for p in ps]
+            m = {k: v for k, v in eng.metrics.items() if v}
+            check_tokens("parity_full_width_f32", model, params, ps, got, ref,
+                         arch=cfg.name, case=case, layers=cfg.num_layers,
+                         against="plain engine" if against else
+                         "greedy_oracle", new_tokens=n, metrics=m,
+                         faults=faults(mon),
+                         seconds=time.perf_counter() - t0)
+            if faults(mon):
+                fail(f"{case}: {faults(mon)}")
+            return eng, got
+
+        # the logits themselves: a 512-token prompt in four chunks against
+        # the whole-prompt prefill (flash kernel) at its last position, then
+        # a 5-token verify against 5 decode steps; error relative to the
+        # reference's largest logit (f32 summation order)
+        toks = torch.as_tensor(prompts[3], device="cuda")[None]
+        with torch.inference_mode():
+            ref, _ = model.prefill(params, toks, 640)
+            cache = model.init_cache(1, 640)
+            for s in range(0, 512, 128):
+                got, _ = model.prefill_chunk(params, cache,
+                                             toks[:, s:s + 128],
+                                             torch.tensor([s]))
+            stepped = [{k: x.clone() for k, x in c.items()} for c in cache]
+            cand = toks[:, 100:105]
+            verify, _ = model.decode_verify(params, cache, cand,
+                                            torch.tensor([512]))
+            steps = torch.cat([model.decode(params, stepped,
+                                            cand[:, j:j + 1],
+                                            torch.tensor([512 + j]))[0]
+                               for j in range(5)], dim=1)
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+        errs = {"chunks_vs_prefill": rel(got[:, -1:], ref),
+                "verify_vs_decode_steps": rel(verify, steps)}
+        emit({"phase": "parity_full_width_f32", "arch": cfg.name,
+              "case": "chunk_and_verify_logits", "relative_errors": errs,
+              "tol": 1e-4})
+        if max(errs.values()) > 1e-4:
+            fail(f"chunk/verify logits: {errs}")
+        del cache, stepped
+
+        eng, _ = run("chunk_128", prompts, chunk_tokens=128)
+        if eng.metrics["prefill_chunks"] != 2 + 3 + 4 + 5:
+            fail(f"chunk_128: {eng.metrics['prefill_chunks']} chunks")
+        # (b) two prompts on one 384-token head, one after the other; then
+        # the head alone twice: whole-prompt hits, no chunk computed
+        head = rng.integers(1, cfg.vocab_size, size=384)
+        shared = [np.concatenate([head, rng.integers(1, cfg.vocab_size,
+                                                     size=n)])
+                  for n in (100, 150)]
+        pc = PrefixCache(128, budget_bytes=1 << 30)
+        eng, _ = run("prefix_first", shared[:1], chunk_tokens=128,
+                     prefix_cache=pc)
+        hits = []
+        for p, case in ((shared[1], "prefix_shared_head"),
+                        (head, "prefix_whole_prompt"),
+                        (head, "prefix_whole_prompt_again")):
+            before = dict(eng.metrics)
+            fut = eng.submit(p, max_new_tokens=16)
+            eng.run_until_idle()
+            check_tokens("parity_full_width_f32", model, params, [p],
+                         [fut.result()], [want(p)], arch=cfg.name, case=case,
+                         against="greedy_oracle", prefix_cache=pc.stats(),
+                         faults=faults(eng.monitor))
+            if faults(eng.monitor):
+                fail(f"{case}: {faults(eng.monitor)}")
+            hits.append((eng.metrics["prefix_hit_tokens"]
+                         - before["prefix_hit_tokens"],
+                         eng.metrics["prefill_chunks"]
+                         - before["prefill_chunks"]))
+        # the shared head's 150-token tail takes two chunks; the bare head
+        # is covered whole and computes none
+        if hits != [(384, 2), (384, 0), (384, 0)]:
+            fail(f"prefix cache: (hit tokens, chunks) per request {hits}")
+        # (c) speculation, each draft; the 620-token prompt runs into
+        # max_seq (640 - 620 = 20 tokens of its 32), against the plain engine
+        near_end = rng.integers(1, cfg.vocab_size, size=620)
+        plain_eng = ServingEngine(model, params, slots=4, max_seq=640,
+                                  device="cuda")
+        f = plain_eng.submit(near_end, max_new_tokens=32)
+        plain_eng.run_until_idle()
+        plain = f.result()
+        if len(plain) != 20:
+            fail(f"the plain engine emitted {len(plain)} tokens near max_seq")
+        del plain_eng
+        for kind in ("ngram", "model"):
+            eng, _ = run(f"speculate_4_{kind}", prompts[:4], speculate=4,
+                         draft=build_draft(kind, cfg, slots=4, max_seq=640,
+                                           device="cuda"))
+            if not eng.metrics["spec_steps"]:
+                fail(f"speculate_4_{kind}: no verify step")
+            run(f"speculate_4_{kind}_seq_limit", [near_end], against=[plain],
+                n=32, speculate=4, draft=build_draft(
+                    kind, cfg, slots=4, max_seq=640, device="cuda"))
+        # (d) speculation and chunking in one engine
+        eng, _ = run("speculate_4_ngram_chunk_128", prompts[:4], speculate=4,
+                     draft=build_draft("ngram", cfg, slots=4, max_seq=640),
+                     chunk_tokens=128)
+        if not (eng.metrics["spec_steps"] and eng.metrics["prefill_chunks"]):
+            fail(f"speculation with chunking: {eng.metrics}")
+        torch.cuda.empty_cache()
+
+    built = parity_model("yi-9b")
+    parity("yi-9b", (64, 200, 377, 512), "greedy_oracle", built)
+    feature_parity(*built)
+    del built
     # one repeated length: granite admits one exact group per length
     parity("granite-moe-1b-a400m", (64, 200, 200, 377), "cpu_engine")
     parity("mamba2-370m", (64, 200, 377, 512), "greedy_oracle")
@@ -653,19 +823,25 @@ def main():
     # -- 6. serve each model at full depth, bf16, through the entry points --
     variant_counts = {}      # grouped matmul kernels of each served run
 
-    def serve(arch, expect):
+    def serve(arch, expect, label=None, prompts=None, **knobs):
         """Drive the served path with every launch count set to 0 just
-        before and read just after; fail unless every request completes and
-        the counts are ``expect(prefill calls, decode steps)``."""
+        before and read just after; fail unless every request completes,
+        no fault is logged, and the counts are ``expect(prefill calls,
+        decode steps, draft syncs)``. ``knobs`` go to ``build_replicaset``
+        (chunking, prefix cache, speculation, params to reuse)."""
         t0 = time.perf_counter()
         cfg = get_config(arch)
         torch.cuda.reset_peak_memory_stats()
-        rs = build_replicaset(cfg, monitor=Monitor(), **SERVE)
+        monitor = Monitor()
+        rs = build_replicaset(cfg, monitor=monitor, **SERVE, **knobs)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         rng = np.random.default_rng(0)
-        prompts = make_prompts(LOAD["requests"], cfg.vocab_size, rng,
-                               lo=LOAD["lo"], hi=LOAD["hi"])
+        # drawn even when ``prompts`` replaces them, so every run's
+        # arrivals follow one Poisson schedule
+        load = make_prompts(LOAD["requests"], cfg.vocab_size, rng,
+                            lo=LOAD["lo"], hi=LOAD["hi"])
+        prompts = load if prompts is None else prompts
         for op in ops.values():
             op.launches = 0
         gmm_ops.launches_by_variant.update(
@@ -680,28 +856,39 @@ def main():
         launches = {name: op.launches for name, op in ops.items()}
         by_variant = variant_counts[cfg.name] = dict(
             gmm_ops.launches_by_variant)
-        total = rs.metrics()["total"]
+        metrics = rs.metrics()
+        total = metrics["total"]
         prefills, steps = total["prefills"], total["decode_steps"]
-        want = expect(prefills, steps)
-        emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
-              "dtype": cfg.dtype, **SERVE,
+        syncs = sum(getattr(e.draft, "syncs", 0) for e in rs.engines)
+        want = expect(prefills, steps, syncs)
+        logged = [e for e in monitor.events() if e["event"] in FAULTS]
+        emit({"phase": "serve", "arch": cfg.name, "run": label or cfg.name,
+              "layers": cfg.num_layers, "dtype": cfg.dtype, **SERVE,
+              **{k: v for k, v in knobs.items() if k != "params"},
               "prompt_lens": [len(p) for p in prompts],
               "rate_rps": LOAD["rate_rps"],
               "max_new_tokens": LOAD["max_new_tokens"], "report": report,
+              "totals_with_warmup": total,
               "prefill_calls": prefills, "decode_steps": steps,
+              "draft_syncs": syncs,
               "launches": launches, "expected_launches": want,
               "grouped_matmul_launches_by_variant": by_variant,
+              "faults_logged": logged,
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
               "init_seconds": init_s, "card": smi,
               "seconds": time.perf_counter() - t0})
-        n = LOAD["requests"]
+        n = len(prompts)
         if report["completed"] != n or \
                 report["tokens"] != n * LOAD["max_new_tokens"]:
-            fail(f"{arch}: served {report['completed']}/{n} requests, "
-                 f"{report['tokens']}/{n * LOAD['max_new_tokens']} tokens")
+            fail(f"{label or arch}: served {report['completed']}/{n} "
+                 f"requests, {report['tokens']}/"
+                 f"{n * LOAD['max_new_tokens']} tokens")
+        if logged:
+            fail(f"{label or arch}: faults logged: {logged}")
         if prefills <= 0 or launches != want:
-            fail(f"{arch}: kernel launches {launches}, expected {want} for "
-                 f"{prefills} prefill calls and {steps} decode steps")
+            fail(f"{label or arch}: kernel launches {launches}, expected "
+                 f"{want} for {prefills} prefill calls, {steps} decode steps "
+                 f"and {syncs} draft syncs")
         # bf16 MoE: every prefill group's capacity (>= 80 at 256 tokens)
         # takes the tile kernel, every 4-slot decode step's (2) the
         # streaming kernel
@@ -713,12 +900,16 @@ def main():
                  f"{want_variants}")
         return rs, cfg, launches
 
-    def breakdown(rs, cfg, rows, shares):
+    def breakdown(rs, cfg, rows, shares, serving_features=False):
         """Where a step's time goes (after the counted run): one prefill of
-        ``rows`` x 1024 tokens and one fused 4-slot decode step, host clock
-        to the end of the device work, beside the device's busy time in a
-        profiled call and so its idle share; ``shares`` maps a kernel to
-        its measured time per prefill."""
+        ``rows`` x 1024 tokens and one fused 4-slot decode step (positions
+        on the host, as the engine passes them), host clock to the end of
+        the device work, beside the device's busy time in a profiled call
+        and so its idle share; ``shares`` maps a kernel to its measured time
+        per prefill. ``serving_features`` adds one batched chunk call of
+        4 x 256 at position 1024 (no logits, as the engine calls it), one
+        verify step of 4 slots x 5 tokens, one prefix restore of a
+        512-token entry into a slot and one 256-token chunk extract."""
         t0 = time.perf_counter()
         eng = rs.engines[0]
         times = {}
@@ -726,14 +917,29 @@ def main():
             toks = torch.randint(1, cfg.vocab_size, (4, 1024), device="cuda",
                                  generator=torch.Generator("cuda")
                                  .manual_seed(2))
-            for label, fn in (
-                    (f"prefill_{rows}x1024",
-                     lambda: eng.model.prefill(eng.params, toks[:rows],
-                                               2048)),
-                    ("decode_step_4_slots",
-                     lambda: eng.model.decode(
-                         eng.params, eng.cache, toks[:, :1],
-                         torch.full((4,), 1500, device="cuda")))):
+            steps = [(f"prefill_{rows}x1024",
+                      lambda: eng.model.prefill(eng.params, toks[:rows],
+                                                2048)),
+                     ("decode_step_4_slots",
+                      lambda: eng.model.decode(eng.params, eng.cache,
+                                               toks[:, :1],
+                                               torch.full((4,), 1500)))]
+            if serving_features:
+                entry = eng._pc_extract(0, 0, 512)
+                steps += [
+                    ("chunk_call_4x256_at_1024",
+                     lambda: eng.model.prefill_chunk(
+                         eng.params, eng.cache, toks[:, :256],
+                         torch.full((4,), 1024), rows=torch.arange(4),
+                         logits=False)),
+                    ("verify_step_4_slots_x5",
+                     lambda: eng.model.decode_verify(
+                         eng.params, eng.cache, toks[:, :5],
+                         torch.full((4,), 1500))),
+                    ("prefix_restore_512", lambda: eng._pc_restore(entry, 1)),
+                    ("chunk_extract_256",
+                     lambda: eng._pc_extract(0, 256, 256))]
+            for label, fn in steps:
                 wall = times[f"{label}_ms"] = host_ms(fn)
                 busy = times[f"{label}_device_busy_ms"] = device_busy_ms(fn)
                 if isinstance(busy, float):
@@ -748,15 +954,55 @@ def main():
     counts = {}
     yi = get_config("yi-9b")
     rs, cfg, counts["yi-9b"] = serve(
-        "yi-9b", lambda p, s: {"flash_attention": yi.num_layers * p,
-                               "grouped_matmul": 0, "ssd": 0})
-    breakdown(rs, cfg, 4, {"flash_attention": cfg.num_layers * kernel_ms})
+        "yi-9b", lambda p, s, d: {"flash_attention": yi.num_layers * p,
+                                  "grouped_matmul": 0, "ssd": 0})
+    breakdown(rs, cfg, 4, {"flash_attention": cfg.num_layers * kernel_ms},
+              serving_features=True)
+    yi_params = rs.engines[0].params        # reused by the runs below
     del rs
+    torch.cuda.empty_cache()
+
+    # chunked prefill and the prefix cache: four short prompts (padded
+    # batched prefill on the flash kernel, 48 launches a call) and four on
+    # two shared 512-token heads (chunked, in place, no flash kernel); the
+    # first prompt is a long one, so run_load's second warmup request hits
+    rng = np.random.default_rng(3)
+    heads = [rng.integers(1, yi.vocab_size, size=HEAD) for _ in range(2)]
+    mixed = []
+    for i in range(4):
+        mixed.append(np.concatenate([heads[i % 2], rng.integers(
+            1, yi.vocab_size, size=int(rng.integers(*TAIL)))]))
+        mixed.append(rng.integers(1, yi.vocab_size,
+                                  size=int(rng.integers(*SHORT))))
+    rs, _, counts["yi-9b chunk+prefix"] = serve(
+        "yi-9b", lambda p, s, d: {"flash_attention": yi.num_layers * p,
+                                  "grouped_matmul": 0, "ssd": 0},
+        label="yi-9b chunk+prefix", prompts=mixed, params=yi_params,
+        **CHUNKED)
+    total = rs.metrics()["total"]
+    hit = total["prefix_hit_tokens"]
+    if not total["prefill_chunks"] or not hit or hit % CHUNKED["chunk_tokens"]:
+        fail(f"chunk+prefix run: {total['prefill_chunks']} chunks, {hit} "
+             f"prefix hit tokens")
+    del rs
+    # speculation, each draft, on the plain traffic; the model draft's sync
+    # prefills launch the flash kernel once per draft layer (2)
+    for kind in ("ngram", "model"):
+        label = f"yi-9b speculate 4 {kind}"
+        rs, _, counts[label] = serve(
+            "yi-9b", lambda p, s, d: {
+                "flash_attention": yi.num_layers * p + 2 * d,
+                "grouped_matmul": 0, "ssd": 0},
+            label=label, params=yi_params, speculate=4, draft=kind)
+        if not rs.metrics()["total"]["spec_steps"]:
+            fail(f"{label}: no verify step")
+        del rs
+    del yi_params
     torch.cuda.empty_cache()
 
     granite = get_config("granite-moe-1b-a400m")
     rs, cfg, counts["granite-moe-1b-a400m"] = serve(
-        "granite-moe-1b-a400m", lambda p, s: {
+        "granite-moe-1b-a400m", lambda p, s, d: {
             "flash_attention": granite.num_layers * p,
             "grouped_matmul": 3 * granite.num_layers * (p + s), "ssd": 0})
     breakdown(rs, cfg, 1, {
@@ -768,8 +1014,9 @@ def main():
 
     mamba = get_config("mamba2-370m")
     rs, cfg, counts["mamba2-370m"] = serve(
-        "mamba2-370m", lambda p, s: {"flash_attention": 0, "grouped_matmul": 0,
-                                  "ssd": mamba.num_layers * p})
+        "mamba2-370m", lambda p, s, d: {"flash_attention": 0,
+                                        "grouped_matmul": 0,
+                                        "ssd": mamba.num_layers * p})
     breakdown(rs, cfg, 1, {"ssd": cfg.num_layers * timings["ssd"]["ms"]})
     del rs
     torch.cuda.empty_cache()

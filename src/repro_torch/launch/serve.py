@@ -12,12 +12,16 @@ not adapt to the system, so queueing and latency under load are measured.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mamba2-370m                  # SSM: SSD kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu ...
+    PYTHONPATH=src python -m repro_torch.launch.serve --chunk-tokens 16 \
+        --prefix-cache-mb 8 --speculate 4 --device cpu
 
 An arch name serves its reduced config; ``build_replicaset(get_config(...))``
-serves the full widths.
+serves the full widths. ``--chunk-tokens`` prefills long prompts chunk by
+chunk, ``--prefix-cache-mb`` shares their chunk boundaries across requests,
+and ``--speculate``/``--draft`` verify draft tokens in one batched step.
 
-Not ported yet: chunked prefill, the prefix cache, speculative decoding and
-the flight recorder (their flags), and the elastic serve loop.
+Not ported yet: the flight recorder (``--record``), ``--shared-prefix`` and
+the elastic serve loop.
 """
 from __future__ import annotations
 
@@ -82,7 +86,7 @@ def serve_report(reqs: List[Request], wall_s: float, rs: ReplicaSet,
         return m["total"].get(k, 0) - base.get(k, 0)
 
     prompt_toks = sum(len(r.tokens) for r in done)
-    return {
+    out = {
         "requests": len(reqs),
         "completed": len(done),
         "tokens": toks,
@@ -98,8 +102,22 @@ def serve_report(reqs: List[Request], wall_s: float, rs: ReplicaSet,
         "failovers": m["failovers"],
         "prefills": counter("prefills"),
         "prefill_requests": counter("prefill_requests"),
+        "prefill_chunks": counter("prefill_chunks"),
+        "prefill_chunk_batches": counter("prefill_chunk_batches"),
+        "prefill_tokens": counter("prefill_tokens"),
+        "prefix_hit_tokens": counter("prefix_hit_tokens"),
         "decode_steps": counter("decode_steps"),
     }
+    spec_steps = counter("spec_steps")
+    if spec_steps:
+        proposed = counter("spec_proposed")
+        out["spec_steps"] = spec_steps
+        out["spec_accept_rate"] = (counter("spec_accepted") / proposed
+                                   if proposed else 0.0)
+        out["spec_tokens_per_step"] = counter("spec_emitted") / spec_steps
+    if "prefix_cache" in m:
+        out["prefix_cache"] = m["prefix_cache"]
+    return out
 
 
 def run_load(rs: ReplicaSet, prompts: List[np.ndarray], *, rate_rps: float,
@@ -111,6 +129,11 @@ def run_load(rs: ReplicaSet, prompts: List[np.ndarray], *, rate_rps: float,
         # allocator) outside the measured window
         w = rs.submit_request(prompts[0], max_new_tokens=2)
         w.future.result(timeout=timeout_s)
+        if rs.prefix_cache is not None:
+            # the first request seeded the prefix cache; a second identical
+            # one exercises the hit/restore path
+            w = rs.submit_request(prompts[0], max_new_tokens=2)
+            w.future.result(timeout=timeout_s)
     baseline = dict(rs.metrics()["total"])   # exclude warmup/prior traffic
     t0 = time.perf_counter()
     reqs = poisson_load(rs.submit_request, prompts, rate_rps, rng,
@@ -122,15 +145,24 @@ def run_load(rs: ReplicaSet, prompts: List[np.ndarray], *, rate_rps: float,
 
 
 def build_replicaset(arch: Union[str, ModelConfig], *, replicas: int,
-                     slots: int, max_seq: int, monitor=None,
-                     device=None) -> ReplicaSet:
+                     slots: int, max_seq: int, monitor=None, device=None,
+                     chunk_tokens: int = 0, prefix_cache_mb: float = 0.0,
+                     speculate: int = 0, draft: str = "ngram",
+                     params=None) -> ReplicaSet:
     """A ReplicaSet serving ``arch``: an arch name serves its ``reduced()``
     config (the JAX package's default, so the two stay comparable); a
     ``ModelConfig`` is served as given (the full widths on the card). Params
-    are drawn once from a ``torch.Generator`` seeded with 0. With
-    ``device`` unset the replicas spread over every visible card; with no
-    card it raises (pass ``device="cpu"``)."""
+    are drawn once from a ``torch.Generator`` seeded with 0, unless
+    ``params`` (of ``arch``'s model) are given. With ``device`` unset the
+    replicas spread over every visible card; with no card it raises (pass
+    ``device="cpu"``). ``chunk_tokens``, ``prefix_cache_mb`` (one cache
+    shared by every replica), ``speculate`` and ``draft`` are the engine's
+    knobs; a draft is built per replica only where the engine would
+    speculate."""
     from repro_torch.models.model import build_model
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.speculative import (build_draft,
+                                                 supports_speculation)
 
     cfg = reduced(get_config(arch)) if isinstance(arch, str) else arch
     home = resolve_device(device)
@@ -140,15 +172,30 @@ def build_replicaset(arch: Union[str, ModelConfig], *, replicas: int,
     else:
         pool = [home]
     model = build_model(cfg, device=home)
-    params = model.init(torch.Generator(device=home).manual_seed(0))
+    if params is None:
+        params = model.init(torch.Generator(device=home).manual_seed(0))
+    prefix_cache = None
+    if chunk_tokens and prefix_cache_mb > 0:
+        prefix_cache = PrefixCache(chunk_tokens,
+                                   budget_bytes=int(prefix_cache_mb * 2**20),
+                                   monitor=monitor)
+    # no draft where the engine would gate speculation off (SSM/MoE): it
+    # would only allocate unused per-replica state; the engine still logs
+    # the fallback
+    spec_supported = bool(speculate) and supports_speculation(model, max_seq)
 
     def factory(i: int, devices: tuple) -> ServingEngine:
+        dev = devices[0] if devices else home
+        d = build_draft(draft, cfg, slots=slots, max_seq=max_seq, device=dev,
+                        name=f"replica{i}-draft") if spec_supported else None
         return ServingEngine(model, params, slots=slots, max_seq=max_seq,
-                             name=f"replica{i}", monitor=monitor,
-                             device=devices[0] if devices else home)
+                             name=f"replica{i}", monitor=monitor, device=dev,
+                             chunk_tokens=chunk_tokens,
+                             prefix_cache=prefix_cache, speculate=speculate,
+                             draft=d)
 
     return ReplicaSet(factory, replicas=replicas, monitor=monitor,
-                      devices=pool)
+                      devices=pool, prefix_cache=prefix_cache)
 
 
 def validate_serving_args(args, error) -> None:
@@ -164,6 +211,25 @@ def validate_serving_args(args, error) -> None:
     if args.rate < 0:
         error(f"--rate must be >= 0 (0 submits every request at once), "
               f"got {args.rate}")
+    # the JAX driver's checks and messages: a zero or negative chunk size
+    # would reach the engine as a truthy chunk config; a negative cache
+    # budget would quietly evict everything
+    off = "omit the flag"
+    if args.chunk_tokens is not None and args.chunk_tokens <= 0:
+        error(f"--chunk-tokens must be a positive integer, got "
+              f"{args.chunk_tokens} ({off} to disable chunked prefill)")
+    if args.prefix_cache_mb is not None and args.prefix_cache_mb <= 0:
+        error(f"--prefix-cache-mb must be positive, got "
+              f"{args.prefix_cache_mb} ({off} to disable the prefix cache)")
+    if args.prefix_cache_mb and args.chunk_tokens is None:
+        error("--prefix-cache-mb requires --chunk-tokens "
+              "(prefix entries live at chunk boundaries)")
+    if args.speculate is not None and args.speculate <= 0:
+        error(f"--speculate must be a positive number of draft tokens, got "
+              f"{args.speculate} ({off} to disable speculative decoding)")
+    if args.draft is not None and not args.speculate:
+        error("--draft requires --speculate "
+              "(a draft only exists to propose speculative tokens)")
 
 
 def main(argv=None):
@@ -179,13 +245,29 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device for every replica (default: spread "
                          "over the visible cards; 'cpu' to run on the CPU)")
+    ap.add_argument("--chunk-tokens", type=int, default=None,
+                    help="chunk-wise prefill in pieces of this many tokens "
+                         "(omit to disable; required for prefix caching)")
+    ap.add_argument("--prefix-cache-mb", type=float, default=None,
+                    help="cross-request prefix-cache LRU budget in MiB "
+                         "(omit to disable)")
+    ap.add_argument("--speculate", type=int, default=None,
+                    help="speculative decoding: draft tokens verified per "
+                         "decode step (omit to disable)")
+    ap.add_argument("--draft", choices=("model", "ngram"), default=None,
+                    help="draft engine for --speculate: 'ngram' prompt "
+                         "lookup (default) or a small 'model' transformer")
     args = ap.parse_args(argv)
     validate_serving_args(args, ap.error)
 
     monitor = Monitor()
     rs = build_replicaset(args.arch, replicas=args.replicas,
                           slots=args.slots, max_seq=args.max_seq,
-                          monitor=monitor, device=args.device)
+                          monitor=monitor, device=args.device,
+                          chunk_tokens=args.chunk_tokens or 0,
+                          prefix_cache_mb=args.prefix_cache_mb or 0.0,
+                          speculate=args.speculate or 0,
+                          draft=args.draft or "ngram")
     vocab = rs.engines[0].cfg.vocab_size      # the (reduced) serving config
     rs.start()
     rng = np.random.default_rng(0)

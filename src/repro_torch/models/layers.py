@@ -3,8 +3,8 @@ params as dicts), ported from the JAX package's ``repro.models.layers``.
 
 Layouts and cast orders follow the JAX functions exactly, so the two agree
 in float32 to rounding. Prefill attention runs on the flash attention op
-(the CUDA kernel on the card); decode attention is plain torch ops, as the
-reference has no TPU kernel for it.
+(the CUDA kernel on the card); decode and chunk attention are plain torch
+ops, as the reference has no TPU kernel for them.
 """
 from __future__ import annotations
 
@@ -138,6 +138,26 @@ def attention(cfg, q, k, v, *, window: int = 0):
     """Full-sequence causal attention (prefill): the flash attention op."""
     return flash_attention(q, k, v, causal=True, window=window,
                            softcap=cfg.attn_softcap)
+
+
+def chunk_attention(cfg, q, k_cache, v_cache, qpos):
+    """Chunked-prefill attention: a multi-token chunk attends over the full
+    per-slot cache. q: (B,C,H,hd); caches: (B,T,KV,hd) with the chunk's own
+    K/V already written at absolute positions ``qpos``; qpos: (B,C). Global
+    attention only (the engine gates chunking to padding-safe models), where
+    masking ``kpos <= qpos`` is exact: positions beyond the chunk are unwritten
+    scratch or later prompt positions not yet computed, both masked."""
+    b, c, h, hd = q.shape
+    skv, kvh = k_cache.shape[1], k_cache.shape[2]
+    qg = _group(q, kvh)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k_cache).float()
+    s = softcap(s * _scale(cfg), cfg.attn_softcap)
+    kpos = torch.arange(skv, device=q.device)
+    valid = kpos[None, None, :] <= qpos[:, :, None]           # (B,C,T)
+    s = torch.where(valid[:, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", p, v_cache)
+    return out.reshape(b, c, h, hd)
 
 
 def decode_attention(cfg, q, k_cache, v_cache, pos, *, window: int = 0):

@@ -6,6 +6,8 @@ FFN) and the pure SSM stack (``_build_ssm``):
     params = model.init(generator)
     logits, caches = model.prefill(params, tokens, max_seq)
     logits, caches = model.decode(params, caches, tokens, pos)
+    logits, caches = model.prefill_chunk(params, caches, tokens, pos0)
+    logits, caches = model.decode_verify(params, caches, tokens, pos)
     caches = model.init_cache(batch, max_seq)
 
 Params keep the JAX pytrees and layouts, so ``repro_torch.models.params``
@@ -16,8 +18,12 @@ axis], "final_norm"}`` and the SSM's ``{"embed", "mamba": {"ln", "mamba":
 caches are a list (one per sub) of ``{"k", "v"}`` tensors of shape
 (n_super, B, max_seq, KV, hd); the SSM's are ``{"conv": {"x", "B", "C"},
 "ssd"}`` stacked on the layer axis. Where JAX returns a new cache, the port
-writes the cache in place: decode updates the cache it is given and returns
-it.
+writes the cache in place: decode, ``prefill_chunk`` and ``decode_verify``
+update the cache they are given and return it. A write at a position past
+the cache's end is dropped, as JAX's scatter drops out-of-range updates
+(never clamped onto a real position): the write index is worked out on the
+host from the positions, so pass them as CPU tensors to keep the host from
+waiting on the device.
 
 Ported so far: the dense and MoE all-global token families (``yi-9b``,
 ``granite-moe-1b-a400m``, ``llama4`` at reduced size) and the pure SSM
@@ -110,29 +116,54 @@ def _build_prefill_cache(k, v, cache_len: int):
     return F.pad(k, (0, 0, 0, 0, 0, pad)), F.pad(v, (0, 0, 0, 0, 0, pad))
 
 
+def _write_index(pos0, c: int, max_seq: int, rows=None, device=None):
+    """Where a call writes K/V for tokens at positions ``pos0[r] + j``
+    (j < c): (cache row, cache position, call row, call column) of every
+    position below ``max_seq``, on ``device``. Later positions are dropped,
+    as JAX's scatter drops out-of-range updates. ``rows`` (B,) maps call
+    rows to cache rows (default: the same row). Worked out on the host from
+    ``pos0`` (a CPU tensor costs no wait for the device), then one copy."""
+    positions = pos0.cpu()[:, None] + torch.arange(c)
+    r, j = (positions < max_seq).nonzero(as_tuple=True)
+    cache_rows = r if rows is None else rows.cpu()[r]
+    return tuple(torch.stack([cache_rows, positions[r, j], r, j])
+                 .to(device).unbind(0))
+
+
 def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
-              cache=None, pos=None, max_seq: Optional[int] = None):
+              cache=None, pos=None, max_seq: Optional[int] = None,
+              write=None, rows=None):
     """One transformer sub-layer. Returns (h, new_cache).
 
     ``prefill``: attention over the whole sequence on the flash op; the new
     cache is this layer's K/V padded to ``max_seq``. ``decode``: one token
     per row at ``pos``; its K/V is written into ``cache`` in place (JAX:
-    ``cache.at[arange(b), pos].set(k[:, 0])``) and ``cache`` is returned."""
+    ``cache.at[arange(b), pos].set(k[:, 0])``) and ``cache`` is returned.
+    ``chunk``: C tokens per row at ``positions``; their K/V is written in
+    place (JAX: ``cache.at[arange(b)[:, None], positions].set(k)``) and the
+    chunk attends over its rows of the cache, ``rows`` of it when given.
+    ``write`` is the call's ``_write_index`` (decode and chunk)."""
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = L.qkv_proj(p["attn"], cfg, hn, positions, sub.theta)
-    if mode == "decode":
-        rows = torch.arange(h.shape[0], device=h.device)
-        cache["k"][rows, pos] = k[:, 0]
-        cache["v"][rows, pos] = v[:, 0]
-        attn = L.decode_attention(cfg, q, cache["k"], cache["v"], pos,
-                                  window=sub.window)
+    if mode in ("decode", "chunk"):
+        crow, cpos, r, j = write
+        cache["k"][crow, cpos] = k[r, j]
+        cache["v"][crow, cpos] = v[r, j]
         new_cache = cache
+        if mode == "decode":
+            attn = L.decode_attention(cfg, q, cache["k"], cache["v"], pos,
+                                      window=sub.window)
+        else:
+            kc, vc = ((cache["k"], cache["v"]) if rows is None
+                      else (cache["k"][rows], cache["v"][rows]))
+            attn = L.chunk_attention(cfg, q, kc, vc, positions)
     elif mode == "prefill":
         kc, vc = _build_prefill_cache(k, v, max_seq)
         new_cache = {"k": kc, "v": vc}
         attn = L.attention(cfg, q, k, v, window=sub.window)
     else:
-        raise ValueError(f"mode {mode!r} is not ported (prefill, decode)")
+        raise ValueError(f"mode {mode!r} is not ported (prefill, decode, "
+                         f"chunk)")
     h = h + L.out_proj(attn, p["attn"]["wo"])
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
     if sub.ffn == "dense":
@@ -194,14 +225,14 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
                                           device=gen.device)}
 
     def _run(params, h, positions, mode, caches=None, pos=None,
-             max_seq=None):
+             max_seq=None, write=None, rows=None):
         new_caches = [[] for _ in subs]
         for i in range(n_super):
             for j, sub in enumerate(subs):
                 cs = _layer(caches[j], i) if caches is not None else None
                 h, nc = sub_apply(_layer(params["blocks"][j], i), cfg, sub, h,
                                   positions, mode, cache=cs, pos=pos,
-                                  max_seq=max_seq)
+                                  max_seq=max_seq, write=write, rows=rows)
                 new_caches[j].append(nc)
         return L.rms_norm(h, params["final_norm"], cfg.norm_eps), new_caches
 
@@ -220,11 +251,51 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
 
     def decode(params, caches, inputs, pos):
         """inputs: (B, 1) token ids at positions ``pos`` (B,). Writes their
-        K/V into ``caches`` in place; returns (logits, caches)."""
-        positions = pos[:, None]
+        K/V into ``caches`` in place (a row past the end writes nothing and
+        attends over the whole cache, as in JAX); returns (logits,
+        caches)."""
+        write = _write_index(pos, 1, caches[0]["k"].shape[2],
+                            device=inputs.device)
+        pos = pos.to(inputs.device)
         h = L.embed_apply(params["embed"], inputs, cfg.d_model)
-        h, _ = _run(params, h, positions, "decode", caches=caches, pos=pos)
+        h, _ = _run(params, h, pos[:, None], "decode", caches=caches,
+                    pos=pos, write=write)
         return L.unembed_apply(params["embed"], cfg, h), caches
+
+    def prefill_chunk(params, caches, inputs, pos0, rows=None,
+                      logits: bool = True):
+        """Chunk-wise prefill: run ``inputs`` (B, C), one chunk of a longer
+        prompt starting at absolute positions ``pos0`` (B,), against the
+        full-length ``caches``, writing the chunk's K/V in place at (cache
+        row, position); positions past the end are dropped. ``rows`` (B,)
+        names the cache row of each input row (default: row b is cache row
+        b), so an engine runs a few slots' chunks on its own cache with no
+        copy of it. Earlier chunks (and any prefix-cache restore) must
+        already occupy positions [0, pos0). Exact only for all-global
+        (padding-safe) models; the serving engine gates on that. Returns
+        (logits of every position, or None when ``logits`` is false,
+        caches)."""
+        c = inputs.shape[1]
+        dev = inputs.device
+        write = _write_index(pos0, c, caches[0]["k"].shape[2], rows, dev)
+        positions = pos0.to(dev)[:, None] + torch.arange(c, device=dev)
+        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        h, _ = _run(params, h, positions, "chunk", caches=caches,
+                    write=write, rows=None if rows is None else rows.to(dev))
+        if not logits:
+            return None, caches
+        return L.unembed_apply(params["embed"], cfg, h), caches
+
+    def decode_verify(params, caches, candidate_tokens, pos):
+        """Speculative-decode verify: score ``candidate_tokens`` (B, K+1),
+        the last emitted token followed by K draft proposals, in one batched
+        call, returning logits for every candidate position. Rides the chunk
+        machinery: candidate K/V is written at absolute positions
+        ``pos..pos+K`` and chunk attention masks ``kpos <= qpos``, so
+        positions past the accepted prefix hold stale K/V that later steps
+        never attend and overwrite in place: rejection is a per-slot
+        position rollback, not a cache rollback."""
+        return prefill_chunk(params, caches, candidate_tokens, pos)
 
     def init_cache(batch: int, max_seq: int, cache_device=None):
         """Zeroed caches on ``cache_device`` (default: the model's device);
@@ -236,7 +307,8 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
     kernel_ops = (flash_ops,) + ((gmm_ops,) if any(
         s.ffn == "moe" for s in subs) else ())
     return SimpleNamespace(cfg=cfg, device=device, init=init, prefill=prefill,
-                           decode=decode, init_cache=init_cache,
+                           decode=decode, prefill_chunk=prefill_chunk,
+                           decode_verify=decode_verify, init_cache=init_cache,
                            n_super=n_super, subs=subs, kernel_ops=kernel_ops)
 
 

@@ -11,9 +11,19 @@ prefill call per prompt length, with no pad rows, for SSM and MoE models.
 The synchronous ``run_until_idle`` path is kept for deterministic use
 (tests, oracles).
 
-Not ported yet: chunked prefill, the prefix cache, speculative decoding,
-rolling caches and the flight recorder (the JAX engine's ``chunk_tokens``,
-``prefix_cache``, ``speculate``/``draft`` and ``recorder`` arguments).
+With ``chunk_tokens`` set (padding-safe models only), long prompts are
+*chunk-prefilled*: the prompt enters its slot's cache in chunk-sized pieces,
+one chunk per step, written in place, so a long admission never stalls
+tokens for requests already decoding. Chunk boundaries feed an optional
+cross-request ``PrefixCache``: requests sharing a prompt head restore the
+deepest cached boundary and compute only their tail. With ``speculate`` = k
+and a draft, each step verifies k draft tokens per slot in one
+``decode_verify`` call and emits 1..k+1 tokens, the plain path's tokens.
+The chunk path computes no logits; verify's greedy argmax runs on the
+device, so only (slots, k+1) token ids reach the host.
+
+Not ported yet: rolling caches and the flight recorder (the JAX engine's
+``recorder`` argument).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.params import to_device
 from repro_torch.observability.tracing import NULL_TRACE, next_rid
+from repro_torch.serving.prefix_cache import _tree_map
 
 
 @dataclasses.dataclass
@@ -111,7 +122,9 @@ class ServingEngine:
     prefill_bucket = 16
 
     def __init__(self, model, params, *, slots: int = 4, max_seq: int = 256,
-                 name: str = "engine0", monitor=None, device=None):
+                 name: str = "engine0", monitor=None, device=None,
+                 chunk_tokens: Optional[int] = None, prefix_cache=None,
+                 speculate: int = 0, draft=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # build every kernel of the model's path now: the first prefill
@@ -126,13 +139,52 @@ class ServingEngine:
         self.max_seq = max_seq
         self.name = name
         self.monitor = monitor
+        self.chunk_tokens = int(chunk_tokens) if chunk_tokens else 0
+        self.prefix_cache = prefix_cache
+        self.speculate = int(speculate) if speculate else 0
+        self.draft = draft
         self.cache = model.init_cache(slots, max_seq, self.device)
         self.pos = np.zeros((slots,), np.int32) - 1    # -1: free slot
         self.active: List[Optional[Request]] = [None] * slots
+        # slot -> next prompt position to prefill; a slot present here holds
+        # an admitted request still being chunk-prefilled (it is excluded
+        # from decode until its prompt is fully in cache)
+        self._prefilling: dict = {}
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self.metrics = {"requests": 0, "tokens": 0, "prefills": 0,
                         "prefill_requests": 0, "decode_steps": 0,
-                        "completed": 0}
+                        "completed": 0, "prefill_chunks": 0,
+                        "prefill_tokens": 0, "prefix_hit_tokens": 0,
+                        "prefill_chunk_batches": 0, "spec_steps": 0,
+                        "spec_proposed": 0, "spec_accepted": 0,
+                        "spec_emitted": 0}
+        # chunked prefill is exact only where padded prefill is (all-global
+        # attention: chunk K/V writes land at absolute positions and the
+        # chunk mask is position-based); SSM/MoE models keep the
+        # whole-prompt path
+        has_chunk = getattr(model, "prefill_chunk", None) is not None
+        self._chunk_ok = bool(self.chunk_tokens) and self._pad_ok and \
+            has_chunk
+        if self.chunk_tokens and not self._chunk_ok and monitor is not None:
+            monitor.log(name, "chunked_prefill_unsupported",
+                        reason="model is not padding-safe (rolling/SSM/MoE)"
+                        if has_chunk else "model has no prefill_chunk")
+        # speculative decode rides the same gate (verify writes candidate
+        # K/V at absolute positions and relies on the position-based chunk
+        # mask); models without a verify mode degrade to the plain fused
+        # decode, and a missing draft means nothing to verify
+        has_verify = getattr(model, "decode_verify", None) is not None
+        self._spec_ok = bool(self.speculate) and self._pad_ok and \
+            self.draft is not None and has_verify
+        if self.speculate and not self._spec_ok and monitor is not None:
+            if not has_verify:
+                reason = "model has no decode_verify (rolling/SSM/hybrid)"
+            elif not self._pad_ok:
+                reason = "model is not padding-safe (rolling/SSM/MoE)"
+            else:
+                reason = "no draft engine configured"
+            monitor.log(name, "speculative_unsupported", reason=reason,
+                        speculate=self.speculate)
         # -- async decode loop state --------------------------------------
         self._stop = threading.Event()
         self._wake = threading.Event()
@@ -166,6 +218,12 @@ class ServingEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.long).to(self.device)
 
+    @staticmethod
+    def _host(a: np.ndarray) -> torch.Tensor:
+        """Positions stay on the host: the model works out its write index
+        from them there and copies them to the device itself."""
+        return torch.tensor(a, dtype=torch.long)
+
     def _prefill_group(self, grp: List[Request]):
         """One prefill call for a group of newly admitted requests, then a
         scatter into the requests' slots of the engine cache in place, leaf
@@ -197,8 +255,10 @@ class ServingEngine:
             r.trace.open("decode")
 
     def _admit(self):
-        """Fill free slots from the queue: one padded batched prefill, or
-        one exact prefill per prompt length where padding is unsafe."""
+        """Fill free slots from the queue: long prompts (and any prompt when
+        a prefix cache may hold its head) enter the chunk-wise prefill
+        state; the rest take one padded batched prefill, or one exact
+        prefill per prompt length where padding is unsafe."""
         batch: List[Request] = []
         for slot in range(self.slots):
             if self.active[slot] is not None:
@@ -212,7 +272,17 @@ class ServingEngine:
             if self.monitor is not None:
                 self.monitor.gauge(self.name, "queue_wait_s",
                                    time.perf_counter() - r.submit_t)
-            batch.append(r)
+            # chunked admission for prompts longer than one chunk, or ones a
+            # prefix cache could serve (>= one chunk boundary); sub-chunk
+            # prompts can neither hit nor seed the cache, so they keep the
+            # padded batched prefill
+            if self._chunk_ok and (
+                    len(r.tokens) > self.chunk_tokens
+                    or (self.prefix_cache is not None
+                        and len(r.tokens) >= self.chunk_tokens)):
+                self._admit_chunked(r)
+            else:
+                batch.append(r)
         if not batch:
             return
         if self._pad_ok:
@@ -236,23 +306,174 @@ class ServingEngine:
                     self.monitor.log(self.name, "prefill_error",
                                      error=repr(exc), requests=len(grp))
 
+    # -- prefix cache: restore and extract, in place ----------------------
+    def _pc_restore(self, entry, slot: int):
+        """Copy a prefix-cache entry (leaves (n_super, L, KV, hd) on the
+        host) into ``slot`` at positions [0, L) of the engine's cache, on
+        the engine's device and in its dtype. Raises on an entry of another
+        structure or shape."""
+        for full, ent in _leaf_pairs(self.cache, entry):
+            want = (full.shape[0], ent.shape[1]) + tuple(full.shape[3:])
+            if ent.ndim != 4 or tuple(ent.shape) != want \
+                    or ent.shape[1] > full.shape[2]:
+                raise ValueError(f"prefix entry leaf {tuple(ent.shape)} does "
+                                 f"not fit a cache leaf {tuple(full.shape)}")
+            full[:, slot, :ent.shape[1]] = ent
+
+    def _pc_extract(self, slot: int, start: int, length: int):
+        """Positions [start, start+length) of ``slot``, copied to the host
+        (a copy even on a CPU engine: the live cache is written later)."""
+        return _tree_map(
+            lambda x: x[:, slot, start:start + length].to("cpu", copy=True),
+            self.cache)
+
+    # -- chunked prefill ---------------------------------------------------
+    def _admit_chunked(self, r: Request):
+        """Admit a request into the chunk-wise prefill state, restoring the
+        deepest prefix-cache boundary first so only the uncovered tail is
+        computed."""
+        start = 0
+        span = r.trace.open("prefill", mode="chunked")
+        if self.prefix_cache is not None:
+            covered, entry = self.prefix_cache.lookup(r.tokens)
+            if covered:
+                try:
+                    self._pc_restore(entry, r.slot)
+                    start = covered
+                    self.metrics["prefix_hit_tokens"] += covered
+                    span.annotate(prefix_hit_tokens=covered)
+                    r.trace.event("prefix_cache_hit", tokens=covered)
+                except Exception as exc:
+                    # a bad entry (e.g. adopted from an incompatible pool)
+                    # degrades to a miss: an unhandled raise would strand
+                    # the already-dequeued request
+                    start = 0
+                    r.trace.event("prefix_restore_error")
+                    if self.monitor is not None:
+                        self.monitor.log(self.name, "prefix_restore_error",
+                                         error=repr(exc), covered=covered)
+        self.active[r.slot] = r
+        if start >= len(r.tokens):
+            # the whole prompt was cached: straight to decode (the first
+            # decode step recomputes the last prompt token at pos len-1,
+            # overwriting its cached K/V with identical values)
+            self.pos[r.slot] = len(r.tokens) - 1
+            self.metrics["prefill_requests"] += 1
+            r.trace.close("prefill", tokens=len(r.tokens))
+            r.trace.open("decode")
+        else:
+            self.pos[r.slot] = -1           # not decoding yet
+            self._prefilling[r.slot] = start
+
+    def _prefill_step(self):
+        """Advance every chunk-prefilling slot by one chunk, in one
+        ``prefill_chunk`` call whose rows are those slots (no pad rows: an
+        eager call needs no fixed shape). Runs before the decode step, so
+        long prompts trickle in between decode steps instead of stalling
+        already-admitted requests. ``prefill_chunk_batches`` counts the
+        calls that carry two or more slots."""
+        c = self.chunk_tokens
+        rows = []
+        toks = np.zeros((len(self._prefilling), c), np.int32)
+        for j, (slot, start) in enumerate(self._prefilling.items()):
+            r = self.active[slot]
+            end = min(start + c, len(r.tokens))
+            # a final partial chunk is padded; its pad K/V lands past the
+            # prompt (masked until decode overwrites it) or past the cache's
+            # end (dropped)
+            toks[j, :end - start] = r.tokens[start:end]
+            rows.append((slot, start, end, r))
+        try:
+            self.model.prefill_chunk(
+                self.params, self.cache, self._tensor(toks),
+                self._host(np.asarray([s for _, s, _, _ in rows])),
+                rows=self._host(np.asarray([slot for slot, *_ in rows])),
+                logits=False)
+        except Exception as exc:
+            # the call failed as a unit: every participating request fails
+            for slot, _start, _end, r in rows:
+                self._prefilling.pop(slot, None)
+                self.active[slot] = None
+                self.pos[slot] = -1
+                if not r.future.done():
+                    r.future.set_exception(exc)
+            if self.monitor is not None:
+                self.monitor.log(self.name, "prefill_error",
+                                 error=repr(exc), requests=len(rows))
+            return
+        if len(rows) >= 2:
+            self.metrics["prefill_chunk_batches"] += 1
+        for slot, start, end, r in rows:
+            self._after_chunk(slot, start, end, r)
+
+    def _after_chunk(self, slot: int, start: int, end: int, r: Request):
+        """Shared post-chunk bookkeeping: metrics, prefix-cache insertion at
+        chunk boundaries, and the prefilling -> decoding transition."""
+        c = self.chunk_tokens
+        self.metrics["prefill_chunks"] += 1
+        self.metrics["prefill_tokens"] += end - start
+        r.trace.event("chunk", start=start, end=end)
+        if self.prefix_cache is not None and end % c == 0 \
+                and not self.prefix_cache.contains(r.tokens[:end]):
+            # the cache stores per-chunk slices: offer only this chunk's
+            # [end-c, end) positions (the trie chain supplies the rest on
+            # restore)
+            self.prefix_cache.insert(r.tokens[:end],
+                                     self._pc_extract(slot, end - c, c))
+        if end >= len(r.tokens):
+            del self._prefilling[slot]
+            self.pos[slot] = len(r.tokens) - 1       # ready for decode
+            self.metrics["prefill_requests"] += 1
+            r.trace.close("prefill", tokens=len(r.tokens))
+            r.trace.open("decode")
+        else:
+            self._prefilling[slot] = end
+
+    @property
+    def prefill_backlog(self) -> int:
+        """Prompt tokens admitted-or-queued but not yet in a KV cache: the
+        admission pressure signal (queue depth alone under-counts a backlog
+        of long prompts). Read from other threads while the decode loop
+        mutates: list(deque) / dict(dict) are C-level snapshots, and a
+        racing slot reuse only skews the gauge briefly."""
+        queued = sum(len(r.tokens) for r in list(self.queue.queue))
+        chunking = 0
+        for s, p in dict(self._prefilling).items():
+            r = self.active[s]
+            if r is not None:
+                chunking += len(r.tokens) - p
+        return queued + chunking
+
     # -- decode step -------------------------------------------------------
     @torch.inference_mode()
     def step(self) -> int:
-        """Admit waiting requests, then one fused decode step for all active
+        """Admit waiting requests, advance the chunk-prefilling slots, then
+        one fused decode (or speculative verify) step for all decoding
         slots. Returns #active."""
         self._admit()
-        active = [i for i in range(self.slots) if self.active[i] is not None]
+        if self._prefilling:
+            self._prefill_step()
+        active = [i for i in range(self.slots)
+                  if self.active[i] is not None and i not in self._prefilling]
+        if self.monitor is not None and (self._prefilling
+                                         or self.queue.qsize()):
+            self.monitor.gauge(self.name, "prefill_backlog",
+                               self.prefill_backlog)
         if not active:
-            return 0
-        self._decode_step(active)
+            return len(self._prefilling)
+        if self._spec_ok:
+            self._spec_step(active)
+        else:
+            self._decode_step(active)
         if self.monitor is not None:
             self.monitor.gauge(self.name, "queue_depth", self.load)
-        return len(active)
+        return len(active) + len(self._prefilling)
 
     def _emit_token(self, i: int, r: Request, tok: int, now: float) -> bool:
         """Record one generated token for slot ``i`` — the single source of
-        the stop conditions (budget, EOS, sequence limit). Returns done."""
+        the stop conditions (budget, EOS, sequence limit), shared by the
+        plain decode step and the speculative emission loop so the two
+        paths cannot disagree on when a request completes. Returns done."""
         if not r.generated:
             r.first_token_t = now
             if self.monitor is not None:
@@ -274,24 +495,31 @@ class ServingEngine:
             self.pos[i] = -1
         return done
 
-    def _decode_step(self, active: List[int]):
-        """One fused single-token decode over ``active``. A request's first
-        token comes from decoding its last prompt token at pos len-1, as in
-        the JAX engine (prefill returns caches only)."""
-        toks = np.zeros((self.slots, 1), np.int32)
-        # idle rows decode a scratch token at position max_seq-1 (never
-        # written or attended by a real request: admission requires
-        # len+1 <= max_seq and decode stops at pos+1 >= max_seq; an idle
-        # row's SSM state is overwritten when its slot is next admitted).
-        # They route through the MoE experts like real rows, as in JAX
+    def _step_inputs(self, active: List[int], width: int):
+        """Tokens (slots, width) and positions of a decode or verify step:
+        column 0 holds each active slot's last token. Idle and
+        still-prefilling rows decode a scratch token at position max_seq-1
+        (never written or attended by a real request: admission requires
+        len+1 <= max_seq and decode stops at pos+1 >= max_seq), so the fused
+        step cannot clobber a half-prefilled slot's cache; an idle row's SSM
+        state is overwritten when its slot is next admitted, and idle rows
+        route through the MoE experts like real rows, as in JAX."""
+        toks = np.zeros((self.slots, width), np.int32)
         pos = np.full((self.slots,), self.max_seq - 1, np.int32)
         for i in active:
             r = self.active[i]
             toks[i, 0] = (r.generated[-1] if r.generated
                           else int(r.tokens[-1]))
             pos[i] = max(int(self.pos[i]), 0)
+        return toks, pos
+
+    def _decode_step(self, active: List[int]):
+        """One fused single-token decode over ``active``. A request's first
+        token comes from decoding its last prompt token at pos len-1, as in
+        the JAX engine (prefill returns caches only)."""
+        toks, pos = self._step_inputs(active, 1)
         logits, self.cache = self.model.decode(
-            self.params, self.cache, self._tensor(toks), self._tensor(pos))
+            self.params, self.cache, self._tensor(toks), self._host(pos))
         # the one host sync of the step
         next_tokens = torch.argmax(logits[:, 0, :self.cfg.vocab_size],
                                    dim=-1).cpu().numpy()
@@ -299,6 +527,53 @@ class ServingEngine:
         now = time.perf_counter()
         for i in active:
             self._emit_token(i, self.active[i], int(next_tokens[i]), now)
+
+    def _spec_step(self, active: List[int]):
+        """One speculative verify step over ``active``: the draft proposes
+        k tokens per slot, ``decode_verify`` scores every candidate
+        position in one batched call (greedy argmax on the device), and each
+        slot emits the longest matching prefix plus one corrected (or, on
+        full acceptance, bonus) token: 1..k+1 tokens per step, the plain
+        decode path's tokens. Idle and still-prefilling rows ride along as
+        scratch rows at position max_seq-1; candidate positions past the
+        cache's end are dropped, as in the JAX engine's scatter."""
+        k = self.speculate
+        items = [(i, self.active[i]) for i in active]
+        props = np.asarray(self.draft.propose(items, k), np.int32)
+        toks, pos = self._step_inputs(active, k + 1)
+        for row, (i, _r) in enumerate(items):
+            toks[i, 1:] = props[row]
+        logits, self.cache = self.model.decode_verify(
+            self.params, self.cache, self._tensor(toks), self._host(pos))
+        greedy = torch.argmax(logits[..., :self.cfg.vocab_size],
+                              dim=-1).cpu().numpy()       # (slots, k+1)
+        self.metrics["decode_steps"] += 1
+        self.metrics["spec_steps"] += 1
+        now = time.perf_counter()
+        accepted = emitted = 0
+        for i in active:
+            r = self.active[i]
+            m = 0       # accepted draft prefix: d_j must equal the target's
+            while m < k and toks[i, m + 1] == greedy[i, m]:   # own greedy
+                m += 1                                        # choice g_j
+            accepted += m
+            r.trace.event("verify", proposed=k, accepted=m)
+            # emit g_0..g_m: the m accepted candidates plus the correction
+            # (m < k) or bonus (m == k) token; the stop conditions run per
+            # token, so EOS / budget / seq-limit truncate mid-chain exactly
+            # where the non-speculative loop would stop
+            for j in range(m + 1):
+                emitted += 1
+                if self._emit_token(i, r, int(greedy[i, j]), now):
+                    break
+        self.metrics["spec_proposed"] += len(active) * k
+        self.metrics["spec_accepted"] += accepted
+        self.metrics["spec_emitted"] += emitted
+        if self.monitor is not None:
+            self.monitor.gauge(self.name, "spec_accept_rate",
+                               accepted / (len(active) * k))
+            self.monitor.gauge(self.name, "spec_tokens_per_step",
+                               emitted / len(active))
 
     # -- synchronous loop (tests / oracles) --------------------------------
     def run_until_idle(self, max_steps: int = 10_000):
@@ -355,6 +630,7 @@ class ServingEngine:
                 reqs.append(self.active[i])
             self.active[i] = None
             self.pos[i] = -1
+        self._prefilling.clear()
         for r in reqs:
             if not r.future.done():
                 r.future.set_exception(exc)
@@ -426,6 +702,7 @@ class ServingEngine:
                 out.append(r)
             self.active[i] = None
             self.pos[i] = -1
+        self._prefilling.clear()
         for r in out:
             r.reset_for_retry()
         return out

@@ -58,12 +58,15 @@ class ReplicaSet:
     def __init__(self, factory: Callable[[int, tuple], ServingEngine],
                  replicas: int = 2, *, name: str = "lm-server",
                  monitor=None, respawn: bool = False,
-                 devices: Sequence = ()):
+                 devices: Sequence = (), prefix_cache=None):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         self.factory = factory
         self.name = name
         self.monitor = monitor
+        # the cross-replica prefix cache the engines share (they get it
+        # through the factory); held here for its stats
+        self.prefix_cache = prefix_cache
         self.respawn = respawn
         self._device_pool = list(devices)
         self._lock = threading.RLock()
@@ -295,5 +298,17 @@ class ReplicaSet:
         for m in list(per.values()) + list(retired.values()):
             for k, v in m.items():
                 agg[k] = agg.get(k, 0) + v
-        return {"replicas": len(per), "failovers": self._failovers,
-                "per_replica": per, "retired": retired, "total": agg}
+        out = {"replicas": len(per), "failovers": self._failovers,
+               "per_replica": per, "retired": retired, "total": agg}
+        if agg.get("spec_steps"):
+            # pool-level speculative summary (counters already aggregate
+            # retired replicas, so failover mid-speculation keeps its work)
+            out["speculative"] = {
+                "steps": agg["spec_steps"],
+                "accept_rate": (agg["spec_accepted"] / agg["spec_proposed"]
+                                if agg.get("spec_proposed") else 0.0),
+                "tokens_per_step": agg["spec_emitted"] / agg["spec_steps"],
+            }
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.stats()
+        return out

@@ -162,3 +162,38 @@ def _check_ssd(b, s, nh, hd, ds, ch, wide_decay):
     ry, rst = ssd_ref(x, dt, A, B, C)
     torch.testing.assert_close(y, ry, atol=5e-4, rtol=5e-3)
     torch.testing.assert_close(st, rst, atol=5e-4, rtol=5e-3)
+
+
+@pytest.mark.gpu
+def test_chunked_prefill_on_the_card_matches_the_whole_prompt_path():
+    """A depth-2 float32 model on the card: chunked prefill (prompts longer
+    than one chunk, one off the chunk grid, one past a chunk of pad at the
+    cache's end) gives the tokens of the whole-prompt prefill on the flash
+    kernel, and the chunk path launches no flash kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine, greedy_generate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config("yi-9b")), num_layers=2,
+                              dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (40, 77, 98)]
+    eng = ServingEngine(model, params, slots=3, max_seq=100, chunk_tokens=16,
+                        device="cuda")
+    futs = [eng.submit(p, max_new_tokens=2) for p in prompts]
+    before = ops.launches
+    eng.run_until_idle()
+    assert ops.launches == before
+    assert eng.metrics["prefill_chunks"] == 3 + 5 + 7
+    for p, f in zip(prompts, futs):
+        np.testing.assert_array_equal(f.result(),
+                                      greedy_generate(model, params, p, 2,
+                                                      100))

@@ -222,3 +222,43 @@ def test_main_serves_moe_and_ssm_archs_on_cpu(arch):
     rep = serve.main(["--arch", arch, "--device", "cpu", "--requests", "4",
                       "--rate", "0", "--max-new", "3", "--replicas", "1"])
     assert rep["completed"] == 4 and rep["tokens"] == 12
+
+
+def test_main_chunked_prefix_and_speculative_on_cpu():
+    """The new flags end to end on the CPU: chunked prefill with a shared
+    prefix cache (run_load's second warmup request hits it) and n-gram
+    speculation."""
+    rep = serve.main(["--device", "cpu", "--requests", "3", "--rate", "0",
+                      "--max-new", "4", "--replicas", "1", "--max-seq", "64",
+                      "--chunk-tokens", "4", "--prefix-cache-mb", "8",
+                      "--speculate", "4"])
+    assert rep["completed"] == 3 and rep["tokens"] == 12
+    assert rep["prefill_chunks"] > 0 and rep["spec_steps"] > 0
+    assert rep["prefix_cache"]["hits"] >= 1
+    assert 0.0 <= rep["spec_accept_rate"] <= 1.0
+    assert rep["spec_tokens_per_step"] >= 1.0
+
+
+def test_main_model_draft_on_cpu():
+    rep = serve.main(["--device", "cpu", "--requests", "2", "--rate", "0",
+                      "--max-new", "3", "--replicas", "1",
+                      "--speculate", "2", "--draft", "model"])
+    assert rep["completed"] == 2 and rep["spec_steps"] > 0
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--chunk-tokens", "0"], "--chunk-tokens must be a positive integer"),
+    (["--chunk-tokens", "-4"], "--chunk-tokens must be a positive integer"),
+    (["--chunk-tokens", "8", "--prefix-cache-mb", "-1"],
+     "--prefix-cache-mb must be positive"),
+    (["--prefix-cache-mb", "8"], "--prefix-cache-mb requires --chunk-tokens"),
+    (["--speculate", "0"], "--speculate must be a positive number"),
+    (["--draft", "model"], "--draft requires --speculate"),
+    (["--speculate", "2", "--draft", "beam"], "invalid choice"),
+])
+def test_main_rejects_the_jax_drivers_bad_serving_flags(flags, message,
+                                                        capsys):
+    """The JAX driver's flag checks, with its messages."""
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", *flags])
+    assert message in capsys.readouterr().err
