@@ -18,8 +18,18 @@ and mamba2-370m at full depth in bf16, each served through
 run, yi-9b also with chunked prefill and the prefix cache and with
 speculation (n-gram and model drafts), and a breakdown of one prefill and
 one decode step (for yi-9b also a batched chunk call, a verify step, a
-prefix restore and a chunk extract). Then one line with every kernel's
-numbers and, last, ``{"ok": true, "device": {...}}``.
+prefix restore and a chunk extract). For yi-9b also the flight recorder and
+the VRE lifecycle: a depth-2 float32 pool recording every request (each
+record against the greedy oracle, the file replayed through a pool built
+from its header at token parity 1.0); ``python -m repro_torch.cli`` init,
+apply, status, serve --record, trace --json and destroy in this process at
+full depth in bf16 (flash launches = 48 x the serve command's prefill
+calls); the same serve unrecorded, side by side; and the recorded file
+replayed in bf16 (its parity printed). Then flash attention against its
+plain version again, in both dtypes, at every shape the engine runs above
+launched that was not checked before (the served 4-16 token prompts give
+(4, 16)), one line with every kernel's numbers and, last,
+``{"ok": true, "device": {...}}``.
 
 Exits non-zero, and prints no result line, without a card, outside a full
 checkout, or when any phase fails. Imports nothing of JAX.
@@ -27,11 +37,14 @@ checkout, or when any phase fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -53,6 +66,10 @@ SWEEP = [(2, 128, 4, 4, 32, 0, 0.0), (2, 192, 4, 2, 64, 0, 0.0),
          (2, 96, 8, 1, 32, 32, 50.0)]
 YI_PREFILL = (4, 1024, 32, 4, 128, 0, 0.0)
 GRANITE_ATTN = (1, 1024, 16, 8, 64, 0, 0.0)
+# yi-9b's served prefill of 4-16 token prompts: 4 slots, one 16-token bucket
+# (less than one q tile); every shape the served runs launch is checked
+# again after them (section 7)
+SERVED_PREFILL = (4, 16, 32, 4, 128, 0, 0.0)
 
 # the bf16 kernel's edges: D = 16 and 256 with window and softcap, S off the
 # q tile
@@ -408,28 +425,36 @@ def main():
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     misses = []
-    for case in SWEEP + FLASH_EDGES + [YI_PREFILL, GRANITE_ATTN]:
+    flash_checked = set()
+
+    def check_flash(case, dtype, phase="kernel_vs_plain"):
         b, s, h, kv, d, win, cap = case
+        q = randn((b, s, h, d), dtype, gen)
+        k = randn((b, s, kv, d), dtype, gen)
+        v = randn((b, s, kv, d), dtype, gen)
+        out = fa_ops.flash_attention(q, k, v, window=win, softcap=cap)
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, window=win, softcap=cap)
+        # f32: summation order (longer rows at S=1024); bf16: output
+        # rounding, and the kernel rounds probabilities to bf16 before
+        # P.V (relative error at most 2^-9 each)
+        tol = 2e-2 if dtype == torch.bfloat16 else (
+            1e-4 if s >= 1024 else 2e-5)
+        err, ok = close(out, ref, tol)
+        emit({"phase": phase, "kernel": "flash_attention",
+              "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
+              "window": win, "softcap": cap,
+              "dtype": str(dtype).removeprefix("torch."),
+              "max_abs_err": err, "tol": tol, "ok": ok})
+        flash_checked.add((tuple(case), dtype))
+        if not ok:
+            misses.append(("flash_attention", case, str(dtype)))
+        return err, tol
+
+    for case in SWEEP + FLASH_EDGES + [YI_PREFILL, GRANITE_ATTN,
+                                       SERVED_PREFILL]:
         for dtype in (torch.float32, torch.bfloat16):
-            q = randn((b, s, h, d), dtype, gen)
-            k = randn((b, s, kv, d), dtype, gen)
-            v = randn((b, s, kv, d), dtype, gen)
-            out = fa_ops.flash_attention(q, k, v, window=win, softcap=cap)
-            torch.cuda.synchronize()
-            ref = attention_ref(q, k, v, window=win, softcap=cap)
-            # f32: summation order (longer rows at S=1024); bf16: output
-            # rounding, and the kernel rounds probabilities to bf16 before
-            # P.V (relative error at most 2^-9 each)
-            tol = 2e-2 if dtype == torch.bfloat16 else (
-                1e-4 if s >= 1024 else 2e-5)
-            err, ok = close(out, ref, tol)
-            emit({"phase": "kernel_vs_plain", "kernel": "flash_attention",
-                  "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
-                  "window": win, "softcap": cap,
-                  "dtype": str(dtype).removeprefix("torch."),
-                  "max_abs_err": err, "tol": tol, "ok": ok})
-            if not ok:
-                misses.append(("flash_attention", case, str(dtype)))
+            err, tol = check_flash(case, dtype)
             if case == YI_PREFILL and dtype == torch.bfloat16:
                 kernels["flash_attention"].update(
                     max_abs_err=err, max_err=err, tol=tol)
@@ -506,6 +531,21 @@ def main():
         misses.append(("ssd_chunked", SSD_RAGGED, "float32"))
     if misses:
         fail(f"kernels disagree with their plain versions: {misses}")
+
+    # every flash shape the engine runs below (sections 5 and 6), to hold
+    # the kernel against its plain version at each of them in section 7;
+    # the wrapper still counts its own launches
+    import repro_torch.models.layers as layers
+    flash_served = set()
+    flash_wrapper = layers.flash_attention
+
+    def flash_logged(q, k, v, *, causal=True, window=0, softcap=0.0):
+        b, s, h, d = q.shape
+        flash_served.add(((b, s, h, k.shape[2], d, window, float(softcap)),
+                          q.dtype))
+        return flash_wrapper(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+    layers.flash_attention = flash_logged
     emit({"phase": "kernel_vs_plain", "seconds": time.perf_counter() - t0})
 
     # -- 4. timing at the serving shapes ------------------------------------
@@ -951,6 +991,275 @@ def main():
               "card": smi, "seconds": time.perf_counter() - t0})
         return times
 
+    def prefill_calls_in(records) -> float:
+        """Batched prefill calls, counted from the records' spans: a call
+        of g requests leaves a prefill span with ``group=g`` in each of
+        their records."""
+        return sum(1.0 / c["attrs"]["group"] for r in records
+                   for c in r["trace"].get("children", ())
+                   if c["name"] == "prefill"
+                   and c.get("attrs", {}).get("mode") == "batched")
+
+    def run_cli(*argv):
+        """``python -m repro_torch.cli`` in this process: (its return
+        value, its standard output, seconds)."""
+        from repro_torch import cli
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            ret = cli.main([str(a) for a in argv])
+        return ret, out.getvalue(), time.perf_counter() - t0
+
+    def recorder_host_us(path, n: int = 2000) -> dict:
+        """Host time a recorded request adds, in microseconds: its trace
+        (the engine's spans: queue wait, a batched prefill, a 32-token
+        decode) and its record built and queued, as the decode thread pays
+        them; the writer thread runs beside, as in serving."""
+        from types import SimpleNamespace
+        from repro_torch.observability import Recorder, TraceContext
+
+        rec = Recorder(path, tenant="cost", meta={"arch": "yi-9b"})
+        engine = SimpleNamespace(name="replica0", device=torch.device("cuda"))
+        prompt = np.arange(1, 17, dtype=np.int32)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            r = SimpleNamespace(
+                rid=0, tokens=prompt, max_new_tokens=32, eos_id=-1,
+                generated=list(range(32)), retries=0,
+                submit_t=time.perf_counter(), ttft_s=0.1, latency_s=2.0)
+            r.trace = TraceContext("request", rid=0, prompt_len=16,
+                                   max_new_tokens=32)
+            r.trace.open("queue_wait")
+            r.trace.close("queue_wait", replica="replica0", slot=0)
+            r.trace.open("prefill", mode="batched", group=1)
+            r.trace.close("prefill", tokens=16)
+            r.trace.open("decode")
+            r.trace.close("decode", tokens=32)
+            rec.record(r, engine)
+        us = (time.perf_counter() - t0) / n * 1e6
+        rec.stop()
+        if rec.drops or rec.written != n + 1:
+            fail(f"recorder cost: {rec.written} written, {rec.drops} dropped")
+        return {"requests": n, "us_per_request": us}
+
+    def recorder_phases(yi, yi_model, yi_params):
+        """The flight recorder, replay and the VRE lifecycle on yi-9b:
+        (1) a depth-2 float32 pool with a recorder, every record against the
+        card's greedy oracle, the file replayed through a pool built from
+        its header; (2) ``python -m repro_torch.cli`` init, apply, status,
+        serve --record, trace --json and destroy in this process, full
+        depth bf16, with the flash launches of the serve command; (3) the
+        same serve unrecorded; (4) the recorded file replayed in bf16.
+        yi-9b's params reach the CLI through its served-model cache.
+        Returns the kernel launches of each ``cli serve`` run."""
+        from repro_torch.core import services
+        from repro_torch.launch.serve import replicaset_from_meta, replay_file
+        from repro_torch.observability import (RecordStore, load_replay,
+                                               replay_records)
+
+        tmp = tempfile.TemporaryDirectory()
+        work = Path(tmp.name)
+        plain = make_prompts(LOAD["requests"], yi.vocab_size,
+                             np.random.default_rng(0), lo=LOAD["lo"],
+                             hi=LOAD["hi"])
+
+        # (1) record_replay_f32: tokens of every record against the oracle,
+        # then a replay through a pool built from the header alone
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(yi, num_layers=2, dtype="float32")
+        path = work / "f32.jsonl"
+        mon = Monitor()
+        rs = build_replicaset(cfg, monitor=mon, record_path=str(path),
+                              **SERVE)
+        rs.start()
+        try:
+            report = run_load(rs, plain, rate_rps=LOAD["rate_rps"],
+                              max_new_tokens=LOAD["max_new_tokens"],
+                              rng=np.random.default_rng(0), timeout_s=600.0)
+        finally:
+            rs.stop()
+        recorder, model, params = rs.recorder, rs.engines[0].model, \
+            rs.engines[0].params
+        del rs
+        store = RecordStore.load(path)
+        recs = store.records
+        budgets = [(r["new_tokens"], r["max_new_tokens"]) for r in recs]
+        if len(recs) != LOAD["requests"] + 1 or recorder.drops \
+                or any(n != m for n, m in budgets):
+            fail(f"record_replay_f32: {len(recs)} records, "
+                 f"{recorder.drops} dropped, (tokens, budget) {budgets}")
+        prompts = [np.asarray(r["prompt_tokens"]) for r in recs]
+        check_tokens("record_replay_f32", model, params, prompts,
+                     [np.asarray(r["generated_tokens"], np.int32)
+                      for r in recs],
+                     [greedy_generate(model, params, p, r["max_new_tokens"],
+                                      SERVE["max_seq"])
+                      for p, r in zip(prompts, recs)],
+                     arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+                     against="greedy_oracle", records=len(recs))
+        del model, params
+        t1 = time.perf_counter()
+        replay = replay_file(path, monitor=mon, timeout_s=600.0)
+        emit({"phase": "record_replay_f32", "arch": cfg.name,
+              "layers": cfg.num_layers, "dtype": cfg.dtype, **SERVE,
+              "report": report, "records": len(recs),
+              "recorder": recorder.summary(), "meta": store.meta,
+              "replay": replay, "replay_seconds": time.perf_counter() - t1,
+              "faults_logged": faults(mon), "card": smi,
+              "seconds": time.perf_counter() - t0})
+        if replay["token_parity"] != 1.0 or replay["mismatches"] \
+                or replay["requests"] != len(recs) or faults(mon):
+            fail(f"record_replay_f32: replay {replay}, faults {faults(mon)}")
+        torch.cuda.empty_cache()
+
+        # (2) vre_cli: the VRE lifecycle through the CLI, full depth bf16;
+        # the served-model cache holds yi-9b's params already on the card
+        services._SERVED_MODEL_CACHE[("yi-9b", "h100")] = (
+            yi, yi_model, yi_params)
+        d, rec = work / "vre", work / "served.jsonl"
+        secs = {}
+        _, out, secs["init"] = run_cli("init", "h100", d)
+        raw = json.loads((d / "vre.json").read_text())
+        raw["extra"].update(replicas=1, slots=4, max_seq=2048)
+        (d / "vre.json").write_text(json.dumps(raw, indent=2))
+        _, out, secs["apply"] = run_cli("apply", "--dir", d)
+        applied = json.JSONDecoder().raw_decode(out)[0]
+        _, out, secs["status"] = run_cli("status", "--dir", d)
+        status = json.loads(out)["status"]
+        unhealthy = [n for n, v in status["services"].items()
+                     if not v["healthy"]]
+        if raw["provider"] != "h100" or unhealthy \
+                or set(status["services"]) != set(raw["services"]):
+            fail(f"vre_cli: provider {raw['provider']}, services "
+                 f"{status['services']}")
+
+        def cli_serve(*extra):
+            """``cli serve`` of the measured wave, with the launch counts
+            set to 0 just before and read just after."""
+            for op in ops.values():
+                op.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            _, out, sec = run_cli(
+                "serve", "--dir", d, "--requests", LOAD["requests"],
+                "--rate", LOAD["rate_rps"], "--max-new",
+                LOAD["max_new_tokens"], "--seed", 0, *extra)
+            launches = {name: op.launches for name, op in ops.items()}
+            return json.loads(out), launches, sec, \
+                torch.cuda.max_memory_allocated() / 1e9
+
+        events = d / ".vre" / raw["name"] / "events.jsonl"
+
+        def logged_faults():
+            return [e for e in map(json.loads, events.read_text()
+                                   .splitlines()) if e["event"] in FAULTS]
+
+        # recorded and unrecorded in turns (R, U, U, R), one seed: the same
+        # prompts and arrivals in every run
+        runs = {}
+        for label, extra in (
+                ("vre_cli", ("--record", rec)), ("vre_cli_unrecorded", ()),
+                ("vre_cli_unrecorded_again", ()),
+                ("vre_cli_again", ("--record", work / "again.jsonl"))):
+            report, launches, secs[label], peak = cli_serve(*extra)
+            # run_load's warmup request is prefilled alone, before the wave
+            calls = report["prefills"] + 1
+            info = {"report": report, "launches": launches,
+                    "prefill_calls_with_warmup": calls,
+                    "expected_flash_launches": yi.num_layers * calls,
+                    "decode_steps": report["decode_steps"],
+                    "wall_s": report["wall_s"],
+                    "wall_ms_per_decode_step": report["wall_s"] * 1e3
+                    / report["decode_steps"],
+                    "peak_memory_gb": peak, "faults_logged": logged_faults()}
+            n = LOAD["requests"]
+            if report["completed"] != n or \
+                    report["tokens"] != n * LOAD["max_new_tokens"] or \
+                    launches != {"flash_attention": yi.num_layers * calls,
+                                 "grouped_matmul": 0, "ssd": 0} or \
+                    info["faults_logged"]:
+                emit({"phase": label, **info})
+                fail(f"{label}: {report['completed']}/{n} requests, "
+                     f"{report['tokens']} tokens, launches {launches} for "
+                     f"{calls} prefill calls, faults {info['faults_logged']}")
+            runs[label] = info
+        _, out, secs["trace"] = run_cli("trace", "--records", rec, "--json")
+        traced = json.loads(out)
+        recs = RecordStore.load(rec).records
+        from_records = prefill_calls_in(recs)
+        _, _, secs["destroy"] = run_cli("destroy", "--dir", d)
+        emit({"phase": "vre_cli", "deployment": applied, "status": status,
+              **runs["vre_cli"], "records": len(recs),
+              "prefill_calls_from_records": from_records,
+              "trace_summary": traced["summary"],
+              "trace_matched": traced["matched"],
+              "manifest_after_destroy": (d / "manifest.json").exists(),
+              "seconds_per_command": secs, "card": smi})
+        want_calls = runs["vre_cli"]["prefill_calls_with_warmup"]
+        if len(recs) != LOAD["requests"] + 1 \
+                or traced["matched"] != len(recs) \
+                or abs(from_records - want_calls) > 1e-9 \
+                or (d / "manifest.json").exists():
+            fail(f"vre_cli: {len(recs)} records, trace matched "
+                 f"{traced['matched']}, {from_records} prefill calls in the "
+                 f"records against {want_calls}")
+        # (3) vre_cli_unrecorded beside the recorded runs: the recorder's
+        # cost lands on the decode thread; its host time per request
+        # measured alone
+        keys = ("tok_per_s", "ttft_p50_s", "latency_p95_s")
+        emit({"phase": "vre_cli_unrecorded", **runs["vre_cli_unrecorded"],
+              "side_by_side": {k: {lb: runs[lb]["report"][k] for lb in runs}
+                               for k in keys} | {
+                  k: {lb: runs[lb][k] for lb in runs}
+                  for k in ("decode_steps", "wall_s",
+                            "wall_ms_per_decode_step")},
+              "recorder_host_us_per_request": recorder_host_us(
+                  work / "cost.jsonl"),
+              "card": smi})
+        services._SERVED_MODEL_CACHE.clear()
+
+        # (4) replay_bf16: the served file re-served through a fresh pool
+        # built from its header (yi-9b's params reused); a replay may batch
+        # requests otherwise, so bf16 products of other shapes may round
+        # otherwise: parity is printed, not held
+        t0 = time.perf_counter()
+        meta, records = load_replay(rec)
+        mon = Monitor()
+        rs = replicaset_from_meta(meta, params=yi_params, monitor=mon)
+        replayed = []
+
+        def submit(tokens, **kw):
+            replayed.append(rs.submit_request(tokens, **kw))
+            return replayed[-1]
+        rs.start()
+        try:
+            replay = replay_records(records, submit, timeout_s=600.0)
+        finally:
+            rs.stop()
+        first_diff = None
+        for r, q in zip(records, replayed):
+            got = [int(t) for t in q.generated]
+            if got != r["generated_tokens"]:
+                i = next((j for j, (a, b) in enumerate(
+                    zip(got, r["generated_tokens"])) if a != b),
+                    min(len(got), len(r["generated_tokens"])))
+                first_diff = {"rid": r["rid"], "prompt_len": r["prompt_len"],
+                              "token_index": i,
+                              "recorded": r["generated_tokens"][i:i + 1],
+                              "replayed": got[i:i + 1]}
+                break
+        emit({"phase": "replay_bf16", "meta": meta, "replay": replay,
+              "token_parity": replay["token_parity"],
+              "mismatches": replay["mismatches"],
+              "first_difference": first_diff,
+              "faults_logged": faults(mon),
+              "wall_s": time.perf_counter() - t0, "card": smi})
+        if replay["completed"] != len(records) or faults(mon):
+            fail(f"replay_bf16: {replay}, faults {faults(mon)}")
+        del rs
+        tmp.cleanup()
+        return {"yi-9b cli serve --record": runs["vre_cli"]["launches"],
+                "yi-9b cli serve": runs["vre_cli_unrecorded"]["launches"]}
+
     counts = {}
     yi = get_config("yi-9b")
     rs, cfg, counts["yi-9b"] = serve(
@@ -958,7 +1267,8 @@ def main():
                                   "grouped_matmul": 0, "ssd": 0})
     breakdown(rs, cfg, 4, {"flash_attention": cfg.num_layers * kernel_ms},
               serving_features=True)
-    yi_params = rs.engines[0].params        # reused by the runs below
+    yi_model = rs.engines[0].model          # reused by the runs below
+    yi_params = rs.engines[0].params
     del rs
     torch.cuda.empty_cache()
 
@@ -997,7 +1307,8 @@ def main():
         if not rs.metrics()["total"]["spec_steps"]:
             fail(f"{label}: no verify step")
         del rs
-    del yi_params
+    counts.update(recorder_phases(yi, yi_model, yi_params))
+    del yi_model, yi_params
     torch.cuda.empty_cache()
 
     granite = get_config("granite-moe-1b-a400m")
@@ -1022,6 +1333,20 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 7. kernels, 8. result -------------------------------------------
+    layers.flash_attention = flash_wrapper
+    # the kernel against its plain version at every served flash shape not
+    # checked in section 3, in both dtypes
+    for case, _ in sorted(flash_served, key=str):
+        for dtype in (torch.float32, torch.bfloat16):
+            if (case, dtype) not in flash_checked:
+                check_flash(case, dtype, phase="kernel_vs_plain_served")
+    emit({"phase": "kernel_vs_plain_served", "kernel": "flash_attention",
+          "served_shapes": sorted(
+              [list(c) + [str(t).removeprefix("torch.")]
+               for c, t in flash_served], key=str)})
+    if misses:
+        fail(f"flash attention disagrees with its plain version at a "
+             f"served shape: {misses}")
     # each kernel's launches on its own path's served run
     own_path = {"flash_attention": "yi-9b",
                 "grouped_matmul": "granite-moe-1b-a400m", "ssd": "mamba2-370m"}

@@ -22,8 +22,12 @@ and a draft, each step verifies k draft tokens per slot in one
 The chunk path computes no logits; verify's greedy argmax runs on the
 device, so only (slots, k+1) token ids reach the host.
 
-Not ported yet: rolling caches and the flight recorder (the JAX engine's
-``recorder`` argument).
+With a ``recorder`` (the flight recorder), every request carries a
+``TraceContext`` from submit to completion and is recorded when it
+completes; span times are host times. ``EdgeRouter`` is the least-loaded
+dispatch in front of a ``ReplicaSet`` or a list of engines.
+
+Not ported yet: rolling caches.
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.params import to_device
-from repro_torch.observability.tracing import NULL_TRACE, next_rid
+from repro_torch.observability.tracing import (NULL_TRACE, TraceContext,
+                                               next_rid)
 from repro_torch.serving.prefix_cache import _tree_map
 
 
@@ -55,8 +60,8 @@ class Request:
     first_token_t: Optional[float] = None
     done_t: Optional[float] = None
     rid: int = dataclasses.field(default_factory=next_rid)
-    # NULL_TRACE: every trace call site is an unconditional no-op method on
-    # the shared singleton (per-request tracing comes with the recorder)
+    # NULL_TRACE when the flight recorder is off: every trace call site is
+    # an unconditional no-op method on the shared singleton
     trace: object = NULL_TRACE
 
     @property
@@ -124,7 +129,7 @@ class ServingEngine:
     def __init__(self, model, params, *, slots: int = 4, max_seq: int = 256,
                  name: str = "engine0", monitor=None, device=None,
                  chunk_tokens: Optional[int] = None, prefix_cache=None,
-                 speculate: int = 0, draft=None):
+                 speculate: int = 0, draft=None, recorder=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # build every kernel of the model's path now: the first prefill
@@ -139,6 +144,9 @@ class ServingEngine:
         self.max_seq = max_seq
         self.name = name
         self.monitor = monitor
+        # flight recorder: an attached recorder implies tracing — requests
+        # get a TraceContext at submit and a JSONL record at completion
+        self.recorder = recorder
         self.chunk_tokens = int(chunk_tokens) if chunk_tokens else 0
         self.prefix_cache = prefix_cache
         self.speculate = int(speculate) if speculate else 0
@@ -202,6 +210,11 @@ class ServingEngine:
             raise ValueError(f"prompt of {len(tokens)} tokens leaves no room "
                              f"to generate within max_seq={self.max_seq}")
         r = Request(tokens, max_new_tokens, eos_id)
+        if self.recorder is not None:
+            r.trace = TraceContext("request", rid=r.rid,
+                                   prompt_len=len(tokens),
+                                   max_new_tokens=max_new_tokens)
+            r.trace.open("queue_wait")
         self.queue.put(r)
         self.metrics["requests"] += 1
         self._wake.set()
@@ -489,6 +502,8 @@ class ServingEngine:
             if self.monitor is not None:
                 self.monitor.gauge(self.name, "latency_s", r.latency_s)
             r.trace.close("decode", tokens=len(r.generated))
+            if self.recorder is not None:
+                self.recorder.record(r, self)
             if not r.future.done():
                 r.future.set_result(np.asarray(r.generated, np.int32))
             self.active[i] = None
@@ -716,6 +731,66 @@ class ServingEngine:
         """Devices this replica's params actually live on (read from the
         tensors, not the requested device)."""
         return frozenset({self.params["embed"]["tok"].device})
+
+
+class EdgeRouter:
+    """Traefik analogue: least-loaded dispatch over healthy engine replicas.
+
+    Accepts either a plain engine list or a lifecycle-managed
+    ``repro_torch.serving.replica.ReplicaSet`` (duck-typed via
+    ``.engines``). ``lm-server`` routes over a ReplicaSet, which picks the
+    replica itself; the engine-list mode keeps the JAX ``EdgeRouter``'s
+    API for callers that hold bare engines."""
+
+    def __init__(self, engines):
+        self._source = engines if hasattr(engines, "engines") else None
+        self._engines = [] if self._source else list(engines)
+        if not (self._engines or self._source):
+            raise ValueError("EdgeRouter needs a ReplicaSet or at least one "
+                             "engine")
+
+    @property
+    def engines(self) -> List[ServingEngine]:
+        # always re-read from the ReplicaSet: scale_to/failover rebind its
+        # list, so a stored alias would go stale
+        return self._source.engines if self._source else self._engines
+
+    def _pool(self) -> List[ServingEngine]:
+        healthy = [e for e in self.engines if e.healthy()]
+        if not healthy:
+            raise RuntimeError("no healthy serving replicas")
+        return healthy
+
+    def submit_request(self, tokens, **kw) -> Request:
+        if self._source is not None:
+            # the ReplicaSet must choose-and-enqueue under its own lock so
+            # the request can't land on an engine after its final harvest
+            return self._source.submit_request(tokens, **kw)
+        eng = min(self._pool(), key=lambda e: e.load)
+        return eng.submit_request(tokens, **kw)
+
+    def submit(self, tokens, **kw) -> Future:
+        return self.submit_request(tokens, **kw).future
+
+    def drain(self, timeout: float = 120.0):
+        if self._source is not None:
+            # ReplicaSet: failover may move work between engines mid-drain,
+            # so wait on the aggregate instead of per-engine queues
+            if not self._source.wait_all(timeout):
+                raise RuntimeError("replica set did not drain")
+            return
+        for e in self.engines:      # every engine — a dead one must not be
+            if e.running:           # silently skipped with queued requests
+                if not e.wait_idle(timeout):
+                    raise RuntimeError(f"{e.name} did not drain")
+            elif e.healthy():
+                e.run_until_idle()
+            elif e.load:
+                raise RuntimeError(f"{e.name} is dead with {e.load} "
+                                   f"undrained requests")
+
+    def metrics(self):
+        return {e.name: dict(e.metrics) for e in self.engines}
 
 
 @torch.inference_mode()

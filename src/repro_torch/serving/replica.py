@@ -11,9 +11,12 @@ spawns a replacement — greedy decode is deterministic, so rescheduled
 requests produce identical tokens.
 
 The device pool is a list of ``torch.device``s (on the card:
-``torch.device("cuda", i)`` for every visible card). Not ported yet: the
-elastic ``rebalance``/``detach_requests``/``adopt`` path and the prefix
-cache and recorder hand-over, which come with the VRE and fleet slice.
+``torch.device("cuda", i)`` for every visible card). The pool holds the
+shared prefix cache and the flight recorder (its engines get both through
+the factory); ``stop()`` stops the recorder, which flushes its queue. Not
+ported yet: the elastic ``rebalance``/``detach_requests``/``adopt`` path and
+the hand-over of the prefix cache and recorder to a successor pool (ROADMAP
+A.6).
 """
 from __future__ import annotations
 
@@ -58,7 +61,8 @@ class ReplicaSet:
     def __init__(self, factory: Callable[[int, tuple], ServingEngine],
                  replicas: int = 2, *, name: str = "lm-server",
                  monitor=None, respawn: bool = False,
-                 devices: Sequence = (), prefix_cache=None):
+                 devices: Sequence = (), prefix_cache=None,
+                 recorder=None):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         self.factory = factory
@@ -67,6 +71,9 @@ class ReplicaSet:
         # the cross-replica prefix cache the engines share (they get it
         # through the factory); held here for its stats
         self.prefix_cache = prefix_cache
+        # the flight recorder every engine writes to; held here so stop()
+        # flushes it and serve_report can reach it through the pool
+        self.recorder = recorder
         self.respawn = respawn
         self._device_pool = list(devices)
         self._lock = threading.RLock()
@@ -144,8 +151,14 @@ class ReplicaSet:
                         r.future.set_exception(
                             RuntimeError(f"{self.name} stopped with the "
                                          f"request still queued"))
+        if self.recorder is not None:
+            self.recorder.stop()        # idempotent; flushes queued records
 
     # -- dispatch ----------------------------------------------------------
+    def healthy_engines(self) -> List[ServingEngine]:
+        with self._lock:
+            return [e for e in self.engines if e.healthy()]
+
     def submit_request(self, tokens, **kw) -> Request:
         # choose AND enqueue under the lock: failover harvests a dead
         # engine's queue under the same lock, so a request can never land on
