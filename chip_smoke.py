@@ -25,11 +25,18 @@ from its header at token parity 1.0); ``python -m repro_torch.cli`` init,
 apply, status, serve --record, trace --json and destroy in this process at
 full depth in bf16 (flash launches = 48 x the serve command's prefill
 calls); the same serve unrecorded, side by side; and the recorded file
-replayed in bf16 (its parity printed). Then flash attention against its
-plain version again, in both dtypes, at every shape the engine runs above
-launched that was not checked before (the served 4-16 token prompts give
-(4, 16)), one line with every kernel's numbers and, last,
-``{"ok": true, "device": {...}}``.
+replayed in bf16 (its parity printed). Then the sliding-window and hybrid
+families at full width: depth-cut float32 token checks against the greedy
+oracle (gemma2 and qwen2 at 2 layers, gemma2 also with chunks of 256, the
+prefix cache and speculate 4 in one engine; gemma3 at one super-block of 6
+layers on prompts past its 1024 window, so the rolling caches wrap; zamba2
+at 8 layers, one shared-block application), then gemma2-27b, gemma3-12b
+(prompts of 1100-1900 tokens), qwen2-72b at 16 layers and zamba2-1.2b
+served in bf16 as above, each freed before the next. Then flash attention
+(both dtypes) and the SSD op against their plain versions again at every
+shape the engine runs above launched that was not checked before (the
+served 4-16 token prompts give flash (4, 16)), one line with every kernel's
+numbers and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, and prints no result line, without a card, outside a full
 checkout, or when any phase fails. Imports nothing of JAX.
@@ -39,6 +46,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import re
@@ -70,6 +78,16 @@ GRANITE_ATTN = (1, 1024, 16, 8, 64, 0, 0.0)
 # (less than one q tile); every shape the served runs launch is checked
 # again after them (section 7)
 SERVED_PREFILL = (4, 16, 32, 4, 128, 0, 0.0)
+# the served prefill shapes of the sliding-window and hybrid families, bf16:
+# gemma2 (4 slots padded to 1024, softcap 50; its 4096 window is inactive
+# at max_seq 2048), gemma3 at its longest served prompt (local subs with
+# the 1024 window, the global sub), qwen2 and zamba2 (MHA at head dim 64)
+FAMILY_PREFILL = {
+    "gemma2-27b": [(4, 1024, 32, 16, 128, 4096, 50.0)],
+    "gemma3-12b": [(1, 1900, 16, 8, 256, 1024, 0.0),
+                   (1, 1900, 16, 8, 256, 0, 0.0)],
+    "qwen2-72b": [(4, 1024, 64, 8, 128, 0, 0.0)],
+    "zamba2-1.2b": [(1, 1024, 32, 32, 64, 0, 0.0)]}
 
 # the bf16 kernel's edges: D = 16 and 256 with window and softcap, S off the
 # q tile
@@ -98,6 +116,8 @@ SSD_SWEEP = [(2, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
              (2, 128, 4, 32, 16, 64)]
 SSD_PREFILL = (1, 1024, 32, 64, 128, 256)
 SSD_PREFILL_256 = (1, 256, 32, 64, 128, 256)
+# zamba2-1.2b's 1024-token prefill: d_inner 4096 over head dim 64, d_state 64
+SSD_ZAMBA2 = (1, 1024, 64, 64, 64, 256)
 SSD_RAGGED = (1, 1000, 32, 64, 128, 256)
 # the tensor-core kernel's tiling edges: zamba2's d_state 64, a chunk off the
 # 64-row tile, head dims 16 and 128 at d_state 128, three batches of 32
@@ -114,6 +134,8 @@ LOAD = dict(requests=8, rate_rps=4.0, max_new_tokens=32, lo=256, hi=1025)
 # short prompts (batched prefill) and four on two shared 512-token heads
 CHUNKED = dict(chunk_tokens=256, prefix_cache_mb=1024.0)
 SHORT, HEAD, TAIL = (32, 201), 512, (128, 513)
+# gemma3's long traffic: prompts past its 1024-token window
+LONG = dict(lo=1100, hi=1901)
 # events that fail the check wherever they are logged
 FAULTS = ("prefix_restore_error", "prefill_error", "step_error")
 
@@ -359,7 +381,7 @@ def main():
     from repro_torch.models.params import to_device
     from repro_torch.serving.engine import ServingEngine, greedy_generate
     from repro_torch.serving.prefix_cache import PrefixCache
-    from repro_torch.serving.speculative import build_draft
+    from repro_torch.serving.speculative import NgramDraft, build_draft
 
     ops = {"flash_attention": fa_ops, "grouped_matmul": gmm_ops,
            "ssd": ssd_ops}
@@ -451,8 +473,9 @@ def main():
             misses.append(("flash_attention", case, str(dtype)))
         return err, tol
 
+    family_flash = [c for cases in FAMILY_PREFILL.values() for c in cases]
     for case in SWEEP + FLASH_EDGES + [YI_PREFILL, GRANITE_ATTN,
-                                       SERVED_PREFILL]:
+                                       SERVED_PREFILL] + family_flash:
         for dtype in (torch.float32, torch.bfloat16):
             err, tol = check_flash(case, dtype)
             if case == YI_PREFILL and dtype == torch.bfloat16:
@@ -488,8 +511,8 @@ def main():
     # tests/test_kernels.py's SSD tolerance, f32 throughout
     ssd_tol = dict(atol=5e-4, rtol=5e-3)
     for case, wide in ([(c, False) for c in SSD_SWEEP + [
-            SSD_PREFILL, SSD_PREFILL_256] + SSD_EDGES]
-            + [(c, True) for c in SSD_WIDE_DECAY]):
+            SSD_PREFILL, SSD_PREFILL_256, SSD_ZAMBA2] + SSD_EDGES]
+            + [(c, True) for c in SSD_WIDE_DECAY + [SSD_ZAMBA2]]):
         b, s, nh, hd, ds, ch = case
         a, xdt, Bc, Cc = ssd_kernel_inputs(
             *ssd_inputs(b, s, nh, hd, ds, gen, wide), ch)
@@ -546,34 +569,70 @@ def main():
         return flash_wrapper(q, k, v, causal=causal, window=window,
                              softcap=softcap)
     layers.flash_attention = flash_logged
+    # and every SSD op shape, (b, s, nh, hd, ds, chunk), likewise
+    import repro_torch.models.mamba2 as mamba2
+    ssd_served = set()
+    ssd_wrapper = mamba2.ssd_chunked
+
+    def ssd_logged(x, dt, A, B, C, chunk):
+        ssd_served.add((*x.shape, B.shape[-1], chunk))
+        return ssd_wrapper(x, dt, A, B, C, chunk)
+    mamba2.ssd_chunked = ssd_logged
     emit({"phase": "kernel_vs_plain", "seconds": time.perf_counter() - t0})
 
     # -- 4. timing at the serving shapes ------------------------------------
     t0 = time.perf_counter()
     timings = {}
-    b, s, h, kv, d, win, cap = YI_PREFILL
     dtype = torch.bfloat16
-    q, k, v = (randn((b, s, n, d), dtype, gen) for n in (h, kv, kv))
-    kernel_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 5)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    try:
-        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                          enable_gqa=True), 20)
-    except TypeError:       # a torch without enable_gqa: no yardstick
-        library_ms = None
-    bound_ms, bound_by = attention_bound_ms(b, s, h, kv, d, win, dtype)
-    timings["flash_attention"] = {
-        "kernel_ms": kernel_ms, "ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "share_of_bound": bound_ms / kernel_ms,
-        "host_us_per_call": host_us(lambda: fa_ops.flash_attention(q, k, v))}
-    emit({"phase": "timing", "kernel": "flash_attention",
-          "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
-          "dtype": "bfloat16", **timings["flash_attention"],
-          "kernel_tflops": 4.0 * d * b * h * (s * (s + 1) // 2)
-          / (kernel_ms * 1e-3) / 1e12, "card": smi})
+
+    def time_flash(case) -> dict:
+        """bf16 kernel ms at ``case`` beside its bound, the plain version
+        and SDPA, the library call: causal, with an explicit mask where the
+        window bites; none where a softcap applies (no one PyTorch call
+        caps scores)."""
+        b, s, h, kv, d, win, cap = case
+        q, k, v = (randn((b, s, n, d), dtype, gen) for n in (h, kv, kv))
+
+        def call():
+            return fa_ops.flash_attention(q, k, v, window=win, softcap=cap)
+        t = {"kernel_ms": cuda_ms(call, 20)}
+        t["ms"] = t["kernel_ms"]
+        t["plain_ms"] = cuda_ms(lambda: attention_ref(
+            q, k, v, window=win, softcap=cap), 5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if cap:
+            t["library_ms"] = None
+        elif win and win < s:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None]
+                                                  < win)
+            t["library_ms"] = cuda_ms(lambda: sdpa(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
+        else:
+            t["library_ms"] = cuda_ms(lambda: sdpa(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        t["bound_ms"], t["bound_by"] = attention_bound_ms(b, s, h, kv, d,
+                                                          win, dtype)
+        t["share_of_bound"] = t["bound_ms"] / t["kernel_ms"]
+        t["host_us_per_call"] = host_us(call)
+        lo = np.maximum(np.arange(s) - win + 1, 0) if win else 0
+        pairs = int(np.sum(np.arange(s) - lo + 1))
+        emit({"phase": "timing", "kernel": "flash_attention",
+              "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
+              "window": win, "softcap": cap, "dtype": "bfloat16", **t,
+              "kernel_tflops": 4.0 * d * b * h * pairs
+              / (t["kernel_ms"] * 1e-3) / 1e12, "card": smi})
+        return t
+
+    timings["flash_attention"] = time_flash(YI_PREFILL)
+    kernel_ms = timings["flash_attention"]["kernel_ms"]
+    # the served shapes of the sliding-window and hybrid families
+    flash_family = {arch: [dict(time_flash(c), arch=arch, shape=c)
+                           for c in cases]
+                    for arch, cases in FAMILY_PREFILL.items()}
+    flash_family_ms = {arch: [t["kernel_ms"] for t in ts]
+                       for arch, ts in flash_family.items()}
     b, s, h, kv, d, win, cap = GRANITE_ATTN
     q, k, v = (randn((b, s, n, d), dtype, gen) for n in (h, kv, kv))
     granite_flash_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
@@ -582,7 +641,7 @@ def main():
           "dtype": "bfloat16", "kernel_ms": granite_flash_ms,
           "bound_ms": attention_bound_ms(b, s, h, kv, d, win, dtype)[0],
           "card": smi})
-    del q, k, v, qt, kt, vt
+    del q, k, v
 
     gmm_ms = {}
     for label, (e, c, d, f) in (("prefill_wi", GMM_PREFILL),
@@ -621,7 +680,8 @@ def main():
             timings["grouped_matmul"] = dict(t, ms=t["kernel_ms"])
         del x, w, ws
 
-    for case in (SSD_PREFILL, SSD_PREFILL_256):
+    ssd_family_ms = {}
+    for case in (SSD_PREFILL, SSD_PREFILL_256, SSD_ZAMBA2):
         b, s, nh, hd, ds, ch = case
         nc = s // ch
         # input sets past the L2: each of the served path's 48 layers calls
@@ -652,16 +712,20 @@ def main():
               "seconds": time.perf_counter() - t0})
         if case == SSD_PREFILL:
             timings["ssd"] = dict(t, ms=t["kernel_ms"])
+        ssd_family_ms[case] = t["kernel_ms"]
+        kernels["ssd"].setdefault("by_shape", []).append(dict(t, shape=case))
         del a, xdt, Bc, Cc, sets
     for name, t in timings.items():
         kernels[name].update(t)
+    kernels["flash_attention"]["by_served_shape"] = [
+        t for ts in flash_family.values() for t in ts]
 
     # -- 5. full width, depth 2, float32: engine tokens == a reference -----
     def faults(monitor) -> list:
         return [e for e in monitor.events() if e["event"] in FAULTS]
 
-    def parity_model(arch):
-        cfg = dataclasses.replace(get_config(arch), num_layers=2,
+    def parity_model(arch, layers=2):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                                   dtype="float32")
         model = build_model(cfg, device="cuda")
         params = model.init(torch.Generator(device="cuda").manual_seed(1))
@@ -692,14 +756,14 @@ def main():
         if mismatched:
             fail(f"{phase} {info}: engine tokens differ from the reference")
 
-    def parity(arch, lens, against, built=None):
+    def parity(arch, lens, against, built=None, max_seq=640):
         t0 = time.perf_counter()
         cfg, model, params = built or parity_model(arch)
         rng = np.random.default_rng(1)
         prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in lens]
 
         def engine_tokens(m, p, dev):
-            eng = ServingEngine(m, p, slots=4, max_seq=640, device=dev)
+            eng = ServingEngine(m, p, slots=4, max_seq=max_seq, device=dev)
             futs = [eng.submit(x, max_new_tokens=16) for x in prompts]
             eng.run_until_idle()
             return [f.result() for f in futs], eng.metrics["prefills"]
@@ -713,11 +777,11 @@ def main():
                 fail(f"{arch}: {prefills} prefill calls on the card, "
                      f"{cpu_prefills} on the CPU")
         else:
-            want = [greedy_generate(model, params, x, 16, 640)
+            want = [greedy_generate(model, params, x, 16, max_seq)
                     for x in prompts]
         check_tokens("parity_full_width_f32", model, params, prompts, got,
                      want, arch=arch, layers=cfg.num_layers,
-                     d_model=cfg.d_model, against=against,
+                     d_model=cfg.d_model, max_seq=max_seq, against=against,
                      prefill_calls=prefills, new_tokens=16,
                      seconds=time.perf_counter() - t0)
         torch.cuda.empty_cache()
@@ -852,6 +916,46 @@ def main():
             fail(f"speculation with chunking: {eng.metrics}")
         torch.cuda.empty_cache()
 
+    def padding_safe_features(cfg, model, params):
+        """gemma2 is padding-safe at max_seq 2048 (its window is 4096):
+        chunks of 256, a 1 GiB prefix cache and speculate 4 (n-gram) in one
+        engine, against the greedy oracle. A prompt on a 512-token head,
+        then a second on the same head, the head alone (a whole-prompt hit)
+        and a short prompt (the padded batched prefill)."""
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(4)
+        head = rng.integers(1, cfg.vocab_size, size=HEAD)
+        prompts = [np.concatenate([head, rng.integers(1, cfg.vocab_size,
+                                                      size=n)])
+                   for n in (300, 133)] + [head, rng.integers(
+                       1, cfg.vocab_size, size=100)]
+        pc = PrefixCache(CHUNKED["chunk_tokens"], budget_bytes=1 << 30)
+        mon = Monitor()
+        eng = ServingEngine(model, params, slots=4, max_seq=2048,
+                            device="cuda", monitor=mon, prefix_cache=pc,
+                            chunk_tokens=CHUNKED["chunk_tokens"],
+                            speculate=4, draft=NgramDraft())
+        got = []
+        for wave in (prompts[:1], prompts[1:]):    # the head cached first
+            futs = [eng.submit(p, max_new_tokens=16) for p in wave]
+            eng.run_until_idle()
+            got += [f.result() for f in futs]
+        m = {k: v for k, v in eng.metrics.items() if v}
+        check_tokens("parity_full_width_f32", model, params, prompts, got,
+                     [greedy_generate(model, params, p, 16, 2048)
+                      for p in prompts],
+                     arch=cfg.name, case="chunk_256_prefix_speculate_4_ngram",
+                     layers=cfg.num_layers, max_seq=2048,
+                     against="greedy_oracle", metrics=m,
+                     prefix_cache=pc.stats(), faults=faults(mon),
+                     seconds=time.perf_counter() - t0)
+        # the second prompt and the bare head each restore the head
+        if faults(mon) or not m.get("prefill_chunks") or \
+                not m.get("spec_steps") or \
+                m.get("prefix_hit_tokens") != 2 * HEAD:
+            fail(f"gemma2 chunk + prefix + speculate: {m}, {faults(mon)}")
+        torch.cuda.empty_cache()
+
     built = parity_model("yi-9b")
     parity("yi-9b", (64, 200, 377, 512), "greedy_oracle", built)
     feature_parity(*built)
@@ -859,18 +963,33 @@ def main():
     # one repeated length: granite admits one exact group per length
     parity("granite-moe-1b-a400m", (64, 200, 200, 377), "cpu_engine")
     parity("mamba2-370m", (64, 200, 377, 512), "greedy_oracle")
+    # the sliding-window and hybrid families: gemma2 (2 layers, local and
+    # global) with its capacity features; gemma3 at one super-block (5
+    # local + 1 global) on prompts past the 1024 window, so its rolling
+    # caches wrap in prefill and decode; qwen2 (2 layers); zamba2 at 8
+    # layers (one segment of 6, one shared-block application, 2 trailing)
+    built = parity_model("gemma2-27b")
+    parity("gemma2-27b", (64, 200, 377, 512), "greedy_oracle", built)
+    padding_safe_features(*built)
+    del built
+    parity("gemma3-12b", (300, 1100, 1500, 1900), "greedy_oracle",
+           parity_model("gemma3-12b", 6), max_seq=2048)
+    parity("qwen2-72b", (64, 200, 377, 512), "greedy_oracle")
+    parity("zamba2-1.2b", (64, 200, 377, 512), "greedy_oracle",
+           parity_model("zamba2-1.2b", 8))
 
     # -- 6. serve each model at full depth, bf16, through the entry points --
     variant_counts = {}      # grouped matmul kernels of each served run
 
     def serve(arch, expect, label=None, prompts=None, **knobs):
-        """Drive the served path with every launch count set to 0 just
-        before and read just after; fail unless every request completes,
-        no fault is logged, and the counts are ``expect(prefill calls,
-        decode steps, draft syncs)``. ``knobs`` go to ``build_replicaset``
-        (chunking, prefix cache, speculation, params to reuse)."""
+        """Drive the served path of ``arch`` (a name, or a config such as
+        a depth cut) with every launch count set to 0 just before and read
+        just after; fail unless every request completes, no fault is
+        logged, and the counts are ``expect(prefill calls, decode steps,
+        draft syncs)``. ``knobs`` go to ``build_replicaset`` (chunking,
+        prefix cache, speculation, params to reuse)."""
         t0 = time.perf_counter()
-        cfg = get_config(arch)
+        cfg = get_config(arch) if isinstance(arch, str) else arch
         torch.cuda.reset_peak_memory_stats()
         monitor = Monitor()
         rs = build_replicaset(cfg, monitor=monitor, **SERVE, **knobs)
@@ -909,7 +1028,9 @@ def main():
               "rate_rps": LOAD["rate_rps"],
               "max_new_tokens": LOAD["max_new_tokens"], "report": report,
               "totals_with_warmup": total,
-              "prefill_calls": prefills, "decode_steps": steps,
+              "prefill_calls": prefills,
+              "prefill_requests": total["prefill_requests"],
+              "decode_steps": steps,
               "draft_syncs": syncs,
               "launches": launches, "expected_launches": want,
               "grouped_matmul_launches_by_variant": by_variant,
@@ -920,13 +1041,13 @@ def main():
         n = len(prompts)
         if report["completed"] != n or \
                 report["tokens"] != n * LOAD["max_new_tokens"]:
-            fail(f"{label or arch}: served {report['completed']}/{n} "
+            fail(f"{label or cfg.name}: served {report['completed']}/{n} "
                  f"requests, {report['tokens']}/"
                  f"{n * LOAD['max_new_tokens']} tokens")
         if logged:
-            fail(f"{label or arch}: faults logged: {logged}")
+            fail(f"{label or cfg.name}: faults logged: {logged}")
         if prefills <= 0 or launches != want:
-            fail(f"{label or arch}: kernel launches {launches}, expected "
+            fail(f"{label or cfg.name}: kernel launches {launches}, expected "
                  f"{want} for {prefills} prefill calls, {steps} decode steps "
                  f"and {syncs} draft syncs")
         # bf16 MoE: every prefill group's capacity (>= 80 at 256 tokens)
@@ -936,28 +1057,31 @@ def main():
         want_variants = {"tile": per_call * prefills,
                          "stream": per_call * steps, "f32": 0}
         if by_variant != want_variants:
-            fail(f"{arch}: grouped matmul kernels {by_variant}, expected "
+            fail(f"{cfg.name}: grouped matmul kernels {by_variant}, expected "
                  f"{want_variants}")
         return rs, cfg, launches
 
-    def breakdown(rs, cfg, rows, shares, serving_features=False):
+    def breakdown(rs, cfg, rows, shares, serving_features=False,
+                  length=1024):
         """Where a step's time goes (after the counted run): one prefill of
-        ``rows`` x 1024 tokens and one fused 4-slot decode step (positions
-        on the host, as the engine passes them), host clock to the end of
-        the device work, beside the device's busy time in a profiled call
-        and so its idle share; ``shares`` maps a kernel to its measured time
-        per prefill. ``serving_features`` adds one batched chunk call of
-        4 x 256 at position 1024 (no logits, as the engine calls it), one
-        verify step of 4 slots x 5 tokens, one prefix restore of a
-        512-token entry into a slot and one 256-token chunk extract."""
+        ``rows`` x ``length`` tokens and one fused 4-slot decode step
+        (positions on the host, as the engine passes them), host clock to
+        the end of the device work, beside the device's busy time in a
+        profiled call and so its idle share; ``shares`` maps a kernel to its
+        measured time per prefill. ``serving_features`` adds one batched
+        chunk call of 4 x 256 at position 1024 (no logits, as the engine
+        calls it), one verify step of 4 slots x 5 tokens, one prefix
+        restore of a 512-token entry into a slot and one 256-token chunk
+        extract."""
         t0 = time.perf_counter()
         eng = rs.engines[0]
         times = {}
         with torch.inference_mode():
-            toks = torch.randint(1, cfg.vocab_size, (4, 1024), device="cuda",
+            toks = torch.randint(1, cfg.vocab_size, (4, length),
+                                 device="cuda",
                                  generator=torch.Generator("cuda")
                                  .manual_seed(2))
-            steps = [(f"prefill_{rows}x1024",
+            steps = [(f"prefill_{rows}x{length}",
                       lambda: eng.model.prefill(eng.params, toks[:rows],
                                                 2048)),
                      ("decode_step_4_slots",
@@ -984,7 +1108,7 @@ def main():
                 busy = times[f"{label}_device_busy_ms"] = device_busy_ms(fn)
                 if isinstance(busy, float):
                     times[f"{label}_device_idle_share"] = 1 - busy / wall
-        prefill_ms = times[f"prefill_{rows}x1024_ms"]
+        prefill_ms = times[f"prefill_{rows}x{length}_ms"]
         for name, ms in shares.items():
             times[f"{name}_share_of_prefill"] = ms / prefill_ms
         emit({"phase": "serve_breakdown", "arch": cfg.name, **times,
@@ -1332,8 +1456,71 @@ def main():
     del rs
     torch.cuda.empty_cache()
 
+    # the sliding-window and hybrid families at full width, bf16, each
+    # freed before the next (no two fit the card together): flash attention
+    # in every prefill of every run, SSD in every zamba2 prefill
+    def release(label):
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "released", "after": label,
+              "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+
+    gemma2 = get_config("gemma2-27b")
+    rs, cfg, counts[gemma2.name] = serve(
+        gemma2, lambda p, s, d: {"flash_attention": gemma2.num_layers * p,
+                                 "grouped_matmul": 0, "ssd": 0},
+        label="serve_gemma2")
+    breakdown(rs, cfg, 4, {"flash_attention": cfg.num_layers
+                           * flash_family_ms[cfg.name][0]})
+    del rs
+    release("serve_gemma2")
+
+    # gemma3's long traffic: every prompt past the window, so the local
+    # subs' flash launches mask by window, their prefill caches roll and
+    # decode wraps from its first step; exact per-length groups
+    gemma3 = get_config("gemma3-12b")
+    long_prompts = make_prompts(LOAD["requests"], gemma3.vocab_size,
+                                np.random.default_rng(0), **LONG)
+    rs, cfg, counts[gemma3.name] = serve(
+        gemma3, lambda p, s, d: {"flash_attention": gemma3.num_layers * p,
+                                 "grouped_matmul": 0, "ssd": 0},
+        label="serve_gemma3", prompts=long_prompts)
+    local_ms, global_ms = flash_family_ms[cfg.name]
+    breakdown(rs, cfg, 1, {"flash_attention": cfg.num_layers // 6 * (
+        5 * local_ms + global_ms)}, length=1900)
+    del rs
+    release("serve_gemma3")
+
+    # qwen2-72b at full width cut to 16 of its 80 layers (80 need ~146 GB
+    # in bf16)
+    qwen2 = dataclasses.replace(get_config("qwen2-72b"), num_layers=16)
+    rs, cfg, counts[f"{qwen2.name} (16 layers)"] = serve(
+        qwen2, lambda p, s, d: {"flash_attention": qwen2.num_layers * p,
+                                "grouped_matmul": 0, "ssd": 0},
+        label="serve_qwen2")
+    breakdown(rs, cfg, 4, {"flash_attention": cfg.num_layers
+                           * flash_family_ms[cfg.name][0]})
+    del rs
+    release("serve_qwen2")
+
+    # zamba2: 38 Mamba2 layers on SSD, 6 applications of the shared block
+    # on flash attention
+    zamba2 = get_config("zamba2-1.2b")
+    apps = zamba2.num_layers // zamba2.shared_attn_every
+    rs, cfg, counts[zamba2.name] = serve(
+        zamba2, lambda p, s, d: {"flash_attention": apps * p,
+                                 "grouped_matmul": 0,
+                                 "ssd": zamba2.num_layers * p},
+        label="serve_zamba2")
+    breakdown(rs, cfg, 1, {
+        "flash_attention": apps * flash_family_ms[cfg.name][0],
+        "ssd": cfg.num_layers * ssd_family_ms[SSD_ZAMBA2]})
+    del rs
+    release("serve_zamba2")
+
     # -- 7. kernels, 8. result -------------------------------------------
     layers.flash_attention = flash_wrapper
+    mamba2.ssd_chunked = ssd_wrapper
     # the kernel against its plain version at every served flash shape not
     # checked in section 3, in both dtypes
     for case, _ in sorted(flash_served, key=str):
@@ -1344,9 +1531,33 @@ def main():
           "served_shapes": sorted(
               [list(c) + [str(t).removeprefix("torch.")]
                for c, t in flash_served], key=str)})
+    # the SSD op at every served shape, with the models' decay range
+    # (A = -linspace(1, 16, nh)), against the sequential scan: one launch
+    # each
+    for case in sorted(ssd_served):
+        b, s, nh, hd, ds, ch = case
+        inputs = ssd_inputs(b, s, nh, hd, ds, gen, wide_decay=True)
+        before = ssd_ops.launches
+        y, st = ssd_ops.ssd_chunked(*inputs, ch)
+        torch.cuda.synchronize()
+        launched = ssd_ops.launches - before
+        ry, rst = ssd_ref(*inputs)
+        err = max(float((y - ry).abs().max()), float((st - rst).abs().max()))
+        ok = launched == 1 and torch.allclose(y, ry, **ssd_tol) and \
+            torch.allclose(st, rst, **ssd_tol)
+        emit({"phase": "kernel_vs_plain_served", "kernel": "ssd",
+              "op": "ssd_chunked", "against": "sequential ssd_ref",
+              "shape": {"b": b, "S": s, "nh": nh, "hd": hd, "ds": ds,
+                        "chunk": ch}, "launched": launched,
+              "dtype": "float32", "max_abs_err": err, "tol": ssd_tol,
+              "ok": ok})
+        if not ok:
+            misses.append(("ssd_chunked", case, "float32"))
+    emit({"phase": "kernel_vs_plain_served", "kernel": "ssd",
+          "served_shapes": sorted(list(c) for c in ssd_served)})
     if misses:
-        fail(f"flash attention disagrees with its plain version at a "
-             f"served shape: {misses}")
+        fail(f"a kernel disagrees with its plain version at a served "
+             f"shape: {misses}")
     # each kernel's launches on its own path's served run
     own_path = {"flash_attention": "yi-9b",
                 "grouped_matmul": "granite-moe-1b-a400m", "ssd": "mamba2-370m"}

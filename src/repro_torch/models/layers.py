@@ -94,15 +94,32 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
+def zeros(gen, shape, dtype, stack: int = 0):
+    """Zeros of ``shape`` on ``gen``'s device, with a leading ``stack`` axis
+    when ``stack`` > 0 (as ``dense_init``)."""
+    return torch.zeros(((stack,) if stack else ()) + tuple(shape),
+                       dtype=dtype, device=gen.device)
+
+
 def attn_init(gen, cfg, dtype, stack: int):
+    """wq, wk, wv, wo; with ``qkv_bias`` zero biases bq, bk, bv, and with
+    ``qk_norm`` zero-centred norms q_norm, k_norm over the head dim."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": dense_init(gen, (d, h, hd), dtype, stack=stack),
         "wk": dense_init(gen, (d, kv, hd), dtype, stack=stack),
         "wv": dense_init(gen, (d, kv, hd), dtype, stack=stack),
         "wo": dense_init(gen, (h, hd, d), dtype, scale=1.0 / math.sqrt(h * hd),
                          stack=stack),
     }
+    if cfg.qkv_bias:
+        p["bq"] = zeros(gen, (h, hd), dtype, stack)
+        p["bk"] = zeros(gen, (kv, hd), dtype, stack)
+        p["bv"] = zeros(gen, (kv, hd), dtype, stack)
+    if cfg.qk_norm:
+        p["q_norm"] = zeros(gen, (hd,), dtype, stack)
+        p["k_norm"] = zeros(gen, (hd,), dtype, stack)
+    return p
 
 
 def _proj(x, w):
@@ -111,11 +128,15 @@ def _proj(x, w):
 
 
 def qkv_proj(p, cfg, x, positions, theta: float):
-    """Project + rope. x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
-    q = apply_rope(_proj(x, p["wq"]), positions, theta)
-    k = apply_rope(_proj(x, p["wk"]), positions, theta)
-    v = _proj(x, p["wv"])
-    return q, k, v
+    """Project, then the bias and the per-head norm where the params hold
+    them, then rope. x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
 def out_proj(attn, wo):
@@ -140,6 +161,21 @@ def attention(cfg, q, k, v, *, window: int = 0):
                            softcap=cfg.attn_softcap)
 
 
+def masked_attention(cfg, q, k_cache, v_cache, valid):
+    """Softmax attention of q (B,C,H,hd) over cache slots (B,T,KV,hd) where
+    ``valid`` (B,C,T) holds: f32 scores, scale, softcap, masked to -1e30,
+    probabilities in q's dtype (the JAX cast order). The plain cores of
+    decode (global and rolling) and chunk attention."""
+    b, c, h, hd = q.shape
+    qg = _group(q, k_cache.shape[2])
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k_cache).float()
+    s = softcap(s * _scale(cfg), cfg.attn_softcap)
+    s = torch.where(valid[:, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", p, v_cache)
+    return out.reshape(b, c, h, hd)
+
+
 def chunk_attention(cfg, q, k_cache, v_cache, qpos):
     """Chunked-prefill attention: a multi-token chunk attends over the full
     per-slot cache. q: (B,C,H,hd); caches: (B,T,KV,hd) with the chunk's own
@@ -147,35 +183,19 @@ def chunk_attention(cfg, q, k_cache, v_cache, qpos):
     attention only (the engine gates chunking to padding-safe models), where
     masking ``kpos <= qpos`` is exact: positions beyond the chunk are unwritten
     scratch or later prompt positions not yet computed, both masked."""
-    b, c, h, hd = q.shape
-    skv, kvh = k_cache.shape[1], k_cache.shape[2]
-    qg = _group(q, kvh)
-    s = torch.einsum("bskgh,btkh->bkgst", qg, k_cache).float()
-    s = softcap(s * _scale(cfg), cfg.attn_softcap)
-    kpos = torch.arange(skv, device=q.device)
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
     valid = kpos[None, None, :] <= qpos[:, :, None]           # (B,C,T)
-    s = torch.where(valid[:, None, None], s, -1e30)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", p, v_cache)
-    return out.reshape(b, c, h, hd)
+    return masked_attention(cfg, q, k_cache, v_cache, valid)
 
 
 def decode_attention(cfg, q, k_cache, v_cache, pos, *, window: int = 0):
     """Single-token decode. q: (B,1,H,hd); caches: (B,S,KV,hd); pos: (B,)
     (position of the *current* token, already written into the cache)."""
-    b, _, h, hd = q.shape
-    skv, kvh = k_cache.shape[1], k_cache.shape[2]
-    qg = _group(q, kvh)
-    s = torch.einsum("bskgh,btkh->bkgst", qg, k_cache).float()
-    s = softcap(s * _scale(cfg), cfg.attn_softcap)
-    kpos = torch.arange(skv, device=q.device)
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
     valid = kpos[None, :] <= pos[:, None]
     if window:
         valid &= pos[:, None] - kpos[None, :] < window
-    s = torch.where(valid[:, None, None, None], s, -1e30)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", p, v_cache)
-    return out.reshape(b, 1, h, hd)
+    return masked_attention(cfg, q, k_cache, v_cache, valid[:, None])
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,12 @@
 
 The JAX models' param pytrees (the transformer's ``{"embed": {"tok"},
 "blocks": [stacked per-sub dict], "final_norm"}``, the SSM's ``{"embed",
-"mamba": {"ln", "mamba": {...}}, "final_norm"}``) and caches (a list of
-``{"k", "v"}`` per sub, each (n_super, B, max_seq, KV, hd); the SSM's
-``{"conv": {"x", "B", "C"}, "ssd"}`` stacked on the layer axis) have the same
+"mamba": {"ln", "mamba": {...}}, "final_norm"}``, the hybrid's SSM tree
+with ``"shared"``, one unstacked sub dict) and caches (a list of ``{"k",
+"v"}`` per sub, each (n_super, B, L, KV, hd) with L the window of a rolling
+sub, else max_seq; the SSM's ``{"conv": {"x", "B", "C"}, "ssd"}`` stacked
+on the layer axis; the hybrid's pair of the SSM's and a ``{"k", "v"}``
+stacked on the shared block's applications) have the same
 structure and layouts in the port, so the conversion is leaf by leaf and
 exact: every leaf keeps its dtype, so the f32 leaves of a bf16 model
 (``router``, ``A_log``, ``D``, ``dt_bias``, the SSD state) stay f32. The
@@ -37,7 +40,9 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, tuple):
+        return tuple(_map(v, fn) for v in tree)
+    if isinstance(tree, list):
         return [_map(v, fn) for v in tree]
     return fn(tree)
 
@@ -49,22 +54,33 @@ def _keys(tree):
 def _check_params(tree):
     if _keys(tree) == {"embed", "blocks", "final_norm"}:
         return
-    if _keys(tree) == {"embed", "mamba", "final_norm"} and \
-            _keys(tree["mamba"]) == {"ln", "mamba"}:
+    if _keys(tree) in ({"embed", "mamba", "final_norm"},
+                       {"embed", "mamba", "shared", "final_norm"}) and \
+            _keys(tree["mamba"]) == {"ln", "mamba"} and \
+            isinstance(tree.get("shared", {}), dict):
         return
-    raise ValueError("params must be {'embed', 'blocks', 'final_norm'} or "
-                     "{'embed', 'mamba': {'ln', 'mamba'}, 'final_norm'}")
+    raise ValueError("params must be {'embed', 'blocks', 'final_norm'}, "
+                     "{'embed', 'mamba': {'ln', 'mamba'}, 'final_norm'} or "
+                     "the latter with a 'shared' sub-layer dict")
+
+
+def _ssm_caches(caches) -> bool:
+    return _keys(caches) == {"conv", "ssd"} and \
+        _keys(caches["conv"]) == {"x", "B", "C"}
 
 
 def _check_caches(caches):
     if isinstance(caches, (list, tuple)) and all(
             _keys(c) == {"k", "v"} for c in caches):
         return
-    if _keys(caches) == {"conv", "ssd"} and \
-            _keys(caches["conv"]) == {"x", "B", "C"}:
+    if _ssm_caches(caches):
         return
-    raise ValueError("caches must be a list of {'k', 'v'} dicts or "
-                     "{'conv': {'x', 'B', 'C'}, 'ssd'}")
+    if isinstance(caches, tuple) and len(caches) == 2 and \
+            _ssm_caches(caches[0]) and _keys(caches[1]) == {"k", "v"}:
+        return
+    raise ValueError("caches must be a list of {'k', 'v'} dicts, "
+                     "{'conv': {'x', 'B', 'C'}, 'ssd'}, or a pair of the "
+                     "latter and {'k', 'v'}")
 
 
 def params_from_numpy(tree, device) -> dict:

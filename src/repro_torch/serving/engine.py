@@ -27,7 +27,10 @@ With a ``recorder`` (the flight recorder), every request carries a
 completes; span times are host times. ``EdgeRouter`` is the least-loaded
 dispatch in front of a ``ReplicaSet`` or a list of engines.
 
-Not ported yet: rolling caches.
+Rolling caches (a sliding-window sub whose window is shorter than
+``max_seq``) and the hybrid's (Mamba state, shared-block K/V) pair scatter
+into slots leaf by leaf like any other cache; both models prefill in exact
+per-length groups and decline chunking and speculation, as in JAX.
 """
 from __future__ import annotations
 
@@ -106,7 +109,9 @@ def _padding_safe(model, max_seq: int) -> bool:
     """Right-padded batched prefill is exact only when every sub-layer is
     global attention at this ``max_seq``: decode overwrites cache position
     ``pos`` before attending, so pad garbage beyond the prompt is never read.
-    Rolling caches, recurrent SSM state and MoE capacity routing all need
+    Rolling caches (they keep the last W positions of the padded length, so
+    pad rows would evict real ones), recurrent SSM state (it absorbs pad
+    tokens; the hybrid has no ``subs``) and MoE capacity routing all need
     exact per-length groups with no pad rows instead."""
     subs = getattr(model, "subs", None)
     if subs is None:

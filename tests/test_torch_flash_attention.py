@@ -27,6 +27,8 @@ SWEEP = [
     (128, 4, 2, 32, 48, 0.0),         # sliding window
     (128, 2, 2, 64, 0, 30.0),         # logit softcap (gemma2)
     (96, 8, 1, 32, 32, 50.0),         # MQA + window + cap
+    (128, 2, 1, 256, 48, 0.0),        # head dim 256 + window (gemma3)
+    (96, 4, 4, 64, 0, 0.0),           # MHA at head dim 64 (zamba2)
 ]
 # the tolerances of tests/test_kernels.py: f32 agrees to summation order;
 # bf16 differs by output rounding (the kernel keeps probabilities in f32)

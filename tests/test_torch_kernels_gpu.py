@@ -8,7 +8,9 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # (B, S, H, KV, D, window, softcap): the sweep of tests/test_kernels.py, the
-# reduced configs' head dim and the yi-9b prefill shape
+# reduced configs' head dim, the yi-9b prefill shape and the served prefill
+# shapes of gemma2 (window inactive), gemma3 (local and global subs), qwen2
+# and zamba2
 CASES = [
     (2, 128, 4, 4, 32, 0, 0.0),
     (2, 192, 4, 2, 64, 0, 0.0),
@@ -23,6 +25,11 @@ CASES = [
     (2, 100, 4, 2, 16, 40, 30.0),
     (1, 200, 2, 1, 256, 64, 50.0),
     (2, 77, 4, 4, 128, 0, 20.0),
+    (4, 1024, 32, 16, 128, 4096, 50.0),
+    (1, 1900, 16, 8, 256, 1024, 0.0),
+    (1, 1900, 16, 8, 256, 0, 0.0),
+    (4, 1024, 64, 8, 128, 0, 0.0),
+    (1, 1024, 32, 32, 64, 0, 0.0),
 ]
 
 
@@ -99,13 +106,15 @@ def test_grouped_matmul_kernel_matches_plain_version(e, c, d, f, dtype):
 # prefill shape, and lengths off the chunk grid through the padded op; then
 # the edges of the tensor-core kernel's tiling: zamba2's d_state 64, a chunk
 # off the 64-row tile (48), head dims 16 and 128 at d_state 128, one chunk
-# at full width, and three batches of 32 heads
+# at full width, and three batches of 32 heads; last, zamba2's served
+# prefill (64 heads at d_state 64), on and off the chunk grid
 SSD_CASES = [(2, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
              (2, 128, 4, 32, 16, 64), (1, 1024, 32, 64, 128, 256),
              (1, 1000, 32, 64, 128, 256), (2, 77, 4, 128, 16, 32),
              (1, 512, 32, 64, 64, 256), (2, 96, 4, 32, 16, 48),
              (1, 256, 4, 16, 128, 256), (1, 256, 4, 128, 128, 256),
-             (1, 256, 32, 64, 128, 256), (3, 512, 32, 64, 128, 256)]
+             (1, 256, 32, 64, 128, 256), (3, 512, 32, 64, 128, 256),
+             (1, 1024, 64, 64, 64, 256), (1, 1000, 64, 64, 64, 256)]
 # mamba2's initial decay range, A = -linspace(1, 16, nh): the cumulative log
 # decay reaches the thousands within a chunk
 SSD_WIDE_DECAY_CASES = [(1, 1024, 32, 64, 128, 256), (2, 96, 4, 32, 16, 48)]
