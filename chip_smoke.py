@@ -25,7 +25,17 @@ from its header at token parity 1.0); ``python -m repro_torch.cli`` init,
 apply, status, serve --record, trace --json and destroy in this process at
 full depth in bf16 (flash launches = 48 x the serve command's prefill
 calls); the same serve unrecorded, side by side; and the recorded file
-replayed in bf16 (its parity printed). Then the sliding-window and hybrid
+replayed in bf16 (its parity printed). Then elastic serving, the autoscaler,
+the fleet arbiter and the telemetry plane on yi-9b over shares of the card
+(``repro_torch.device.device_pool``): a depth-2 float32 VRE at (1, 1) over
+2 shares resized to (2, 1) with requests in flight (carried and new
+requests against the greedy oracle, the replicas on disjoint shares);
+``cli serve --waves 2 --autoscale --force-resize --telemetry-port 0`` at
+full depth in bf16 on the plain traffic, ``/metrics`` validated once a
+wave; and ``run_fleet_scenario`` with 2 tenants over 4 shares, arbitrated
+(its telemetry scraped throughout; cross-tenant prefix hits) and static,
+each served run with its flash launches against 48 x its prefill calls
+and its peak memory. Then the sliding-window and hybrid
 families at full width: depth-cut float32 token checks against the greedy
 oracle (gemma2 and qwen2 at 2 layers, gemma2 also with chunks of 256, the
 prefix cache and speculate 4 in one engine; gemma3 at one super-block of 6
@@ -49,10 +59,12 @@ import dataclasses
 import gc
 import io
 import json
+import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -138,6 +150,9 @@ SHORT, HEAD, TAIL = (32, 201), 512, (128, 513)
 LONG = dict(lo=1100, hi=1901)
 # events that fail the check wherever they are logged
 FAULTS = ("prefix_restore_error", "prefill_error", "step_error")
+# the fleet's arrival rate on the card (its driver's default, 400, sends a
+# burst at once)
+FLEET_RATE = 8.0
 
 
 def emit(obj):
@@ -360,6 +375,7 @@ def ssd_set_bytes(b, s, nh, hd, ds, ch) -> int:
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1384,6 +1400,347 @@ def main():
         return {"yi-9b cli serve --record": runs["vre_cli"]["launches"],
                 "yi-9b cli serve": runs["vre_cli_unrecorded"]["launches"]}
 
+    @contextlib.contextmanager
+    def patched(obj, name, value):
+        """``obj.name`` replaced by ``value`` for the block."""
+        old = getattr(obj, name)
+        setattr(obj, name, value)
+        try:
+            yield
+        finally:
+            setattr(obj, name, old)
+
+    @contextlib.contextmanager
+    def counting_prefill(model):
+        """Counts the served model's prefill calls (every call launches the
+        flash kernel once per layer); the wrapped call is unchanged."""
+        calls = [0]
+        inner = model.prefill
+
+        def prefill(*a, **kw):
+            calls[0] += 1
+            return inner(*a, **kw)
+        with patched(model, "prefill", prefill):
+            yield calls
+
+    def elastic_phases(yi, yi_model, yi_params):
+        """Elastic serving, the autoscaler, the fleet arbiter and the
+        telemetry plane on yi-9b over shares of the card: (1) elastic_f32, a
+        depth-2 float32 VRE at (1, 1) over a pool of 2 shares resized to
+        (2, 1) by ``elastic.resize_serving`` with requests in flight, every
+        carried and new request against the greedy oracle; (2)
+        elastic_serve, ``python -m repro_torch.cli serve --waves 2
+        --autoscale --force-resize --telemetry-port 0`` in this process at
+        full depth in bf16 on the plain traffic, ``/metrics`` scraped and
+        validated once a wave; (3) fleet, ``run_fleet_scenario`` with 2
+        tenants over 4 shares, arbitrated (``fleet_telemetry`` scraped
+        throughout) and static. Returns the kernel launches of each run."""
+        import urllib.request
+
+        from repro_torch import observability
+        from repro_torch.core import elastic, services
+        from repro_torch.core.vre import VREConfig, VirtualResearchEnvironment
+        from repro_torch.device import SHARES_ENV, device_pool
+        from repro_torch.fleet import driver as fleet_driver
+        from repro_torch.launch import serve as serve_mod
+        from repro_torch.observability import validate_exposition
+
+        tmp = tempfile.TemporaryDirectory()
+        work = Path(tmp.name)
+        out = {}
+
+        def reset_counts():
+            for op in ops.values():
+                op.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+
+        def read_counts():
+            return {name: op.launches for name, op in ops.items()}
+
+        def want_flash(layers, calls):
+            return {"flash_attention": layers * calls, "grouped_matmul": 0,
+                    "ssd": 0}
+
+        def scrape(url) -> dict:
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+                body = r.read().decode()
+                status = r.status
+            ms = (time.perf_counter() - t0) * 1e3
+            return {"status": status, "ms": ms, "bytes": len(body),
+                    "samples": sum(1 for ln in body.splitlines()
+                                   if ln and not ln.startswith("#")),
+                    "errors": validate_exposition(body)}
+
+        # (1) elastic_f32: the resize with requests in flight, depth 2 f32
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(yi, num_layers=2, dtype="float32")
+        model = build_model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        services._SERVED_MODEL_CACHE[("yi-9b", "h100")] = (cfg, model, params)
+        prompts = make_prompts(5, yi.vocab_size, np.random.default_rng(1),
+                               lo=LOAD["lo"], hi=LOAD["hi"])
+        n_new = LOAD["max_new_tokens"]
+        oracle = [greedy_generate(model, params, p, n_new, SERVE["max_seq"])
+                  for p in prompts]
+        pool = device_pool("h100", 2)
+        vre = VirtualResearchEnvironment(VREConfig(
+            name="elastic", mesh_shape=(1, 1), services=["lm-server"],
+            arch="yi-9b", provider="h100", workdir=str(work / "elastic"),
+            extra={"replicas": "auto", "slots": SERVE["slots"],
+                   "max_seq": SERVE["max_seq"]}))
+        vre.device_pool = pool
+        reset_counts()
+        with counting_prefill(model) as calls:
+            vre.instantiate()
+            rs = vre.service("lm-server").replicaset
+            before = rs.placements()
+            reqs = [rs.submit_request(p, max_new_tokens=n_new)
+                    for p in prompts]
+            rs = None
+            asked = vre.request_resize((2, 1))
+            ev = elastic.resize_serving(vre)
+            carried = [r.future.result(timeout=600) for r in reqs]
+            rs = vre.service("lm-server").replicaset
+            after = rs.placements()
+            fresh = [rs.submit_request(p, max_new_tokens=n_new)
+                     for p in prompts]
+            fresh = [r.future.result(timeout=600) for r in fresh]
+            rs = None
+            status = vre.status()
+            events = [e for e in vre.monitor.events()
+                      if e["event"] in ("resize_requested", "resize_applied")
+                      or e["event"] in FAULTS]
+            vre.destroy()
+        launches = read_counts()
+        check_tokens("elastic_f32_tokens", model, params, prompts + prompts,
+                     [np.asarray(t) for t in carried + fresh],
+                     oracle + oracle, arch=cfg.name, layers=cfg.num_layers,
+                     dtype=cfg.dtype, against="greedy_oracle",
+                     carried_then_new=True)
+        shares = [set(v) for v in after.values()]
+        disjoint = len(shares) == 2 and all(shares) and \
+            shares[0].isdisjoint(shares[1])
+        info = {"phase": "elastic_f32", "arch": cfg.name,
+                "layers": cfg.num_layers, "dtype": cfg.dtype,
+                "pool_shares": [str(d) for d in pool],
+                "pool_cards": sorted({str(d.device) for d in pool}),
+                "requested": list(asked),
+                "placements_before": {n: [str(d) for d in v]
+                                      for n, v in before.items()},
+                "placements_after": {n: [str(d) for d in v]
+                                     for n, v in after.items()},
+                "disjoint_shares": disjoint,
+                "carried_requests": ev["carried_requests"],
+                "downtime_s": ev["downtime_s"],
+                "reinstantiate_s": ev["report"].reinstantiate_s,
+                "status_after": {k: status[k] for k in (
+                    "mesh", "pending_resize", "granted_devices",
+                    "generation")},
+                "prefill_calls": calls[0], "launches": launches,
+                "events": events,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "card": smi, "seconds": time.perf_counter() - t0}
+        emit(info)
+        if not disjoint or status["pending_resize"] is not None \
+                or status["mesh"] != [2, 1] \
+                or launches != want_flash(cfg.num_layers, calls[0]) \
+                or any(e["event"] in FAULTS for e in events):
+            fail(f"elastic_f32: placements {info['placements_after']}, "
+                 f"status {info['status_after']}, launches {launches} for "
+                 f"{calls[0]} prefill calls")
+        out["yi-9b elastic_f32 (2 layers)"] = launches
+        del model, params
+        services._SERVED_MODEL_CACHE.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (2) elastic_serve: the CLI's elastic waves, full depth bf16, the
+        # plain traffic (the driver's prompt maker gets LOAD's lengths), a
+        # pool of 2 shares from the environment, /metrics scraped after
+        # every wave
+        t0 = time.perf_counter()
+        services._SERVED_MODEL_CACHE[("yi-9b", "h100")] = (
+            yi, yi_model, yi_params)
+        d = work / "dep"
+        run_cli("init", "h100", d)
+        raw = json.loads((d / "vre.json").read_text())
+        raw["extra"].update(replicas="auto", slots=SERVE["slots"],
+                            max_seq=SERVE["max_seq"])
+        (d / "vre.json").write_text(json.dumps(raw, indent=2))
+        servers, scrapes = [], []
+        plain_prompts = serve_mod.make_prompts
+        plain_load = serve_mod.run_load
+        plain_vre_telemetry = observability.vre_telemetry
+
+        def load_prompts(n, vocab, rng, lo=4, hi=17):
+            return plain_prompts(n, vocab, rng, lo=LOAD["lo"], hi=LOAD["hi"])
+
+        def load_then_scrape(*a, **kw):
+            rep = plain_load(*a, **kw)
+            scrapes.append(scrape(servers[-1].url))
+            return rep
+
+        def vre_telemetry(*a, **kw):
+            servers.append(plain_vre_telemetry(*a, **kw))
+            return servers[-1]
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(serve_mod, "make_prompts",
+                                        load_prompts))
+            stack.enter_context(patched(serve_mod, "run_load",
+                                        load_then_scrape))
+            stack.enter_context(patched(observability, "vre_telemetry",
+                                        vre_telemetry))
+            calls = stack.enter_context(counting_prefill(yi_model))
+            stack.enter_context(contextlib.redirect_stderr(io.StringIO()))
+            stack.callback(os.environ.pop, SHARES_ENV, None)
+            os.environ[SHARES_ENV] = "2"
+            report, _, secs = run_cli(
+                "serve", "--dir", d, "--requests", LOAD["requests"],
+                "--rate", LOAD["rate_rps"], "--max-new",
+                LOAD["max_new_tokens"], "--seed", 0, "--waves", 2,
+                "--autoscale", "--force-resize", "--telemetry-port", 0)
+        launches = read_counts()
+        events = [json.loads(ln) for ln in (
+            d / ".vre" / raw["name"] / "events.jsonl").read_text()
+            .splitlines()]
+        logged = [e for e in events if e["event"] in FAULTS]
+        autoscaled = [e for e in events
+                      if e["event"].startswith("autoscale.")]
+        waves = report["waves"]
+        info = {"phase": "elastic_serve", "arch": yi.name,
+                "layers": yi.num_layers, "dtype": yi.dtype,
+                "command": "cli serve --waves 2 --autoscale --force-resize "
+                           "--telemetry-port 0",
+                "shares": 2, "traffic": LOAD,
+                "tok_per_s_by_wave": [w["tok_per_s"] for w in waves],
+                "mesh_by_wave": [w["mesh"] for w in waves],
+                "placements_by_wave": [w["placements"] for w in waves],
+                "resizes": report["resizes"],
+                "completion_rate": report["completion_rate"],
+                "final_mesh": report["final_mesh"],
+                "autoscaler_actions": [e["event"] for e in autoscaled],
+                "scrapes": scrapes, "telemetry": report.get("telemetry"),
+                "prefill_calls": calls[0], "launches": launches,
+                "faults_logged": logged,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "report": report, "card": smi, "seconds": secs}
+        emit(info)
+        want = want_flash(yi.num_layers, calls[0])
+        if report["completion_rate"] != 1.0 or len(report["resizes"]) != 1 \
+                or len(scrapes) != 2 or any(s["errors"] for s in scrapes) \
+                or launches != want or logged or calls[0] <= 0:
+            fail(f"elastic_serve: completion {report['completion_rate']}, "
+                 f"resizes {report['resizes']}, scrape errors "
+                 f"{[s['errors'][:3] for s in scrapes]}, launches "
+                 f"{launches} against {want}, faults {logged}")
+        out["yi-9b cli serve --waves 2"] = launches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (3) fleet: two tenants over 4 shares of the card, arbitrated with
+        # the fleet's telemetry scraped throughout, then static
+        fleets = {}
+        plain_fleet_telemetry = observability.fleet_telemetry
+        for mode in ("arbitrated", "static"):
+            t0 = time.perf_counter()
+            fleet_scrapes = []
+            stop = threading.Event()
+
+            def fleet_telemetry(*a, **kw):
+                """The fleet's telemetry server, scraped every 0.5 s until
+                the driver stops it."""
+                srv = plain_fleet_telemetry(*a, **kw)
+
+                def scraper():
+                    while not stop.wait(0.5):
+                        try:
+                            fleet_scrapes.append(scrape(srv.url))
+                        except Exception as exc:
+                            fleet_scrapes.append({"errors": [repr(exc)]})
+                th = threading.Thread(target=scraper, daemon=True)
+                th.start()
+                stop_server = srv.stop
+
+                def stop_scraping(*a, **kw):
+                    stop.set()
+                    th.join(60)
+                    return stop_server(*a, **kw)
+                srv.stop = stop_scraping
+                return srv
+            pool = device_pool("h100", 4)
+            reset_counts()
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(patched(observability, "fleet_telemetry",
+                                            fleet_telemetry))
+                calls = stack.enter_context(counting_prefill(yi_model))
+                try:
+                    rep = fleet_driver.run_fleet_scenario(
+                        2, devices=pool, arch="yi-9b", provider="h100",
+                        workdir=str(work / f"fleet-{mode}"),
+                        requests_per_phase=16, rate_rps=FLEET_RATE,
+                        max_new_tokens=16, slots_per_device=2,
+                        wave_repeats=1, max_seq=SERVE["max_seq"],
+                        chunk_tokens=256, prefix_cache_mb=1024.0,
+                        shared_prefix_len=512, static=mode == "static",
+                        tick_interval_s=0.05,
+                        telemetry_port=0 if mode == "arbitrated" else None,
+                        rng=np.random.default_rng(0))
+                finally:
+                    stop.set()
+            launches = read_counts()
+            hits = [{n: p["prefix_hit_tokens"] for n, p in ph.items()}
+                    for ph in rep["phases"]]
+            fleets[mode] = rep
+            info = {"phase": "fleet", "mode": mode, "arch": yi.name,
+                    "layers": yi.num_layers, "dtype": yi.dtype,
+                    "pool_shares": [str(d) for d in pool],
+                    "pool_cards": sorted({str(d.device) for d in pool}),
+                    "requests_per_phase": 16, "max_new_tokens": 16,
+                    "rate_rps": FLEET_RATE, "slots_per_device": 2,
+                    "shared_prefix_len": 512,
+                    "completion_rate": rep["completion_rate"],
+                    "tok_per_s": rep["tok_per_s"], "arbiter": rep["arbiter"],
+                    "admissions": rep["admissions"],
+                    "carried": rep["carried"],
+                    "prefix_hit_tokens_by_phase": hits,
+                    "meshes_by_phase": [{n: p["mesh"] for n, p in ph.items()}
+                                        for ph in rep["phases"]],
+                    "scrapes": len(fleet_scrapes),
+                    "scrape_ms": [s.get("ms") for s in fleet_scrapes],
+                    "scrape_errors": [s["errors"][:3] for s in fleet_scrapes
+                                      if s["errors"]],
+                    "telemetry": rep.get("telemetry"),
+                    "prefill_calls": calls[0], "launches": launches,
+                    "peak_memory_gb":
+                        torch.cuda.max_memory_allocated() / 1e9,
+                    "card": smi, "seconds": time.perf_counter() - t0}
+            emit(info)
+            cross = hits[1].get("vre1", 0) if mode == "arbitrated" else None
+            if rep["completion_rate"] != 1.0 \
+                    or rep["carried"]["completed"] != \
+                    rep["carried"]["requests"] \
+                    or launches != want_flash(yi.num_layers, calls[0]) \
+                    or (mode == "arbitrated" and (
+                        not cross or not fleet_scrapes
+                        or info["scrape_errors"])):
+                fail(f"fleet {mode}: completion {rep['completion_rate']}, "
+                     f"carried {rep['carried']}, hits {hits}, launches "
+                     f"{launches} for {calls[0]} prefill calls, "
+                     f"{len(fleet_scrapes)} scrapes")
+            out[f"yi-9b fleet {mode}"] = launches
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit({"phase": "fleet_side_by_side", "claimed": None,
+              "tok_per_s": {m: r["tok_per_s"] for m, r in fleets.items()},
+              "preemptions": {m: r["arbiter"]["preemptions"]
+                              for m, r in fleets.items()},
+              "card": smi})
+        services._SERVED_MODEL_CACHE.clear()
+        tmp.cleanup()
+        return out
+
     counts = {}
     yi = get_config("yi-9b")
     rs, cfg, counts["yi-9b"] = serve(
@@ -1432,6 +1789,7 @@ def main():
             fail(f"{label}: no verify step")
         del rs
     counts.update(recorder_phases(yi, yi_model, yi_params))
+    counts.update(elastic_phases(yi, yi_model, yi_params))
     del yi_model, yi_params
     torch.cuda.empty_cache()
 
@@ -1568,6 +1926,7 @@ def main():
                                              for a, c in counts.items()}
     kernels["grouped_matmul"]["launches_by_variant"] = variant_counts[
         "granite-moe-1b-a400m"]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": device})
 

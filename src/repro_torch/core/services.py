@@ -8,9 +8,9 @@ the live instance.
 
 A port of the JAX package's ``repro.core.services``. Provider ``"cpu"``
 serves the reduced config of the VRE's arch, the card (``"h100"``) its full
-widths. Not ported yet: the ``lm-trainer`` service (ROADMAP A.7; its builder
-raises), and the autoscaler and ``rebalance`` of ``lm-server`` (A.6; they
-raise).
+widths. ``lm-server`` has the JAX service's autoscaler (with SLO targets),
+``rebalance``, ``replicas: "auto"`` and a fleet's shared prefix cache. Not
+ported yet: the ``lm-trainer`` service (ROADMAP A.7; its builder raises).
 """
 from __future__ import annotations
 
@@ -23,7 +23,9 @@ from repro_torch.core.registry import ServiceHandle, register_service
 from repro_torch.core.scheduler import ClusterScheduler
 from repro_torch.core.workflow import Workflow
 from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+from repro_torch.device import resolve_device
 from repro_torch.launch.serve import model_config, record_meta, replicaset_for
+from repro_torch.serving.autoscaler import Autoscaler, AutoscalerConfig
 from repro_torch.serving.engine import EdgeRouter
 from repro_torch.serving.replica import ReplicaSet
 
@@ -39,8 +41,9 @@ _SERVED_MODEL_LOCK = threading.Lock()
 def _served_model(ctx):
     """(cfg, model, params) for the serving plane, cached across VREs and
     re-instantiations per (arch, provider), so a re-applied VRE does not
-    rebuild the model (17.6 GB of bf16 params for the full yi-9b). The
-    model lives on the first device of the VRE's mesh; params are drawn
+    rebuild the model (17.6 GB of bf16 params for the full yi-9b): an
+    elastic resize or a fleet re-admission reuses them. The model lives on
+    the card of the first share of the VRE's mesh; params are drawn
     from a ``torch.Generator`` there seeded with 0, so sharing them across
     VREs of the same arch is observationally identical to rebuilding."""
     from repro_torch.models.model import build_model
@@ -50,7 +53,7 @@ def _served_model(ctx):
         ent = _SERVED_MODEL_CACHE.get(key)
         if ent is None:
             cfg = _model_cfg(ctx)
-            home = ctx.mesh.devices.flat[0]
+            home = resolve_device(ctx.mesh.devices.flat[0])
             model = build_model(cfg, device=home)
             params = model.init(torch.Generator(device=home).manual_seed(0))
             ent = (cfg, model, params)
@@ -86,18 +89,25 @@ def build_trainer(ctx):
 
 
 class ServingService(ServiceHandle):
-    """Serving plane: ReplicaSet of async engines behind an edge router."""
+    """Serving plane: ReplicaSet of async engines behind an edge router,
+    with an optional load-driven autoscaler."""
 
-    def __init__(self, replicaset: ReplicaSet, router: EdgeRouter):
+    def __init__(self, replicaset: ReplicaSet, router: EdgeRouter,
+                 autoscaler: Autoscaler = None):
         super().__init__("lm-server", "serve", replicaset)
         self.replicaset = replicaset
         self.router = router
+        self.autoscaler = autoscaler
 
     def start(self):
         self.replicaset.start()
+        if self.autoscaler is not None:
+            self.autoscaler.run()
         return self
 
     def stop(self):
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
         self.replicaset.stop()
 
     def health(self) -> bool:
@@ -107,9 +117,7 @@ class ServingService(ServiceHandle):
         return self.replicaset.scale_to(n)
 
     def rebalance(self, mesh) -> dict:
-        raise NotImplementedError(
-            "lm-server: rebalancing onto a resized mesh is not ported yet "
-            "(ROADMAP A.6)")
+        return self.replicaset.rebalance(mesh)
 
     def metrics(self) -> dict:
         return self.replicaset.metrics()
@@ -119,28 +127,48 @@ class ServingService(ServiceHandle):
 
 
 @register_service("lm-server", "serve",
-                  description="async serving replicas + edge router")
+                  description="async serving replicas + edge router + "
+                              "autoscaler")
 def build_server(ctx):
     extra = ctx.config.extra
-    if extra.get("autoscale"):
-        raise NotImplementedError(
-            "lm-server: the autoscaler is not ported yet (ROADMAP A.6)")
     cfg, model, params = _served_model(ctx)
-    replicas = int(extra.get("replicas", 2))
+    replicas_cfg = extra.get("replicas", 2)
+    if replicas_cfg == "auto":
+        # one replica per granted mesh device: a fleet-arbitrated grant
+        # change then changes serving capacity on re-instantiation
+        replicas = max(1, int(ctx.mesh.devices.size)
+                       if ctx.mesh is not None else 1)
+    else:
+        replicas = int(replicas_cfg)
     slots = int(extra.get("slots", 2))
     max_seq = int(extra.get("max_seq", 128))
     chunk_tokens = int(extra.get("chunk_tokens", 0))
     prefix_cache_mb = float(extra.get("prefix_cache_mb", 0))
     speculate = int(extra.get("speculate", 0) or 0)
     draft = str(extra.get("draft", "ngram"))
+    prefix_cache = None
+    shared = extra.get("shared_prefix_cache")
+    if shared is not None and chunk_tokens \
+            and getattr(shared, "chunk", None) == chunk_tokens:
+        # fleet-shared cache (FleetArbiter): VREs serving the same arch
+        # warm each other's prompt heads; entries are host-side, so the
+        # cache outlives any one VRE's placement
+        prefix_cache = shared
 
     recorder = None
     record_path = extra.get("record_path")
     if record_path:
         from repro_torch.observability import Recorder
-        # append mode: every re-instantiation re-stamps a meta header and
-        # keeps writing to the same file
+        # append mode: every re-instantiation (elastic resize, fleet
+        # preemption) re-stamps a meta header and keeps writing to the same
+        # file, so one store holds the request's whole multi-generation story
         generation = int(getattr(ctx.vre, "generation", 0) or 0)
+        context = {"generation": generation}
+        arbiter = getattr(ctx.vre, "arbiter", None)
+        wait = getattr(arbiter, "_queue_wait_s", {}).get(ctx.config.name) \
+            if arbiter is not None else None
+        if wait is not None:
+            context["admission_wait_s"] = round(float(wait), 6)
         meta = record_meta(cfg, {
             "replicas": replicas, "slots": slots, "max_seq": max_seq,
             "chunk_tokens": chunk_tokens, "prefix_cache_mb": prefix_cache_mb,
@@ -148,16 +176,44 @@ def build_server(ctx):
         meta.update(generation=generation,
                     mesh_shape=list(ctx.config.mesh_shape))
         recorder = Recorder(record_path, tenant=ctx.config.name,
-                            monitor=ctx.monitor, meta=meta,
-                            context={"generation": generation})
-    # the ReplicaSet partitions the VRE mesh into per-replica slices
+                            monitor=ctx.monitor, meta=meta, context=context)
+    # the ReplicaSet partitions the VRE mesh into per-replica slices, so
+    # "scale the mesh" changes the devices replicas occupy
     rs = replicaset_for(model, params, replicas=replicas, slots=slots,
                         max_seq=max_seq, devices=list(ctx.mesh.devices.flat),
                         monitor=ctx.monitor, chunk_tokens=chunk_tokens,
                         prefix_cache_mb=prefix_cache_mb, speculate=speculate,
                         draft=draft, recorder=recorder,
-                        slots_per_device=extra.get("slots_per_device"))
-    return ServingService(rs, EdgeRouter(rs))
+                        slots_per_device=extra.get("slots_per_device"),
+                        prefix_cache=prefix_cache)
+    router = EdgeRouter(rs)
+    autoscaler = None
+    if extra.get("autoscale"):
+        as_cfg = AutoscalerConfig(
+            min_replicas=int(extra.get("min_replicas", 1)),
+            max_replicas=int(extra.get("max_replicas", max(replicas, 4))),
+            scale_up_prefill_tokens=(
+                float(extra["scale_up_prefill_tokens"])
+                if extra.get("scale_up_prefill_tokens") is not None
+                else None))
+        slo_engine = None
+        slo_cfg = extra.get("slo")
+        if isinstance(slo_cfg, dict) and slo_cfg:
+            # declarative SLO targets ride the autoscaler: error-budget burn
+            # becomes a growth trigger alongside raw load, and the burn rate
+            # travels with resize proposals into the arbiter
+            from repro_torch.observability.slo import (SLOEngine,
+                                                       targets_from_config)
+            slo_engine = SLOEngine(
+                ctx.monitor, targets_from_config(slo_cfg),
+                services=lambda: [e.name for e in rs.engines],
+                burn_threshold=float(slo_cfg.get("burn_threshold", 1.0)),
+                name=f"{ctx.config.name}-slo")
+        autoscaler = Autoscaler(rs, ctx.monitor, as_cfg,
+                                resize_mesh=getattr(ctx.vre, "request_resize",
+                                                    None),
+                                slo=slo_engine)
+    return ServingService(rs, router, autoscaler)
 
 
 class WorkflowService(ServiceHandle):

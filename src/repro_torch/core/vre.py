@@ -3,9 +3,10 @@
 The paper's three layers, instantiated:
 
   Cloud Provider  -> device substrate: a ``DeviceMesh`` over the procured
-                     devices ("VMs"): every visible card for provider
-                     ``"h100"``, the host for ``"cpu"``; releasing the VRE
-                     releases the mesh.
+                     devices ("VMs"): shares of every visible card for
+                     provider ``"h100"``, of the host for ``"cpu"``
+                     (``repro_torch.device.device_pool``); releasing the
+                     VRE releases the mesh.
   Orchestrator    -> this module + scheduler/monitoring/checkpoint: service
                      lifecycle, discovery, volumes (checkpoint store),
                      rescheduling.
@@ -14,10 +15,12 @@ The paper's three layers, instantiated:
 
 A VRE is short-lived by design: ``instantiate()`` procures + deploys,
 ``destroy()`` releases everything; the deployment image cache makes repeat
-instantiation fast (paper §4.1.1).
+instantiation fast (paper §4.1.1). ``resize()`` re-instantiates on a larger/
+smaller mesh and restores state from the volume service (elastic scaling).
 
-A port of the JAX package's ``repro.core.vre``. Not ported yet: the elastic
-``resize`` (``core/elastic.py``) and fleet arbitration (ROADMAP A.6).
+A port of the JAX package's ``repro.core.vre``. The mesh is procured from
+``device_pool`` when one is set (a fleet grant, or shares of the card),
+else from the provider's pool of one share per device.
 """
 from __future__ import annotations
 
@@ -29,7 +32,6 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.core.deployment import (DecentralizedDeployer,
                                          DeploymentReport, ImageCache)
@@ -37,8 +39,7 @@ from repro_torch.core.monitoring import Monitor
 from repro_torch.core.registry import (EndpointDirectory, Service,
                                        ServiceHandle, ServiceRegistry,
                                        GLOBAL_REGISTRY)
-
-PROVIDERS = ("cpu", "h100")
+from repro_torch.device import device_pool
 
 
 @dataclasses.dataclass
@@ -56,9 +57,9 @@ class VREConfig:
 
 
 class DeviceMesh:
-    """The VRE's device substrate: a numpy array of ``torch.device``s
-    shaped like the mesh, with its axis names (the counterpart of a JAX
-    ``Mesh``; it holds no process group)."""
+    """The VRE's device substrate: a numpy array of ``DeviceShare``s shaped
+    like the mesh, with its axis names (the counterpart of a JAX ``Mesh``;
+    it holds no process group)."""
 
     def __init__(self, devices: np.ndarray, axis_names):
         if devices.ndim != len(axis_names):
@@ -70,17 +71,6 @@ class DeviceMesh:
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
-
-
-def provider_devices(provider: str) -> List[torch.device]:
-    """The devices a provider offers: every visible card for ``"h100"``,
-    the host for ``"cpu"``."""
-    if provider == "cpu":
-        return [torch.device("cpu")]
-    if provider == "h100":
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    raise ValueError(f"unknown provider {provider!r}: one of {PROVIDERS}")
 
 
 class VREContext:
@@ -115,6 +105,13 @@ class VirtualResearchEnvironment:
             str(Path(config.workdir) / "image_cache"))
         self.last_report: Optional[DeploymentReport] = None
         self.pending_resize: Optional[tuple] = None
+        # fleet arbitration: when a FleetArbiter admits this VRE it grants a
+        # disjoint slice of the shared pool (device_pool) and routes resize
+        # requests through its proposal protocol (arbiter); a device_pool
+        # set by hand (shares of one card) bounds the mesh the same way
+        self.device_pool: Optional[list] = None
+        self.arbiter = None
+        self.claim = None
         # bumped every (re-)instantiation; endpoint addresses carry it so a
         # TTL'd directory can tell a fresh placement from a stale lease
         self.generation = 0
@@ -122,7 +119,8 @@ class VirtualResearchEnvironment:
     # -- infrastructure layer ---------------------------------------------
     def _procure_mesh(self) -> DeviceMesh:
         n = int(np.prod(self.config.mesh_shape))
-        devices = provider_devices(self.config.provider)
+        devices = (self.device_pool if self.device_pool is not None
+                   else device_pool(self.config.provider))
         if len(devices) < n:
             hint = ("; no CUDA device is visible (provider 'cpu' runs on the "
                     "host)" if self.config.provider == "h100" and not devices
@@ -198,8 +196,8 @@ class VirtualResearchEnvironment:
             "name": self.config.name,
             "state": self.state,
             "generation": self.generation,
-            # a fleet's device grant (ROADMAP A.6): none without a fleet
-            "granted_devices": None,
+            "granted_devices": len(self.device_pool)
+                               if self.device_pool is not None else None,
             "mesh": list(self.config.mesh_shape) if self.mesh is not None
                     else None,
             "pending_resize": list(self.pending_resize)
@@ -224,11 +222,21 @@ class VirtualResearchEnvironment:
         """Mark the mesh as saturated (autoscaler hook). ``resize`` is
         destructive, so the request is recorded for a driver to apply at a
         safe point rather than ripping services out from under in-flight
-        work. Returns the recorded pending shape (default: the data axis
-        doubled)."""
+        work.
+
+        Under a FleetArbiter the request becomes a *proposal*: the arbiter
+        may grant it fully, grant a shrunken shape against competing claims,
+        or defer it until capacity frees up — it sets ``pending_resize`` (and
+        the device grant) itself. Returns the proposal verdict dict in that
+        case, the recorded pending shape (default: the data axis doubled)
+        otherwise."""
         if new_mesh_shape is None:
             d, *rest = self.config.mesh_shape
             new_mesh_shape = (d * 2, *rest)
+        if self.arbiter is not None:
+            return self.arbiter.propose_resize(self.config.name,
+                                               tuple(new_mesh_shape),
+                                               pressure=pressure)
         self.pending_resize = tuple(new_mesh_shape)
         self.monitor.log("vre", "resize_requested",
                          old=list(self.config.mesh_shape),
@@ -261,8 +269,11 @@ class VirtualResearchEnvironment:
     # -- elastic scaling -----------------------------------------------------
     def resize(self, new_mesh_shape: tuple, state: Any = None,
                state_reshard: Optional[object] = None):
-        """Re-instantiate on a different mesh: needs ``core/elastic.py``,
-        which is not ported yet."""
-        raise NotImplementedError(
-            "VirtualResearchEnvironment.resize needs core/elastic.py, which "
-            "is not ported yet (ROADMAP A.6)")
+        """Re-instantiate on a different mesh; optionally carry ``state``
+        through the volume service (see ``repro_torch.core.elastic``).
+        Returns ``(ResizeReport, restored_state_or_None)``."""
+        from repro_torch.core import elastic
+        out = elastic.resize(self, new_mesh_shape, state=state,
+                             reshard=state_reshard)
+        self.pending_resize = None
+        return out

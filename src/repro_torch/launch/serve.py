@@ -24,8 +24,8 @@ and ``--speculate``/``--draft`` verify draft tokens in one batched step.
 ``--shared-prefix`` gives every prompt one shared head; ``--record`` writes
 one flight-recorder record per request, whose ``meta`` header names the
 served model and knobs, so ``replay_file`` re-serves the file.
-
-Not ported yet: the elastic serve loop (ROADMAP A.6).
+``run_elastic_serve`` drives a VRE's serving plane in load waves and applies
+pending mesh resizes between them (``cli serve --waves``).
 """
 from __future__ import annotations
 
@@ -237,21 +237,23 @@ def replicaset_for(model, params, *, replicas: int, slots: int, max_seq: int,
                    devices: Sequence, monitor=None, chunk_tokens: int = 0,
                    prefix_cache_mb: float = 0.0, speculate: int = 0,
                    draft: str = "ngram", recorder=None,
-                   slots_per_device: Optional[int] = None) -> ReplicaSet:
+                   slots_per_device: Optional[int] = None,
+                   prefix_cache=None) -> ReplicaSet:
     """A ReplicaSet of ``model`` with ``params`` over the device pool
-    ``devices``, one slice of it per replica. ``chunk_tokens``,
-    ``prefix_cache_mb`` (one cache shared by every replica), ``speculate``,
-    ``draft`` and ``recorder`` are the engine's knobs; a draft is built per
-    replica only where the engine would speculate. With ``slots_per_device``
-    a replica's decode slots scale with its slice, and it computes on the
-    slice's first device."""
+    ``devices`` (``DeviceShare``s or ``torch.device``s), one slice of it per
+    replica. ``chunk_tokens``, ``prefix_cache_mb`` (one cache shared by
+    every replica; ``prefix_cache`` hands in an existing one, e.g. a
+    fleet's), ``speculate``, ``draft`` and ``recorder`` are the engine's
+    knobs; a draft is built per replica only where the engine would
+    speculate. A replica holds its slice and computes on the slice's first
+    device; with ``slots_per_device`` its decode slots scale with the slice
+    and it holds only the first device, as in JAX."""
     from repro_torch.serving.prefix_cache import PrefixCache
     from repro_torch.serving.speculative import (build_draft,
                                                  supports_speculation)
 
     cfg = model.cfg
-    prefix_cache = None
-    if chunk_tokens and prefix_cache_mb > 0:
+    if prefix_cache is None and chunk_tokens and prefix_cache_mb > 0:
         prefix_cache = PrefixCache(chunk_tokens,
                                    budget_bytes=int(prefix_cache_mb * 2**20),
                                    monitor=monitor)
@@ -261,16 +263,19 @@ def replicaset_for(model, params, *, replicas: int, slots: int, max_seq: int,
     spec_supported = bool(speculate) and supports_speculation(model, max_seq)
 
     def factory(i: int, devs: tuple) -> ServingEngine:
-        eng_slots = slots
+        eng_slots, eng_devices = slots, tuple(devs) or (devices[0],)
         if slots_per_device and devs:
+            # granted devices buy KV-cache capacity: decode slots scale
+            # with the replica's slice; compute commits to its lead device
             eng_slots = int(slots_per_device) * len(devs)
-        dev = devs[0] if devs else devices[0]
+            eng_devices = eng_devices[:1]
+        dev = resolve_device(eng_devices[0])
         d = build_draft(draft, cfg, slots=eng_slots, max_seq=max_seq,
                         device=dev, name=f"replica{i}-draft") \
             if spec_supported else None
         return ServingEngine(model, params, slots=eng_slots, max_seq=max_seq,
                              name=f"replica{i}", monitor=monitor, device=dev,
-                             chunk_tokens=chunk_tokens,
+                             devices=eng_devices, chunk_tokens=chunk_tokens,
                              prefix_cache=prefix_cache, speculate=speculate,
                              draft=d, recorder=recorder)
 
@@ -360,10 +365,84 @@ def replay_file(*paths, speed: float = 1.0, timeout_s: float = 300.0,
         rs.stop()
 
 
-def validate_serving_args(args, error) -> None:
+def run_elastic_serve(vre, *, waves: int = 2, requests_per_wave: int = 16,
+                      rate_rps: float = 20.0, max_new_tokens: int = 8,
+                      rng=None, timeout_s: float = 300.0,
+                      force_resize: bool = False) -> dict:
+    """Drive a VRE's serving plane through ``waves`` Poisson load waves,
+    applying any autoscaler-requested mesh resize between waves (the safe
+    point): ``elastic.resize_serving`` drains the pool, re-instantiates on
+    the grown mesh, re-places replicas on disjoint slices, and the successor
+    pool adopts the carried requests. Reports per-wave serving contracts and
+    resize events (downtime, tok/s before/after).
+
+    ``force_resize`` requests a default (data-axis doubling) resize before
+    the inter-wave safe point when the autoscaler hasn't — benchmarks use it
+    to make the elastic scenario deterministic."""
+    from repro_torch.core import elastic
+
+    rng = rng if rng is not None else np.random.default_rng(0)
+    vocab = vre.service("lm-server").replicaset.engines[0].cfg.vocab_size
+    wave_reports, resize_events = [], []
+    total_reqs = total_done = 0
+    for w in range(waves):
+        # the pool is looked up afresh each wave and not held across the
+        # resize: the old pool's KV caches go before the successor's come
+        rs = vre.service("lm-server").replicaset
+        prompts = make_prompts(requests_per_wave, vocab, rng)
+        rep = run_load(rs, prompts, rate_rps=rate_rps,
+                       max_new_tokens=max_new_tokens, rng=rng,
+                       timeout_s=timeout_s)
+        rep["wave"] = w
+        rep["mesh"] = list(vre.config.mesh_shape)
+        rep["placements"] = {n: [str(d) for d in devs]
+                             for n, devs in rs.placements().items()}
+        rs = None
+        wave_reports.append(rep)
+        total_reqs += rep["requests"]
+        total_done += rep["completed"]
+        if w == waves - 1:
+            break
+        if force_resize and vre.pending_resize is None:
+            vre.request_resize()
+        ev = elastic.resize_serving(vre)
+        if ev is not None:
+            server = vre.service("lm-server")     # rebuilt on the new mesh
+            if server.autoscaler is not None:
+                server.autoscaler.notify_resized()
+            server = None
+            r = ev["report"]
+            resize_events.append({
+                "after_wave": w,
+                "old_shape": list(r.old_shape),
+                "new_shape": list(r.new_shape),
+                "downtime_s": ev["downtime_s"],
+                "reinstantiate_s": r.reinstantiate_s,
+                "carried_requests": ev["carried_requests"],
+            })
+    for ev in resize_events:
+        w = ev["after_wave"]
+        ev["tok_per_s_before"] = wave_reports[w]["tok_per_s"]
+        ev["tok_per_s_after"] = wave_reports[w + 1]["tok_per_s"]
+    return {
+        "waves": wave_reports,
+        "resizes": resize_events,
+        "requests": total_reqs,
+        "completed": total_done,
+        "completion_rate": total_done / total_reqs if total_reqs else 1.0,
+        "final_mesh": list(vre.config.mesh_shape),
+    }
+
+
+def validate_serving_args(args, error, zero_disables: bool = False) -> None:
     """Reject malformed serving knobs with a one-line error instead of a
     deep engine traceback. A knob a command does not offer (``cli serve``
-    has no ``--slots``) is not checked."""
+    has no ``--slots``) is not checked.
+
+    ``zero_disables`` is for subcommands whose defaults are
+    enabled-by-default (``fleet``): there 0 is the explicit off switch, so
+    only negatives are malformed — "omit the flag" would send the user in
+    a circle back to the default."""
     for flag, least in (("--requests", 1), ("--replicas", 1), ("--slots", 1),
                         ("--max-new", 1), ("--max-seq", 2),
                         ("--shared-prefix", 0)):
@@ -376,20 +455,28 @@ def validate_serving_args(args, error) -> None:
     # the JAX driver's checks and messages: a zero or negative chunk size
     # would reach the engine as a truthy chunk config; a negative cache
     # budget would quietly evict everything
-    off = "omit the flag"
-    if args.chunk_tokens is not None and args.chunk_tokens <= 0:
+    off = "pass 0" if zero_disables else "omit the flag"
+    bad = (lambda v: v < 0) if zero_disables else (lambda v: v <= 0)
+    if args.chunk_tokens is not None and bad(args.chunk_tokens):
         error(f"--chunk-tokens must be a positive integer, got "
               f"{args.chunk_tokens} ({off} to disable chunked prefill)")
-    if args.prefix_cache_mb is not None and args.prefix_cache_mb <= 0:
+    if args.prefix_cache_mb is not None and bad(args.prefix_cache_mb):
         error(f"--prefix-cache-mb must be positive, got "
               f"{args.prefix_cache_mb} ({off} to disable the prefix cache)")
-    if args.prefix_cache_mb and args.chunk_tokens is None:
+    if args.prefix_cache_mb and args.chunk_tokens is not None \
+            and not args.chunk_tokens:
+        error("--prefix-cache-mb requires chunked prefill "
+              "(prefix entries live at chunk boundaries)")
+    if args.prefix_cache_mb and args.chunk_tokens is None \
+            and not zero_disables:
         error("--prefix-cache-mb requires --chunk-tokens "
               "(prefix entries live at chunk boundaries)")
-    if args.speculate is not None and args.speculate <= 0:
+    speculate = getattr(args, "speculate", None)
+    if speculate is not None and bad(speculate):
         error(f"--speculate must be a positive number of draft tokens, got "
-              f"{args.speculate} ({off} to disable speculative decoding)")
-    if args.draft is not None and not args.speculate:
+              f"{speculate} ({off} to disable speculative decoding)")
+    draft = getattr(args, "draft", None)
+    if draft is not None and not speculate and not zero_disables:
         error("--draft requires --speculate "
               "(a draft only exists to propose speculative tokens)")
 

@@ -44,7 +44,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import DeviceShare, resolve_device
 from repro_torch.models.params import to_device
 from repro_torch.observability.tracing import (NULL_TRACE, TraceContext,
                                                next_rid)
@@ -125,17 +125,23 @@ class ServingEngine:
     """Slotted continuous batching over a fixed decode batch on one device.
 
     ``device`` is this replica's device (default: the current CUDA device;
-    raises when there is none). Params move there (no copy when they are
-    already there) and the KV cache is allocated there."""
+    raises when there is none), a ``torch.device`` or a ``DeviceShare`` of
+    one. Params move there (no copy when they are already there) and the
+    KV cache is allocated there. ``devices`` is the slice of the device
+    pool the replica holds (default: ``device`` alone)."""
 
     # prompt lengths pad up to a multiple of this in a batched prefill
     prefill_bucket = 16
 
     def __init__(self, model, params, *, slots: int = 4, max_seq: int = 256,
                  name: str = "engine0", monitor=None, device=None,
-                 chunk_tokens: Optional[int] = None, prefix_cache=None,
-                 speculate: int = 0, draft=None, recorder=None):
+                 devices=(), chunk_tokens: Optional[int] = None,
+                 prefix_cache=None, speculate: int = 0, draft=None,
+                 recorder=None):
         self.device = resolve_device(device)
+        # the pool entries this replica occupies (placements, scale-up)
+        self.devices = tuple(devices) or (
+            device if isinstance(device, DeviceShare) else self.device,)
         if self.device.type == "cuda":
             # build every kernel of the model's path now: the first prefill
             # must not stall the decode loop past the replica health timeout
@@ -730,12 +736,6 @@ class ServingEngine:
     @property
     def load(self) -> int:
         return self.queue.qsize() + sum(a is not None for a in self.active)
-
-    @property
-    def device_set(self) -> frozenset:
-        """Devices this replica's params actually live on (read from the
-        tensors, not the requested device)."""
-        return frozenset({self.params["embed"]["tok"].device})
 
 
 class EdgeRouter:

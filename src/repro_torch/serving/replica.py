@@ -10,13 +10,13 @@ incomplete requests, re-queues them onto healthy replicas, and (optionally)
 spawns a replacement — greedy decode is deterministic, so rescheduled
 requests produce identical tokens.
 
-The device pool is a list of ``torch.device``s (on the card:
-``torch.device("cuda", i)`` for every visible card). The pool holds the
-shared prefix cache and the flight recorder (its engines get both through
-the factory); ``stop()`` stops the recorder, which flushes its queue. Not
-ported yet: the elastic ``rebalance``/``detach_requests``/``adopt`` path and
-the hand-over of the prefix cache and recorder to a successor pool (ROADMAP
-A.6).
+The device pool is a list of ``DeviceShare``s (``repro_torch.device``): one
+per visible card, or several shares of one card. The pool holds the shared
+prefix cache and the flight recorder (its engines get both through the
+factory); ``stop()`` stops the recorder, which flushes its queue. The
+elastic half (``rebalance``, ``detach_requests``, ``adopt``,
+``adopt_prefix_cache``) carries incomplete requests, whose futures stay
+attached, and the prefix cache to a re-placed or successor pool.
 """
 from __future__ import annotations
 
@@ -82,6 +82,8 @@ class ReplicaSet:
             self.factory(i, slices[i]) for i in range(replicas)]
         self._next_id = replicas
         self._failovers = 0
+        self._rebalances = 0
+        self._rebalancing = False
         self._retired_metrics: dict = {}   # name -> final counters of
                                            # replicas removed from the pool
         self._health_stop = threading.Event()
@@ -97,14 +99,15 @@ class ReplicaSet:
         counts = {d: 0 for d in self._device_pool}
         with self._lock:
             for e in self.engines:
-                if e.device in counts:
-                    counts[e.device] += 1
+                for d in e.devices:
+                    if d in counts:
+                        counts[d] += 1
         return (min(self._device_pool, key=lambda d: counts[d]),)
 
     def placements(self) -> dict:
         """name -> tuple of devices each replica occupies."""
         with self._lock:
-            return {e.name: tuple(e.device_set) for e in self.engines}
+            return {e.name: tuple(e.devices) for e in self.engines}
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
@@ -188,7 +191,7 @@ class ReplicaSet:
         now = time.monotonic()
         dead = []
         with self._lock:
-            if not self._started:
+            if not self._started or self._rebalancing:
                 return 0
             for e in self.engines:
                 stale = e.load > 0 and \
@@ -282,6 +285,120 @@ class ReplicaSet:
             self.monitor.log(self.name, "scaled", replicas=len(self.engines))
         return len(self.engines)
 
+    def rebalance(self, mesh=None, *, replicas: Optional[int] = None,
+                  timeout: float = 60.0) -> dict:
+        """Re-place the whole pool onto (a possibly new) mesh: drain the
+        engines, harvest their incomplete requests, partition the device
+        pool into fresh per-replica slices, respawn, resume, and re-queue
+        the harvested work. Greedy decode is deterministic, so requests
+        carried across the rebalance produce identical tokens. Returns
+        ``{"downtime_s", "requeued", "replicas"}``."""
+        t0 = time.monotonic()
+        with self._lock:
+            self._rebalancing = True       # health sweep must not failover
+            if mesh is not None:           # engines we are mid-harvesting
+                self._device_pool = list(mesh.devices.flat)
+            n = replicas if replicas is not None else len(self.engines)
+            old = list(self.engines)
+        requeued: List[Request] = []
+        stuck: List[ServingEngine] = []
+        try:
+            for e in old:
+                if e.stop(timeout):
+                    requeued.extend(e.harvest_requests())
+                    with self._lock:
+                        self._retired_metrics[e.name] = dict(e.metrics)
+                else:
+                    # decode thread still running: keep the engine in the
+                    # pool; its _stop flag is set, so the health sweep
+                    # retires it via failover once it exits
+                    stuck.append(e)
+            # drop the retired engines, and with them their KV caches,
+            # before the fresh ones allocate theirs on the same devices
+            old = e = None
+            with self._lock:
+                self.engines = list(stuck)
+                slices = partition_devices(self._device_pool, n)
+                fresh = []
+                for j in range(n):
+                    eng = self.factory(self._next_id, slices[j])
+                    self._next_id += 1
+                    if self._started:
+                        eng.start()
+                    fresh.append(eng)
+                self.engines = fresh + stuck
+                self._rebalances += 1
+        finally:
+            with self._lock:
+                self._rebalancing = False
+        self._requeue(requeued, "rebalance")
+        downtime = time.monotonic() - t0
+        if self.monitor is not None:
+            self.monitor.log(self.name, "rebalanced", replicas=n,
+                             devices=len(self._device_pool),
+                             requeued=len(requeued), downtime_s=downtime)
+        return {"downtime_s": downtime, "requeued": len(requeued),
+                "replicas": n}
+
+    def detach_requests(self, timeout: float = 60.0) -> List[Request]:
+        """Stop the pool *without* failing pending futures and return every
+        incomplete request (elastic mesh resize: the successor pool adopts
+        them, so waiters span the resize transparently)."""
+        self._health_stop.set()
+        t = self._health_thread
+        if t is not None and t.is_alive():
+            t.join(timeout)
+        self._health_thread = None
+        with self._lock:
+            engines = list(self.engines)
+            self._started = False
+        out: List[Request] = []
+        for e in engines:
+            if e.stop(timeout):
+                out.extend(e.harvest_requests())
+                continue
+            # decode thread stuck and the engine is about to be discarded:
+            # the thread-safe queue can still be carried; active-slot
+            # requests can't be harvested safely, so fail their futures now
+            # (future.set_* is thread-safe, and the dying loop guards
+            # against already-done futures)
+            while True:
+                try:
+                    r = e.queue.get_nowait()
+                except queue_mod.Empty:
+                    break
+                r.reset_for_retry()
+                out.append(r)
+            for r in list(e.active):
+                if r is not None and not r.future.done():
+                    r.future.set_exception(RuntimeError(
+                        f"{e.name} unresponsive during detach with the "
+                        f"request in flight"))
+        for r in out:
+            r.trace.event("detached", pool=self.name)
+        return out
+
+    def adopt(self, requests: List[Request], why: str = "resize"):
+        """Accept requests harvested off a predecessor pool (their futures
+        stay attached, so original waiters see the results)."""
+        requests = list(requests)
+        for r in requests:
+            r.trace.event("adopted", pool=self.name)
+        self._requeue(requests, why)
+
+    def adopt_prefix_cache(self, predecessor) -> int:
+        """Carry a predecessor pool's prefix-cache entries into this pool's
+        cache (elastic resize: the successor adopts). Entries are host CPU
+        tensors, so they stay valid across the placement change;
+        incompatible chunking (or a successor without a cache) drops them
+        coherently. Returns the number of entries carried."""
+        if self.prefix_cache is None or predecessor is None:
+            return 0
+        n = self.prefix_cache.adopt_entries(predecessor)
+        if self.monitor is not None and n:
+            self.monitor.log(self.name, "prefix_cache_adopted", entries=n)
+        return n
+
     # -- introspection -----------------------------------------------------
     @property
     def load(self) -> int:
@@ -312,6 +429,7 @@ class ReplicaSet:
             for k, v in m.items():
                 agg[k] = agg.get(k, 0) + v
         out = {"replicas": len(per), "failovers": self._failovers,
+               "rebalances": self._rebalances,
                "per_replica": per, "retired": retired, "total": agg}
         if agg.get("spec_steps"):
             # pool-level speculative summary (counters already aggregate

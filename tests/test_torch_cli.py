@@ -2,9 +2,10 @@
 ``repro.cli``: the lifecycle commands and their JSON, the malformed serving
 knobs of ``tests/test_cli_validation.py``, ``serve --record`` with the JAX
 CLI's tokens per prompt (both packages' served-model caches hold one float32
-reduced model), ``trace --json``, the parts that are not ported yet raising
-with their ROADMAP item, and the driver's shared-prefix prompts and merged
-Poisson schedule equal to JAX's."""
+reduced model), ``trace --json``, the training service raising with its
+ROADMAP item, the autoscaler's SLO config and ``rebalance``/``resize`` as
+JAX's, and the driver's shared-prefix prompts and merged Poisson schedule
+equal to JAX's."""
 import dataclasses
 import json
 
@@ -19,6 +20,8 @@ from repro import cli as jax_cli  # noqa: E402
 from repro.configs import get_config, reduced  # noqa: E402
 from repro.launch import serve as jax_serve  # noqa: E402
 from repro.models.model import build_model as jax_build  # noqa: E402
+from repro.core.vre import VREConfig as JVREConfig  # noqa: E402
+from repro.core.vre import VirtualResearchEnvironment as JVRE  # noqa: E402
 from repro_torch import cli  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs import reduced as t_reduced  # noqa: E402
@@ -209,7 +212,7 @@ def test_cli_trace_json(tmp_path, capsys, seeded_models):
         cli.main(["trace", "--records", str(tmp_path / "empty.jsonl")])
 
 
-# -- what is not ported yet raises with its ROADMAP item ---------------------
+# -- what is not ported yet raises with its ROADMAP item; A.6 is ported ------
 
 def test_lm_trainer_fails_apply_naming_a7(tmp_path):
     d = _init(tmp_path, services_=["volumes", "lm-trainer"])
@@ -218,38 +221,63 @@ def test_lm_trainer_fails_apply_naming_a7(tmp_path):
 
 
 def test_autoscale_fails_naming_a6(tmp_path):
-    cfg = VREConfig(name="t", services=["lm-server"], provider="cpu",
-                    arch="yi-9b", workdir=str(tmp_path),
-                    extra={**SERVE_EXTRA, "autoscale": True})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
-        VirtualResearchEnvironment(cfg).instantiate()
+    """The autoscaler is ported (ROADMAP A.6 is done): an ``autoscale``
+    VRE whose SLO config declares no target fails at build with the JAX
+    service's message, and one with a target builds an autoscaler with the
+    SLO engine on it."""
+    errors = {}
+    for name, config, vre_cls in (("jax", JVREConfig, JVRE),
+                                  ("port", VREConfig,
+                                   VirtualResearchEnvironment)):
+        cfg = config(name="t", services=["lm-server"], provider="cpu",
+                     arch="yi-9b", workdir=str(tmp_path / name),
+                     extra={**SERVE_EXTRA, "autoscale": True,
+                            "slo": {"window_s": 5.0}})
+        with pytest.raises(ValueError) as exc:
+            vre_cls(cfg).instantiate()
+        errors[name] = str(exc.value)
+    assert errors["port"] == errors["jax"]
+    assert "declares no targets" in errors["port"]
+    vre = VirtualResearchEnvironment(VREConfig(
+        name="t", services=["lm-server"], provider="cpu", arch="yi-9b",
+        workdir=str(tmp_path / "ok"),
+        extra={**SERVE_EXTRA, "autoscale": True,
+               "slo": {"ttft_p95_s": 0.5}}))
+    vre.instantiate()
+    try:
+        scaler = vre.service("lm-server").autoscaler
+        assert scaler.cfg.max_replicas == 4
+        assert [t.name for t in scaler.slo.targets] == ["ttft_p95"]
+        assert scaler.resize_mesh == vre.request_resize
+    finally:
+        vre.destroy()
 
 
 def test_rebalance_and_resize_raise_naming_a6(tmp_path, seeded_models):
+    """``rebalance`` re-places the pool and keeps serving; ``resize`` onto
+    more devices than the pool holds raises the JAX VRE's message (the
+    elastic path is ported: ROADMAP A.6 is done)."""
     cfg = VREConfig(name="t", services=["lm-server"], provider="cpu",
                     arch="yi-9b", workdir=str(tmp_path), extra=SERVE_EXTRA)
     vre = VirtualResearchEnvironment(cfg)
     vre.instantiate()
-    try:
-        server = vre.service("lm-server")
-        assert server.health() and server.metrics()["replicas"] == 1
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
-            server.rebalance(vre.mesh)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
-            vre.resize((2, 1))
-        fut = server.router.submit(np.arange(1, 6), max_new_tokens=3)
-        server.drain(60)
-        assert len(fut.result(timeout=60)) == 3
-    finally:
-        vre.destroy()
+    server = vre.service("lm-server")
+    assert server.health() and server.metrics()["replicas"] == 1
+    stats = server.rebalance(vre.mesh)
+    assert stats["replicas"] == 1 and stats["requeued"] == 0
+    assert server.metrics()["rebalances"] == 1
+    fut = server.router.submit(np.arange(1, 6), max_new_tokens=3)
+    server.drain(60)
+    assert len(fut.result(timeout=60)) == 3
+    with pytest.raises(RuntimeError,
+                       match="provider has 1 devices, VRE wants 2"):
+        vre.resize((2, 1))
+    assert vre.state == "DESTROYED"
     assert not server.health()
 
 
 def test_slots_per_device_sets_the_replicas_slots_as_jax(tmp_path,
                                                         seeded_models):
-    from repro.core.vre import VREConfig as JVREConfig
-    from repro.core.vre import VirtualResearchEnvironment as JVRE
-
     slots = {}
     for name, config, vre_cls in (("jax", JVREConfig, JVRE),
                                   ("port", VREConfig,
@@ -323,3 +351,99 @@ def test_driver_shared_prefix_and_record_on_cpu(tmp_path, capsys):
     assert len(heads) == 1
     with pytest.raises(SystemExit):
         serve.main(["--shared-prefix", "-1", "--device", "cpu"])
+
+
+# -- elastic serving, the fleet and telemetry (ROADMAP A.6) ------------------
+
+FLEET_KEYS = {"phases", "admissions", "per_vre", "arbiter", "carried",
+              "requests", "completed", "completion_rate", "tokens", "wall_s",
+              "tok_per_s", "mode", "pool_devices"}
+
+
+def _exit_message(main, argv, capsys):
+    with pytest.raises(SystemExit) as exc:
+        main(argv)
+    assert exc.value.code not in (0, None)
+    return str(exc.value.code) + capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--chunk-tokens", "-1"],
+    ["--prefix-cache-mb", "-1"],
+    ["--prefix-cache-mb", "8", "--chunk-tokens", "0"],
+    ["--speculate", "-2"],
+    ["--tick-interval", "-0.5"],
+    ["--vres", "3"],                  # more tenants than the pool's devices
+])
+def test_cli_fleet_rejects_bad_values_with_jaxs_messages(flags, capsys):
+    theirs = _exit_message(jax_cli.main, ["fleet"] + flags, capsys)
+    ours = _exit_message(cli.main, ["fleet", "--provider", "cpu"] + flags,
+                         capsys)
+    assert theirs.startswith("fleet: ") and ours.startswith("fleet: ")
+    assert ours == theirs.replace(
+        "XLA_FLAGS=--xla_force_host_platform_device_count=N for a dry-run",
+        "REPRO_TORCH_DEVICE_SHARES=N for N shares of each device")
+
+
+def test_cli_rejects_a_malformed_share_count(tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_DEVICE_SHARES", "two")
+    msg = _exit_message(cli.main, ["fleet", "--provider", "cpu"], capsys)
+    assert msg.startswith("fleet: REPRO_TORCH_DEVICE_SHARES must be a "
+                          "positive integer, got 'two'")
+    d = _init(tmp_path, services_=[], extra=SERVE_EXTRA)
+    msg = _exit_message(cli.main, ["serve", "--dir", str(d)], capsys)
+    assert msg.startswith("serve: REPRO_TORCH_DEVICE_SHARES")
+
+
+def test_cli_serve_waves_reports_jaxs_keys(tmp_path, capsys, monkeypatch,
+                                           seeded_models):
+    """``serve --waves 2 --autoscale --force-resize --telemetry-port 0``:
+    the JAX CLI on its one host device clears the infeasible resize; the
+    port, given two shares of the host, resizes to (2, 1). Both reports
+    carry the same keys, every wave's too."""
+    reports = {}
+    argv = ["--requests", "4", "--rate", "0", "--max-new", "3", "--waves",
+            "2", "--autoscale", "--force-resize", "--telemetry-port", "0"]
+    for name, main in (("jax", jax_cli.main), ("port", cli.main)):
+        d = _init(tmp_path, name=name, services_=[],
+                  extra={**SERVE_EXTRA, "replicas": "auto"}, main=main)
+        if name == "port":
+            monkeypatch.setenv("REPRO_TORCH_DEVICE_SHARES", "2")
+        capsys.readouterr()
+        main(["serve", "--dir", str(d)] + argv)
+        captured = capsys.readouterr()
+        reports[name] = json.loads(captured.out)
+        assert "telemetry: http://127.0.0.1:" in captured.err
+    ours, theirs = reports["port"], reports["jax"]
+    assert ours.keys() == theirs.keys()
+    assert [w.keys() for w in ours["waves"]] == \
+        [w.keys() for w in theirs["waves"]]
+    assert theirs["resizes"] == [] and theirs["final_mesh"] == [1, 1]
+    assert ours["completion_rate"] == theirs["completion_rate"] == 1.0
+    assert ours["final_mesh"] == [2, 1]
+    (resize,) = ours["resizes"]
+    assert set(resize) == {"after_wave", "old_shape", "new_shape",
+                           "downtime_s", "reinstantiate_s",
+                           "carried_requests", "tok_per_s_before",
+                           "tok_per_s_after"}
+    assert ours["telemetry"]["url"].startswith("http://127.0.0.1:")
+    # the autoscaler may add or drop replicas; they sit on the mesh's shares
+    shares = [{d for devs in w["placements"].values() for d in devs}
+              for w in ours["waves"]]
+    assert shares[0] == {"cpu#0"} and shares[1] <= {"cpu#0", "cpu#1"}
+
+
+def test_cli_fleet_on_shares_of_the_host(tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_DEVICE_SHARES", "4")
+    report = cli.main(["fleet", "--provider", "cpu", "--requests", "4",
+                       "--max-new", "3", "--shared-prefix", "32",
+                       "--chunk-tokens", "16", "--workdir",
+                       str(tmp_path / "fleet"), "--telemetry-port", "0"])
+    assert json.loads(capsys.readouterr().out) == json.loads(
+        json.dumps(report))
+    # the port adds the cards behind the pool's shares
+    assert set(report) == FLEET_KEYS | {"telemetry", "pool_cards"}
+    assert report["mode"] == "arbitrated" and report["pool_devices"] == 4
+    assert report["pool_cards"] == ["cpu"]
+    assert report["completion_rate"] == 1.0
+    assert report["arbiter"]["admissions"] == 2

@@ -21,6 +21,11 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     assert "repro_torch.launch.serve" in mods
+    assert {"repro_torch.core.elastic", "repro_torch.fleet.arbiter",
+            "repro_torch.fleet.driver", "repro_torch.serving.autoscaler",
+            "repro_torch.observability.metrics",
+            "repro_torch.observability.slo",
+            "repro_torch.observability.telemetry"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
