@@ -6,9 +6,21 @@ Phases, one JSON line each: the device; the build of every kernel from the
 sources in this checkout (one nvcc per source, all started together,
 sm_90a), with each kernel's tensor-core instruction count from
 ``cuobjdump -sass``; every kernel against its plain PyTorch version on the
-card; kernel timings at the serving shapes beside their bound and a library
-yardstick (the grouped matmul and SSD also with a cold L2);
-full-width (depth 2, float32) engine tokens against a reference for yi-9b
+card, and the backward kernels (flash attention's, the grouped matmul's dx
+and dw) against the plain backward at the training shapes, in f32 and
+bf16; kernel timings at the serving shapes beside their bound and a library
+yardstick (the grouped matmul and SSD also with a cold L2), and the
+backward kernels' at the training shapes; the training path: yi-9b at full
+width cut to 16 layers on one fixed 4 x 2048 batch (10 steps: finite and
+falling losses, step ms, tokens/s, the model FLOPs' share of the bf16 peak,
+peak memory, flash launches 2 x 16 a step under remat and backward
+launches 16), yi-9b at depth 2 in f32 on the card against the CPU from the
+same params (3 steps: losses and params), ``python -m
+repro_torch.launch.train`` for granite-moe-1b-a400m at full width and
+depth (10 steps in 2 microbatches, saved every 5, resumed for 5 more; the
+restored state equal to the saved one leaf for leaf) and a VRE's
+``lm-trainer`` on provider h100 across a destroy and re-instantiation,
+each with exact forward and backward launch counts; full-width (depth 2, float32) engine tokens against a reference for yi-9b
 and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
 same engine on the CPU), and for yi-9b with chunked prefill, the prefix
 cache, speculative decoding (n-gram and model drafts, and a prompt that runs
@@ -140,6 +152,31 @@ SSD_EDGES = [(1, 512, 32, 64, 64, 256), (2, 96, 4, 32, 16, 48),
 # mamba2's initial decay range, A = -linspace(1, 16, nh)
 SSD_WIDE_DECAY = [SSD_PREFILL, (2, 96, 4, 32, 16, 48)]
 
+# training: the flash backward at yi-9b's training shapes (train_yi9b's
+# batch of 4 and a batch of 2), granite's, gemma2's softcap 50 with its
+# 4096 window at S 1024, S off the 64-row tile, a window that bites; the
+# grouped matmul's backward at granite's training capacity,
+# _capacity(4 * 2048, 8, 32, 1.25) = 2560 (wi/wg, then wo), and at a
+# capacity off the multiple of 8
+YI_TRAIN_ATTN = (4, 2048, 32, 4, 128, 0, 0.0)      # train_yi9b's batch
+GRANITE_TRAIN_ATTN = (4, 2048, 16, 8, 64, 0, 0.0)  # train_granite's microbatch
+FLASH_BWD = [YI_TRAIN_ATTN, (2, 2048, 32, 4, 128, 0, 0.0), GRANITE_TRAIN_ATTN,
+             (1, 1024, 32, 16, 128, 4096, 50.0),
+             (2, 1000, 8, 2, 128, 0, 0.0), (1, 1000, 8, 4, 64, 256, 0.0)]
+# q's scale in a softcap case: unit-scale inputs give scaled scores of about
+# N(0, 1), where tanh(s / 50) * 50 is s to within 1%; at 8 (a power of two,
+# exact in bf16) they reach a sizable share of the cap, and the plain
+# backward without the softcap moves dq, dk and dv by several times the bf16
+# tolerance
+SOFTCAP_Q_SCALE = 8.0
+GMM_BWD = [(32, 2560, 1024, 512), (32, 2560, 512, 1024), (32, 157, 1024, 512)]
+# train_yi9b: full width cut to 16 of 48 layers (all 48 need ~103 GB of bf16
+# params and grads and f32 moments), one fixed 4 x 2048 batch
+YI_TRAIN = dict(layers=16, batch=4, seq=2048, steps=10)
+# train_granite: launch/train.py at full width and depth
+GRANITE_TRAIN = ["--arch", "granite-moe-1b-a400m", "--global-batch", "8",
+                 "--seq-len", "2048", "--microbatches", "2"]
+
 SERVE = dict(replicas=1, slots=4, max_seq=2048)
 LOAD = dict(requests=8, rate_rps=4.0, max_new_tokens=32, lo=256, hi=1025)
 # yi-9b's chunk + prefix run: 256-token chunks, a 1 GiB prefix cache; four
@@ -266,25 +303,50 @@ def host_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t) / iters * 1e3
 
 
-def device_busy_ms(fn) -> float | str:
-    """Device time of one call of ``fn``: the summed durations of the
-    kernels and copies ``torch.profiler`` records on the card (one stream,
-    so they do not overlap). "not measured" where the profiler records no
-    device activity or fails."""
+def step_profile(fn, top: int = 12) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its host ms, the summed
+    device time of the kernels and copies on the card, and the ``top``
+    kernels by device time (ms, calls). "not measured" where the profiler
+    records no device activity or fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
-        fn()
         torch.cuda.synchronize()
+        t = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+        host_ms = (time.perf_counter() - t) * 1e3
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        by_name = {}
+        for e in events:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    except Exception as exc:          # a measurement aid, not a check
+        return {"profile": f"not measured ({type(exc).__name__}: {exc})"}
+    busy = sum(ms for ms, _ in by_name.values())
+    if busy <= 0:
+        return {"profile": "not measured (no device events)"}
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"host_ms_profiled": host_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / host_ms),
+            "top_kernels": [{"name": n[:120], "ms": ms, "calls": c}
+                            for n, (ms, c) in ranked]}
+
+
+def device_busy_ms(fn) -> float | str:
+    """Device time of one call of ``fn`` after a warm one: the summed
+    durations of the kernels and copies ``torch.profiler`` records on the
+    card (one stream, so they do not overlap). "not measured" where the
+    profiler records no device activity or fails."""
+    try:
+        fn()
     except Exception as exc:          # a measurement aid, not a check
         return f"not measured ({type(exc).__name__}: {exc})"
-    return busy / 1e3 if busy > 0 else "not measured (no device events)"
+    prof = step_profile(fn)
+    return prof.get("device_busy_ms", prof.get("profile"))
 
 
 def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -305,6 +367,35 @@ def attention_bound_ms(b, s, h, kv, d, window, dtype) -> tuple[float, str]:
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     nbytes = b * s * (2 * h + 2 * kv) * d * torch.finfo(dtype).bits // 8
     return bound(flops, nbytes, peak)
+
+
+def attention_pairs(s, window) -> int:
+    """Unmasked (q, k) pairs of causal attention over S positions."""
+    qpos = np.arange(s)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(s, int)
+    return int(np.sum(qpos - lo + 1))
+
+
+def attention_bwd_bound_ms(b, s, h, kv, d, window, dtype) -> tuple[float,
+                                                                   str]:
+    """The flash backward: the five products the gradient needs on the
+    unmasked pairs (S = Q.K^T recomputed, dP = dO.V^T, dV, dK, dQ; 2 flops
+    a multiply-add); q, k, v, o, dO and the f32 lse read once, dq, dk, dv
+    written once."""
+    flops = 10.0 * d * b * h * attention_pairs(s, window)
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    width = torch.finfo(dtype).bits // 8
+    nbytes = b * s * (4 * h + 4 * kv) * d * width + 4 * b * h * s
+    return bound(flops, nbytes, peak)
+
+
+def gmm_bwd_bound_ms(e, c, d, f, dtype) -> tuple[float, str]:
+    """The grouped matmul's backward: dx = dy.w^T and dw = x^T.dy, 4 E C d
+    f flops; x, w, dy read once, dx, dw written once."""
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    nbytes = (2 * e * c * d + 2 * e * d * f + e * c * f) * \
+        torch.finfo(dtype).bits // 8
+    return bound(4.0 * e * c * d * f, nbytes, peak)
 
 
 def gmm_bound_ms(e, c, d, f, dtype) -> tuple[float, str]:
@@ -374,6 +465,342 @@ def ssd_set_bytes(b, s, nh, hd, ds, ch) -> int:
                 + b * nh * nc * ds * hd)
 
 
+def model_flops(cfg, params, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step (no recompute counted): 6 per
+    token per weight of every product a token passes through (the tied
+    unembedding included, the embedding lookup not; of an MoE layer's
+    experts the top_k it is routed to) and three times each layer's causal
+    attention products (forward, and the backward's two)."""
+    def weights(tree, moe=False):
+        n = 0
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                n += weights(v, moe or k == "moe")
+            elif v.ndim >= 3:     # stacked matrices, not stacked norms
+                active = moe and k in ("wi", "wg", "wo") and v.ndim == 4
+                n += v.numel() * (cfg.moe.top_k / cfg.moe.num_experts
+                                  if active else 1)
+        return n
+    w = sum(weights(bp) for bp in params["blocks"])
+    w += params["embed"]["tok"].numel()
+    attn = 3 * 4.0 * cfg.head_dim * cfg.num_heads * attention_pairs(seq, 0) \
+        * cfg.num_layers
+    return 6.0 * w * tokens + attn * tokens / seq
+
+
+def training_phases(smi: str, ops: dict) -> dict:
+    """The training path on the card: yi-9b at full width (16 layers) on
+    one fixed batch; yi-9b at depth 2 in float32 on the card against the
+    CPU (the port's plain versions) from the same params;
+    ``repro_torch.launch.train`` for granite-moe-1b-a400m at full width and
+    depth, saved and resumed; a VRE's ``lm-trainer`` across a destroy and
+    re-instantiation. Each run's launch counts are set to 0 just before it
+    and read just after; returns them by run."""
+    import shutil
+
+    import repro_torch.core.services  # noqa: F401 (registers the services)
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.core.monitoring import Monitor
+    from repro_torch.core.vre import VirtualResearchEnvironment, VREConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.launch import train as train_driver
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import to_device
+    from repro_torch.optim.adamw import OptimizerConfig, leaves
+    from repro_torch.training.train_step import (TrainStepConfig, init_state,
+                                                 make_train_step)
+    fa_ops, gmm_ops = ops["flash_attention"], ops["grouped_matmul"]
+    counts = {}
+
+    def reset():
+        for op in ops.values():
+            op.launches = 0
+        fa_ops.bwd_launches = gmm_ops.bwd_launches = 0
+        gmm_ops.launches_by_variant.update(
+            dict.fromkeys(gmm_ops.launches_by_variant, 0))
+
+    def read():
+        return {**{name: op.launches for name, op in ops.items()},
+                "flash_attention_bwd": fa_ops.bwd_launches,
+                "grouped_matmul_bwd": gmm_ops.bwd_launches,
+                "grouped_matmul_by_variant": dict(
+                    gmm_ops.launches_by_variant)}
+
+    def release(label):
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "released", "after": label,
+              "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+
+    def check_losses(label, losses, norms=None):
+        bad = [x for x in losses + (norms or []) if not np.isfinite(x)]
+        if bad or not losses[-1] < losses[0]:
+            fail(f"{label}: losses {losses}, grad norms {norms}: not finite "
+                 f"or not falling")
+
+    # -- train_yi9b: full width, 16 of 48 layers, bf16, f32 moments -------
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("yi-9b"),
+                              num_layers=YI_TRAIN["layers"],
+                              remat_policy="full")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda")
+    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
+    state = init_state(model, opt_cfg,
+                       torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=YI_TRAIN["seq"],
+                                      global_batch=YI_TRAIN["batch"]))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0).items()}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, norms, step_ms = [], [], []
+    reset()
+    for _ in range(YI_TRAIN["steps"]):
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))     # waits for the step
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        norms.append(float(metrics["grad_norm"]))
+    counts["train_yi9b"] = got = read()
+    steps, layers = YI_TRAIN["steps"], YI_TRAIN["layers"]
+    want = {"flash_attention": 2 * layers * steps,
+            "flash_attention_bwd": layers * steps, "grouped_matmul": 0,
+            "grouped_matmul_bwd": 0, "ssd": 0}
+    tokens = YI_TRAIN["batch"] * YI_TRAIN["seq"]
+    median_ms = float(np.median(step_ms[2:]))
+    flops = model_flops(cfg, state["params"], tokens, YI_TRAIN["seq"])
+    emit({"phase": "train_yi9b", "layers": layers, "d_model": cfg.d_model,
+          "params": n_params, "dtype": cfg.dtype, "moments": "float32",
+          "remat_policy": cfg.remat_policy, "batch": YI_TRAIN["batch"],
+          "seq": YI_TRAIN["seq"], "losses": losses, "grad_norms": norms,
+          "step_ms": step_ms, "step_ms_median_3_10": median_ms,
+          "tokens_per_s": tokens / median_ms * 1e3,
+          "model_flops_per_step": flops,
+          "model_flops_share_of_bf16_peak": flops / (median_ms * 1e-3)
+          / H100_BF16_FLOPS,
+          "launches": got, "expected_launches": want,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "init_seconds": init_s, "card": smi,
+          "seconds": time.perf_counter() - t0})
+    check_losses("train_yi9b", losses, norms)
+    if {k: got[k] for k in want} != want:
+        fail(f"train_yi9b: launches {got}, expected {want}")
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], batch)
+    emit({"phase": "train_yi9b_profile", "step": YI_TRAIN["steps"] + 1,
+          **step_profile(one_step), "card": smi})
+    del model, state, step_fn, batch, metrics, holder
+    release("train_yi9b")
+
+    # -- train_parity_f32: depth 2, f32, the card against the CPU ---------
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=2,
+                              dtype="float32")
+    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=10)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_state = init_state(cpu_model, opt_cfg,
+                           torch.Generator().manual_seed(0))
+    card_model = build_model(cfg, device="cuda")
+    card_state = to_device(cpu_state, "cuda")     # the same params
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                      global_batch=2))
+    runs = {}
+    for label, model, st in (("cuda", card_model, card_state),
+                             ("cpu", cpu_model, cpu_state)):
+        step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
+        reset()
+        ls = []
+        for i in range(3):
+            b = {k: torch.as_tensor(v).to(model.device)
+                 for k, v in data.batch(i).items()}
+            st, m = step_fn(st, b)
+            ls.append(float(m["loss"]))
+        runs[label] = (ls, st, read())
+    (cl, cst, ccounts), (hl, hst, _) = runs["cuda"], runs["cpu"]
+    # f32 on both: summation orders (the kernels', the CPU's); params to
+    # tests/test_training.py's accumulation tolerance
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(cl, hl))
+    worst, ok = 0.0, loss_rel <= 1e-4
+    for a, b in zip(leaves(cst["params"]), leaves(hst["params"])):
+        diff = (a.cpu() - b).abs()
+        worst = max(worst, float(diff.max()))
+        ok = ok and bool((diff <= 5e-5 + 5e-4 * b.abs()).all())
+    want = {"flash_attention": 2 * 2 * 3, "flash_attention_bwd": 2 * 3}
+    emit({"phase": "train_parity_f32", "layers": 2, "batch": 2, "seq": 128,
+          "losses_cuda": cl, "losses_cpu": hl, "loss_max_rel_diff": loss_rel,
+          "loss_rtol": 1e-4, "params_max_abs_diff": worst,
+          "params_tol": {"atol": 5e-5, "rtol": 5e-4},
+          "launches_cuda": ccounts, "ok": ok, "card": smi,
+          "seconds": time.perf_counter() - t0})
+    if not ok or {k: ccounts[k] for k in want} != want:
+        fail(f"train_parity_f32: card and CPU disagree (losses {cl} vs {hl},"
+             f" params {worst}) or launches {ccounts} != {want}")
+    del cpu_model, cpu_state, card_model, card_state, runs, cst, hst, st
+    release("train_parity_f32")
+
+    # -- train_granite: launch/train.py, full width and depth, resumed ----
+    t0 = time.perf_counter()
+    ckpt = Path(tempfile.mkdtemp(prefix="train_granite_"))
+    try:
+        args = train_driver.parse_args(GRANITE_TRAIN + [
+            "--steps", "10", "--ckpt-every", "5", "--ckpt-dir", str(ckpt)])
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t1 = time.perf_counter()
+        out = io.StringIO()
+        mon = Monitor(name="train")
+        with contextlib.redirect_stdout(out):
+            losses1, state1 = train_driver.run(args, monitor=mon)
+        run1_s = time.perf_counter() - t1
+        counts["train_granite"] = got = read()
+        peak1 = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = [1e3 * e["seconds"] for e in mon.events("train")
+                   if e["event"] == "step.done"]
+        cfg = get_config("granite-moe-1b-a400m")
+        tokens = 8 * 2048
+        median_ms = float(np.median(step_ms[2:]))
+        flops = model_flops(cfg, state1["params"], tokens, 2048)
+        layers, steps, mbs = cfg.num_layers, 10, 2
+        # every layer MoE: 3 expert products a forward, run twice under
+        # remat, and dx, dw for each in the backward; flash likewise
+        want = {"flash_attention": 2 * layers * mbs * steps,
+                "flash_attention_bwd": layers * mbs * steps,
+                "grouped_matmul": 6 * layers * mbs * steps,
+                "grouped_matmul_bwd": 6 * layers * mbs * steps, "ssd": 0}
+        # capacity 2560 and the d, f rows of dw: the tile kernel throughout
+        want_variants = {"tile": 12 * layers * mbs * steps, "stream": 0,
+                         "f32": 0}
+        store = CheckpointStore(str(ckpt))
+        saved = store.latest_step()
+        restored = store.restore(state1, step=saved)
+        mismatched = [i for i, (a, b) in enumerate(zip(
+            leaves(restored), leaves(state1))) if not torch.equal(a, b)]
+        n_leaves = len(leaves(state1))
+        del restored, state1
+        store.gc(keep_last=1)
+        release("train_granite run 1")
+        out2 = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out2):
+            losses2 = train_driver.main(GRANITE_TRAIN + [
+                "--steps", "5", "--ckpt-every", "5", "--resume",
+                "--ckpt-dir", str(ckpt)])
+        run2_s = time.perf_counter() - t1
+        emit({"phase": "train_granite", "layers": layers,
+              "argv": GRANITE_TRAIN + ["--steps", "10", "--ckpt-every", "5"],
+              "losses": losses1, "resumed_losses": losses2,
+              "printed": out.getvalue().splitlines(),
+              "printed_resume": out2.getvalue().splitlines(),
+              "step_ms": step_ms, "step_ms_median_3_10": median_ms,
+              "tokens_per_s": tokens / median_ms * 1e3,
+              "model_flops_per_step": flops,
+              "model_flops_share_of_bf16_peak": flops / (median_ms * 1e-3)
+              / H100_BF16_FLOPS,
+              "run_seconds": run1_s, "resume_run_seconds": run2_s,
+              "tokens_per_s_with_saves": 10 * tokens / run1_s,
+              "saved_step": saved, "leaves": n_leaves,
+              "restored_leaves_unequal": mismatched,
+              "launches": got, "expected_launches": want,
+              "expected_by_variant": want_variants,
+              "peak_memory_gb": peak1, "card": smi,
+              "seconds": time.perf_counter() - t0})
+        check_losses("train_granite", losses1)
+        if not all(np.isfinite(losses2)) or \
+                "[resume] restored step 10" not in out2.getvalue():
+            fail(f"train_granite: the resumed run {losses2} did not restore "
+                 f"step 10")
+        if saved != 10 or mismatched:
+            fail(f"train_granite: step {saved} restored with leaves "
+                 f"{mismatched} unequal")
+        if {k: got[k] for k in want} != want or \
+                got["grouped_matmul_by_variant"] != want_variants:
+            fail(f"train_granite: launches {got}, expected {want} and "
+                 f"{want_variants}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    release("train_granite")
+    # one step of train_granite's shape (8 x 2048 in 2 microbatches) under
+    # the profiler, after a warm one
+    cfg = get_config("granite-moe-1b-a400m")
+    model = build_model(cfg, device="cuda")
+    opt_cfg = OptimizerConfig(warmup_steps=5, total_steps=10)
+    holder = [init_state(model, opt_cfg,
+                         torch.Generator(device="cuda").manual_seed(0))]
+    step_fn = make_train_step(model, cfg, opt_cfg,
+                              TrainStepConfig(microbatches=2))
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=2048, global_batch=8))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0).items()}
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], batch)
+    one_step()
+    emit({"phase": "train_granite_profile", **step_profile(one_step),
+          "card": smi})
+    del model, holder, step_fn, batch
+    release("train_granite_profile")
+
+    # -- vre_train: lm-trainer across a destroy and re-instantiation ------
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="vre_train_")
+    try:
+        vcfg = VREConfig(name="train", mesh_shape=(1, 1),
+                         services=["volumes", "data", "lm-trainer"],
+                         arch="granite-moe-1b-a400m", provider="h100",
+                         workdir=workdir,
+                         extra={"global_batch": 8, "seq_len": 512})
+        vre = VirtualResearchEnvironment(vcfg)
+        vre.instantiate()
+        trainer = vre.service("lm-trainer")
+        reset()
+        losses1 = trainer.train_steps(vre.service("data"), 5)
+        vre.service("volumes").save(trainer.state, step=5, blocking=True)
+        device1 = str(leaves(trainer.state)[0].device)
+        del trainer
+        vre.destroy()
+        del vre
+        release("vre_train destroy")
+        vre2 = VirtualResearchEnvironment(vcfg)
+        vre2.instantiate()
+        t2 = vre2.service("lm-trainer")
+        t2.state = vre2.service("volumes").restore(t2.state, step=5)
+        losses2 = t2.train_steps(vre2.service("data"), 5)
+        counts["vre_train"] = got = read()
+        healthy = t2.health()
+        del t2
+        vre2.destroy()
+        del vre2
+        layers = get_config("granite-moe-1b-a400m").num_layers
+        want = {"flash_attention": 2 * layers * 10,
+                "flash_attention_bwd": layers * 10,
+                "grouped_matmul": 6 * layers * 10,
+                "grouped_matmul_bwd": 6 * layers * 10, "ssd": 0}
+        emit({"phase": "vre_train", "arch": "granite-moe-1b-a400m",
+              "provider": "h100", "state_device": device1,
+              "losses_before_destroy": losses1,
+              "losses_after_restore": losses2, "healthy": healthy,
+              "launches": got, "expected_launches": want, "card": smi,
+              "seconds": time.perf_counter() - t0})
+        if not (all(np.isfinite(losses1 + losses2)) and healthy
+                and losses2[0] < losses1[0] + 1.0):
+            fail(f"vre_train: restore did not continue ({losses1} then "
+                 f"{losses2})")
+        if not device1.startswith("cuda") or \
+                {k: got[k] for k in want} != want:
+            fail(f"vre_train: state on {device1}, launches {got}, expected "
+                 f"{want}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    release("vre_train")
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -385,7 +812,8 @@ def main():
     from repro_torch.core.monitoring import Monitor
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         attention_ref_bwd)
     from repro_torch.kernels.grouped_matmul import ops as gmm_ops
     from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -445,12 +873,13 @@ def main():
         emit({"phase": "build", "kernel": name, "library": lib.name,
               "nvcc_seconds": secs, "ptxas": ptxas,
               "sass_tensor_core_instructions": mma})
-        # the bf16 products and the SSD kernel's split-TF32 products must
-        # run on the tensor cores
+        # the bf16 products (the flash backward's at head dims 64 and 128
+        # too) and the SSD kernel's split-TF32 products must run on the
+        # tensor cores
         tc = {k: n for k, n in mma.items() if any(
-            s in k for s in ("flash_fwd_bf16_kernel", "gmm_tile_kernel",
-                             "gmm_stream_kernel", "ssd_first_kernel",
-                             "ssd_y_kernel"))}
+            s in k for s in ("flash_fwd_bf16_kernel", "bwd_tc::",
+                             "gmm_tile_kernel", "gmm_stream_kernel",
+                             "ssd_first_kernel", "ssd_y_kernel"))}
         if not tc or min(tc.values()) == 0:
             fail(f"{name}: a tensor-core kernel issues no tensor-core "
                  f"instruction ({mma})")
@@ -568,6 +997,109 @@ def main():
           "dtype": "float32", "max_abs_err": err, "tol": ssd_tol, "ok": ok})
     if not ok:
         misses.append(("ssd_chunked", SSD_RAGGED, "float32"))
+
+    # the backward kernels against the plain backward (autograd through the
+    # plain version) on f32 copies of the same inputs and output gradient;
+    # each error relative to the gradient's largest magnitude: f32 the
+    # summation order, bf16 the gradients' rounding and the bf16 forward's
+    # output (its probabilities rounded before P.V) in rowsum(dO * O)
+    def check_flash_bwd(case, dtype):
+        b, s, h, kv, d, win, cap = case
+        q, k, v = (randn((b, s, n, d), dtype, gen,
+                         SOFTCAP_Q_SCALE if cap and n == h else 1.0)
+                   .requires_grad_() for n in (h, kv, kv))
+        dout = randn((b, s, h, d), dtype, gen)
+        before = (fa_ops.launches, fa_ops.bwd_launches)
+        out = fa_ops.flash_attention(q, k, v, window=win, softcap=cap)
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        launched = (fa_ops.launches - before[0],
+                    fa_ops.bwd_launches - before[1])
+        refs = attention_ref_bwd(*(t.detach().float() for t in (q, k, v)),
+                                 dout.float(), window=win, softcap=cap)
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        errs, ok = {}, launched == (1, 1)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            errs[name] = float((g.float() - r).abs().max())
+            ok = ok and bool(torch.isfinite(g).all()) and g.dtype == dtype \
+                and errs[name] <= tol * float(r.abs().max())
+        # a softcap case must tell the softcap apart: the kernel's gradients
+        # lie further than the tolerance from the plain backward without it
+        apart = {}
+        if cap:
+            nocap = attention_ref_bwd(*(t.detach().float() for t in (q, k, v)),
+                                      dout.float(), window=win)
+            for name, g, r in zip(("dq", "dk", "dv"), grads, nocap):
+                apart[name] = float((g.float() - r).abs().max()) \
+                    / float(r.abs().max())
+                ok = ok and apart[name] > tol
+        emit({"phase": "kernel_vs_plain_bwd", "kernel": "flash_attention_bwd",
+              "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
+              "window": win, "softcap": cap,
+              "q_scale": SOFTCAP_Q_SCALE if cap else 1.0,
+              "dtype": str(dtype).removeprefix("torch."),
+              "launched_fwd_bwd": list(launched), "max_abs_err": errs,
+              "grad_max": [float(r.abs().max()) for r in refs],
+              "tol_of_max": tol, "from_no_softcap_of_max": apart or None,
+              "ok": ok})
+        if not ok:
+            misses.append(("flash_attention_bwd", case, str(dtype)))
+        return max(errs.values()), tol
+
+    def check_gmm_bwd(case, dtype):
+        e, c, d, f = case
+        x, w = (randn(shape, dtype, gen, 0.3).requires_grad_()
+                for shape in ((e, c, d), (e, d, f)))
+        dy = randn((e, c, f), dtype, gen, 0.3)
+        before = (gmm_ops.launches, gmm_ops.bwd_launches,
+                  dict(gmm_ops.launches_by_variant))
+        dx, dw = torch.autograd.grad(gmm_ops.grouped_matmul(x, w), (x, w), dy)
+        torch.cuda.synchronize()
+        launched = (gmm_ops.launches - before[0],
+                    gmm_ops.bwd_launches - before[1])
+        went = {k: n - before[2][k]
+                for k, n in gmm_ops.launches_by_variant.items()}
+        xr, wr = (t.detach().float().requires_grad_() for t in (x, w))
+        rx, rw = torch.autograd.grad(grouped_matmul_ref(xr, wr), (xr, wr),
+                                     dy.float())
+        # f32: summation order over up to 2560 terms; bf16: one rounding
+        tol = 3e-2 if dtype == torch.bfloat16 else 3e-4
+        errs, ok = {}, launched == (1, 2) and sum(went.values()) == 3
+        for name, g, r in (("dx", dx, rx), ("dw", dw, rw)):
+            errs[name] = float((g.float() - r).abs().max())
+            ok = ok and g.dtype == dtype and \
+                errs[name] <= tol * float(r.abs().max())
+        emit({"phase": "kernel_vs_plain_bwd", "kernel": "grouped_matmul_bwd",
+              "shape": {"E": e, "C": c, "d": d, "f": f},
+              "dtype": str(dtype).removeprefix("torch."),
+              "launched_fwd_bwd": list(launched), "by_variant": went,
+              "max_abs_err": errs, "tol_of_max": tol, "ok": ok})
+        if not ok:
+            misses.append(("grouped_matmul_bwd", case, str(dtype)))
+        return max(errs.values()), tol
+
+    kernels["flash_attention_bwd"] = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": kernels["flash_attention"]["source"],
+        "replaces": kernels["flash_attention"]["replaces"],
+        "gradient_of": "flash_attention (the Pallas kernel has no backward)"}
+    kernels["grouped_matmul_bwd"] = {
+        "name": "grouped_matmul_bwd", "route": "cuda",
+        "source": kernels["grouped_matmul"]["source"],
+        "replaces": kernels["grouped_matmul"]["replaces"],
+        "gradient_of": "grouped_matmul (dx, dw through the same kernels)"}
+    for case in FLASH_BWD:
+        for dtype in (torch.float32, torch.bfloat16):
+            err, tol = check_flash_bwd(case, dtype)
+            if case == FLASH_BWD[0] and dtype == torch.bfloat16:
+                kernels["flash_attention_bwd"].update(max_abs_err=err,
+                                                      tol_of_max=tol)
+    for case in GMM_BWD:
+        for dtype in (torch.float32, torch.bfloat16):
+            err, tol = check_gmm_bwd(case, dtype)
+            if case == GMM_BWD[0] and dtype == torch.bfloat16:
+                kernels["grouped_matmul_bwd"].update(max_abs_err=err,
+                                                     tol_of_max=tol)
     if misses:
         fail(f"kernels disagree with their plain versions: {misses}")
 
@@ -731,10 +1263,79 @@ def main():
         ssd_family_ms[case] = t["kernel_ms"]
         kernels["ssd"].setdefault("by_shape", []).append(dict(t, shape=case))
         del a, xdt, Bc, Cc, sets
+
+    # the backward kernels at the training path's shapes: the kernel, the
+    # plain backward and the library's backward (autograd through SDPA, no
+    # softcap; through torch.bmm), each with its forward recorded once
+    def time_flash_bwd(case) -> dict:
+        b, s, h, kv, d, win, cap = case
+        q, k, v = (randn((b, s, n, d), dtype, gen) for n in (h, kv, kv))
+        dout = randn((b, s, h, d), dtype, gen)
+        out, lse = fa_ops._forward(q, k, v, True, win, cap, with_lse=True)
+        t = {"kernel_ms": cuda_ms(lambda: fa_ops.flash_attention_bwd(
+            q, k, v, out, dout, lse, window=win, softcap=cap), 10)}
+        t["ms"] = t["kernel_ms"]
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        ref = attention_ref(qr, kr, vr, window=win, softcap=cap)
+        t["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            ref, (qr, kr, vr), dout, retain_graph=True), 3)
+        del ref
+        t["library_ms"] = None
+        if not cap and not win:
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                          for x in (q, k, v))
+            lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+            dt = dout.transpose(1, 2)
+            t["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                lib, (qt, kt, vt), dt, retain_graph=True), 10)
+            del lib
+        t["bound_ms"], t["bound_by"] = attention_bwd_bound_ms(
+            b, s, h, kv, d, win, dtype)
+        t["share_of_bound"] = t["bound_ms"] / t["kernel_ms"]
+        t["kernel_tflops"] = 10.0 * d * b * h * attention_pairs(s, win) \
+            / (t["kernel_ms"] * 1e-3) / 1e12
+        emit({"phase": "timing", "kernel": "flash_attention_bwd",
+              "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
+              "window": win, "softcap": cap, "dtype": "bfloat16", **t,
+              "card": smi})
+        return t
+
+    def time_gmm_bwd(case) -> dict:
+        e, c, d, f = case
+        x, w = (randn(shape, dtype, gen, 0.3) for shape in ((e, c, d),
+                                                            (e, d, f)))
+        dy = randn((e, c, f), dtype, gen, 0.3)
+        t = {"kernel_ms": cuda_ms(lambda: gmm_ops.grouped_matmul_bwd(
+            x, w, dy), 20)}
+        t["ms"] = t["kernel_ms"]
+        xr, wr = (a.detach().requires_grad_() for a in (x, w))
+        for key, fn in (("plain_ms", grouped_matmul_ref),
+                        ("library_ms", torch.bmm)):
+            y = fn(xr, wr)
+            t[key] = cuda_ms(lambda: torch.autograd.grad(
+                y, (xr, wr), dy, retain_graph=True), 10)
+        t["bound_ms"], t["bound_by"] = gmm_bwd_bound_ms(e, c, d, f, dtype)
+        t["share_of_bound"] = t["bound_ms"] / t["kernel_ms"]
+        emit({"phase": "timing", "kernel": "grouped_matmul_bwd",
+              "shape": {"E": e, "C": c, "d": d, "f": f}, "dtype": "bfloat16",
+              **t, "card": smi})
+        return t
+
+    timings["flash_attention_bwd"] = time_flash_bwd(YI_TRAIN_ATTN)
+    flash_bwd_granite = time_flash_bwd(GRANITE_TRAIN_ATTN)
+    kernels["flash_attention_bwd"]["by_shape"] = [
+        dict(flash_bwd_granite, shape=GRANITE_TRAIN_ATTN)]
+    timings["grouped_matmul_bwd"] = time_gmm_bwd(GMM_BWD[0])
+    kernels["grouped_matmul_bwd"]["by_shape"] = [
+        dict(time_gmm_bwd(GMM_BWD[1]), shape=GMM_BWD[1])]
+    emit({"phase": "timing", "seconds": time.perf_counter() - t0})
     for name, t in timings.items():
         kernels[name].update(t)
     kernels["flash_attention"]["by_served_shape"] = [
         t for ts in flash_family.values() for t in ts]
+
+    # -- 4b. training on the card -----------------------------------------
+    train_counts = training_phases(smi, ops)
 
     # -- 5. full width, depth 2, float32: engine tokens == a reference -----
     def faults(monitor) -> list:
@@ -1916,7 +2517,9 @@ def main():
     if misses:
         fail(f"a kernel disagrees with its plain version at a served "
              f"shape: {misses}")
-    # each kernel's launches on its own path's served run
+    # each kernel's launches on its own path's served run; the backward
+    # kernels' on the training runs (train_yi9b's 10 steps, train_granite's
+    # first 10), beside the forward kernels' there
     own_path = {"flash_attention": "yi-9b",
                 "grouped_matmul": "granite-moe-1b-a400m", "ssd": "mamba2-370m"}
     for name, arch in own_path.items():
@@ -1924,6 +2527,14 @@ def main():
         kernels[name]["launches_path"] = arch
         kernels[name]["launches_by_path"] = {a: c[name]
                                              for a, c in counts.items()}
+        kernels[name]["launches_by_path"].update(
+            {run: c[name] for run, c in train_counts.items()})
+    for name, run in (("flash_attention_bwd", "train_yi9b"),
+                      ("grouped_matmul_bwd", "train_granite")):
+        kernels[name]["launches"] = train_counts[run][name]
+        kernels[name]["launches_path"] = run
+        kernels[name]["launches_by_path"] = {r: c[name] for r, c in
+                                             train_counts.items()}
     kernels["grouped_matmul"]["launches_by_variant"] = variant_counts[
         "granite-moe-1b-a400m"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -49,7 +49,9 @@ def _to_savable(v) -> np.ndarray:
     bits in an unsigned integer of the same width)."""
     name = _dtype_name(v)
     if isinstance(v, torch.Tensor):
-        t = v.detach().cpu()
+        # a copy even on the CPU: the train step updates its state in
+        # place while an asynchronous save is still writing it
+        t = v.detach().to("cpu", copy=True)
         if name in _EXOTIC:
             return t.view(_EXOTIC[name][2]).numpy().view(_EXOTIC[name][1])
         return t.numpy()

@@ -7,24 +7,28 @@ Each builder returns a ``ServiceHandle`` — the uniform lifecycle protocol
 the live instance.
 
 A port of the JAX package's ``repro.core.services``. Provider ``"cpu"``
-serves the reduced config of the VRE's arch, the card (``"h100"``) its full
-widths. ``lm-server`` has the JAX service's autoscaler (with SLO targets),
-``rebalance``, ``replicas: "auto"`` and a fleet's shared prefix cache. Not
-ported yet: the ``lm-trainer`` service (ROADMAP A.7; its builder raises).
+serves and trains the reduced config of the VRE's arch, the card
+(``"h100"``) its full widths. ``lm-server`` has the JAX service's
+autoscaler (with SLO targets), ``rebalance``, ``replicas: "auto"`` and a
+fleet's shared prefix cache. ``lm-trainer`` trains the transformer archs
+(dense and MoE) with its state on the card of the VRE's first share; an
+SSM or hybrid arch fails at build (ROADMAP A.7b).
 """
 from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core.registry import ServiceHandle, register_service
 from repro_torch.core.scheduler import ClusterScheduler
 from repro_torch.core.workflow import Workflow
-from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+from repro_torch.data.pipeline import DataConfig, SyntheticLMData, device_batch
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import model_config, record_meta, replicaset_for
+from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.serving.autoscaler import Autoscaler, AutoscalerConfig
 from repro_torch.serving.engine import EdgeRouter
 from repro_torch.serving.replica import ReplicaSet
@@ -81,11 +85,58 @@ def build_data(ctx):
     return ServiceHandle("data", "data", data)
 
 
+class TrainerService(ServiceHandle):
+    """LM training service: the train step over a mutable train state on
+    the model's device."""
+
+    def __init__(self, ctx, cfg, model, state, step_fn):
+        super().__init__("lm-trainer", "train", model)
+        self.ctx = ctx
+        self.cfg = cfg
+        self.model = model
+        self.state = state
+        self.step = 0
+        self.history = []
+        self._step_fn = step_fn
+
+    def train_steps(self, data, n: int):
+        """``n`` steps on ``data``'s batches from its first (as the JAX
+        service iterates it anew each call); returns their losses."""
+        it = iter(data)
+        for _ in range(n):
+            batch = device_batch(next(it), self.model.device)
+            self.state, metrics = self._step_fn(self.state, batch)
+            self.step += 1
+            loss = float(metrics["loss"])
+            self.history.append(loss)
+            self.ctx.monitor.log("lm-trainer", "step", step=self.step,
+                                 loss=loss)
+        return self.history[-n:]
+
+    def health(self) -> bool:
+        return not self.history or bool(np.isfinite(self.history[-1]))
+
+    def metrics(self) -> dict:
+        return {"step": self.step,
+                "loss": self.history[-1] if self.history else None}
+
+
 @register_service("lm-trainer", "train",
                   description="LM training service (train_step + state)")
 def build_trainer(ctx):
-    raise NotImplementedError(
-        "lm-trainer: training is not ported yet (ROADMAP A.7)")
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_step import (TrainStepConfig, init_state,
+                                                 make_train_step)
+    cfg = _model_cfg(ctx)
+    home = resolve_device(ctx.mesh.devices.flat[0])
+    model = build_model(cfg, device=home)
+    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
+    mb = int(ctx.config.extra.get("microbatches", 1))
+    step_fn = make_train_step(model, cfg, opt_cfg,
+                              TrainStepConfig(microbatches=mb))
+    state = init_state(model, opt_cfg,
+                       torch.Generator(device=home).manual_seed(0))
+    return TrainerService(ctx, cfg, model, state, step_fn)
 
 
 class ServingService(ServiceHandle):

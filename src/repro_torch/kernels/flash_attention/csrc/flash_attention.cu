@@ -1,4 +1,6 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash attention forward and backward for Hopper (sm_90a), plain C
+// interface for ctypes. The forward optionally writes each row's
+// log-sum-exp, which the backward (namespace bwd, below) reads.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_kernel, body _flash_kernel): causal attention with an
@@ -78,8 +80,8 @@ template <int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int S, int H, int KV, float scale, int causal,
-                     int window, float softcap) {
+                     float* __restrict__ lse, int S, int H, int KV,
+                     float scale, int causal, int window, float softcap) {
   static_assert(D % TPR == 0, "head dim must be a multiple of 16");
   constexpr int LD = D + 1;
   constexpr int LP = BK + 1;
@@ -230,6 +232,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = ty + TPR * i, s = q0 + r;
     if (s >= S) continue;
     const float denom = fmaxf(sL[r], 1e-30f);
+    // the row's log-sum-exp for the backward (+inf on a row with no key:
+    // its probabilities are then 0)
+    if (lse != nullptr && tx == 0)
+      lse[long(bh) * S + s] = sM[r] == -INFINITY ? INFINITY
+                                                 : sM[r] + logf(sL[r]);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       ob[s * q_stride + tx + TPR * j] = acc[i][j] / denom;
@@ -238,8 +245,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, int causal, int window,
-                   float softcap, cudaStream_t stream) {
+                   float* lse, int B, int S, int H, int KV, int causal,
+                   int window, float softcap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kernel = flash_fwd_f32_kernel<D>;
   if (smem > 48 * 1024) {
@@ -252,8 +259,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((S + BQ - 1) / BQ, B * H);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, scale,
-      causal, window, softcap);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KV,
+      scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
@@ -409,8 +416,8 @@ template <int D, bool SOFTCAP>
 __global__ void __launch_bounds__(NT)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                      int S, int H, int KV, float scale, int causal,
-                      int window, float softcap) {
+                      float* __restrict__ lse, int S, int H, int KV,
+                      float scale, int causal, int window, float softcap) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int DP = padded<D>();
   constexpr int BK = kv_tile<D>();
@@ -532,6 +539,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int qpos = sm.row_g + 8 * r;
     if (qpos >= S) continue;
+    // the row's log-sum-exp for the backward, from log2 units (+inf on a
+    // row with no key: its probabilities are then 0)
+    if (lse != nullptr && sm.t == 0)
+      lse[long(bh) * S + qpos] =
+          sm.m_run[r] == -INFINITY
+              ? INFINITY
+              : (sm.m_run[r] + log2f(l)) * 0.6931471805599453f;
     bf16* orow = ob + long(qpos) * q_stride + 2 * sm.t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -542,8 +556,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, int causal, int window,
-                   float softcap, cudaStream_t stream) {
+                   float* lse, int B, int S, int H, int KV, int causal,
+                   int window, float softcap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kernel = softcap > 0.f ? flash_fwd_bf16_kernel<D, true>
                               : flash_fwd_bf16_kernel<D, false>;
@@ -556,34 +570,783 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid(B * H, n_q);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV, scale,
-      causal, window, softcap);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, KV,
+      scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 }  // namespace bf16wg
 
+// ---------------------------------------------------------------------------
+// Backward, f32 (and bf16 at head dim 256): f32 FMAs on the CUDA cores,
+// three grids; bf16 at head dims 64 and 128 runs the same schedule on the
+// tensor cores (namespace bwd_tc, below).
+//
+// The TPU kernel has no backward (JAX differentiates the jnp attention
+// under jax.checkpoint, recomputing the scores), so this one follows the
+// FlashAttention-2 schedule. The forward saved each row's log-sum-exp
+// (f32, (B, H, S)); P is recomputed from q, k and it, tile by tile, and no
+// S x S tensor ever reaches device memory:
+//   1. delta_kernel: D = rowsum(dO * O) per (b, h, row), one warp a row;
+//   2. dkdv_kernel: one block per (kv tile, b * KV + kv head) walks every q
+//      tile of every q head of its group that can see its keys, and sums
+//      dV += P^T dO and dK += dS^T Q in registers: the group's sum is taken
+//      inside the block, so dK and dV need no atomics;
+//   3. dq_kernel: one block per (q tile, b * H + h) walks the key tiles its
+//      rows can see and sums dQ += dS K: a second pass, deterministic, in
+//      place of f32 atomics into dQ.
+// With x = scale * q.k (softcapped: x = cap * tanh(scale * q.k / cap)),
+// P = exp(x - lse), dP = dO.V, dS = P * (dP - D) * dx/d(q.k) / scale, and
+// the scale is applied once to dQ and dK. Masks as the forward: causal,
+// the window (qpos - kpos < window), kpos < S; GQA by index.
+//
+// What bounds it on this card: 7 products of the attention's (q, k) pairs
+// (S and dP twice, dV, dK, dQ), ~3.5x the forward's operations, against
+// q, k, v, o, dO read and dq, dk, dv written: bound by operations. Here
+// they run as f32 FMAs on the CUDA cores (bf16 loads widened to f32 in
+// shared memory), far above the tensor-core bound.
+namespace bwd {
+
+constexpr int TPR = 16;         // threads per tile row/column (16 x 16)
+constexpr int NT = TPR * TPR;
+
+// q and kv rows a tile: 64, or 32 at D = 256 (shared memory)
+template <int D>
+__host__ __device__ constexpr int tile() { return D >= 256 ? 32 : 64; }
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // four T x (D + 1) tiles (odd stride: conflict-free column reads), two
+  // T x (T + 1) score tiles, the rows' lse and D
+  constexpr size_t T = tile<D>();
+  return sizeof(float) * (4 * T * (D + 1) + 2 * T * (T + 1) + 2 * T);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// ROWS x D rows s0.. of a tensor whose rows are `stride` elements apart,
+// widened to f32, into dst with a row pitch of D + 1; rows past S are 0
+template <typename T, int ROWS, int D>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          long stride, int s0, int S,
+                                          int tid) {
+  for (int i = tid; i < ROWS * D; i += NT) {
+    const int r = i / D, c = i % D, s = s0 + r;
+    dst[r * (D + 1) + c] = s < S ? to_f32(src[long(s) * stride + c]) : 0.f;
+  }
+}
+
+// D = rowsum(dO * O): row (b, s, h) of the (B, S, H, D) tensors into
+// delta[(b * H + h) * S + s]; one warp a row
+template <typename T>
+__global__ void __launch_bounds__(256)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+             float* __restrict__ delta, int rows, int S, int H, int D) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const T* orow = o + long(row) * D;
+  const T* drow = dout + long(row) * D;
+  float sum = 0.f;
+  for (int c = lane; c < D; c += 32) sum += to_f32(orow[c]) * to_f32(drow[c]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) {
+    const int h = row % H, s = (row / H) % S, b = row / (H * S);
+    delta[(long(b) * H + h) * S + s] = sum;
+  }
+}
+
+// The shared part of both passes: for the q tile in sQ/sO (rows q0..) and
+// the kv tile in sK/sV (rows k0..), P into sP (when given) and dS (without
+// the scale) into sS; thread (ty, tx) computes rows ty + 16 i, columns
+// tx + 16 j.
+template <int D, bool SOFTCAP>
+__device__ __forceinline__ void scores(const float* sQ, const float* sO,
+                                       const float* sK, const float* sV,
+                                       const float* sL, const float* sDl,
+                                       float* sP, float* sS, int q0, int k0,
+                                       int S, float scale, int causal,
+                                       int window, float softcap, int tx,
+                                       int ty) {
+  constexpr int BT = tile<D>();
+  constexpr int LD = D + 1, LP = BT + 1, RI = BT / TPR;
+  float sc[RI][RI], dp[RI][RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < RI; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qv[RI], ov[RI], kv[RI], vv[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      qv[i] = sQ[(ty + TPR * i) * LD + d];
+      ov[i] = sO[(ty + TPR * i) * LD + d];
+      kv[i] = sK[(tx + TPR * i) * LD + d];
+      vv[i] = sV[(tx + TPR * i) * LD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RI; ++j) {
+        sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int r = ty + TPR * i, qpos = q0 + r;
+#pragma unroll
+    for (int j = 0; j < RI; ++j) {
+      const int c = tx + TPR * j, kpos = k0 + c;
+      bool ok = qpos < S && kpos < S;
+      if (causal) ok = ok && qpos >= kpos;
+      if (window > 0) ok = ok && qpos - kpos < window;
+      float x = sc[i][j] * scale, t = 0.f;
+      if constexpr (SOFTCAP) {
+        t = tanhf(x / softcap);
+        x = t * softcap;
+      }
+      const float p = ok ? expf(x - sL[r]) : 0.f;
+      float ds = p * (dp[i][j] - sDl[r]);
+      if constexpr (SOFTCAP) ds *= 1.f - t * t;
+      if (sP != nullptr) sP[r * LP + c] = p;
+      sS[r * LP + c] = ds;
+    }
+  }
+}
+
+// One block per (kv tile, b * KV + kv head): dK and dV of its rows, summed
+// over the group's q heads and every q tile that sees them.
+template <typename T, int D, bool SOFTCAP>
+__global__ void __launch_bounds__(NT)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const T* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV,
+            float scale, int causal, int window, float softcap) {
+  constexpr int BT = tile<D>();
+  constexpr int LD = D + 1, LP = BT + 1, RI = BT / TPR, DJ = D / TPR;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + BT * LD;
+  float* sQ = sV + BT * LD;
+  float* sO = sQ + BT * LD;         // dO
+  float* sP = sO + BT * LD;
+  float* sS = sP + BT * LP;
+  float* sL = sS + BT * LP;
+  float* sDl = sL + BT;
+
+  const int tid = threadIdx.x, tx = tid % TPR, ty = tid / TPR;
+  const int k0 = blockIdx.x * BT;   // the longest causal blocks first
+  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV, G = H / KV;
+  const long q_stride = long(H) * D, kv_stride = long(KV) * D;
+  load_rows<T, BT, D>(sK, k + (long(b) * S * KV + kvh) * D, kv_stride, k0, S,
+                      tid);
+  load_rows<T, BT, D>(sV, v + (long(b) * S * KV + kvh) * D, kv_stride, k0, S,
+                      tid);
+
+  float acc_k[RI][DJ], acc_v[RI][DJ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+
+  // q rows that can see a key of this tile
+  const int k_last = min(k0 + BT, S) - 1;
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(S, k_last + window) : S;   // exclusive
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const long bh = long(b) * H + h;
+    for (int q0 = (q_begin / BT) * BT; q0 < q_end; q0 += BT) {
+      __syncthreads();   // the last tile's sQ/sO/sP/sS reads are done
+      load_rows<T, BT, D>(sQ, q + (long(b) * S * H + h) * D, q_stride, q0, S,
+                          tid);
+      load_rows<T, BT, D>(sO, dout + (long(b) * S * H + h) * D, q_stride, q0,
+                          S, tid);
+      if (tid < BT) {
+        const int s = q0 + tid;
+        sL[tid] = s < S ? lse[bh * S + s] : 0.f;
+        sDl[tid] = s < S ? delta[bh * S + s] : 0.f;
+      }
+      __syncthreads();
+      scores<D, SOFTCAP>(sQ, sO, sK, sV, sL, sDl, sP, sS, q0, k0, S, scale,
+                         causal, window, softcap, tx, ty);
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T Q: key rows ty + 16 i, columns tx + 16 j
+#pragma unroll 2
+      for (int r = 0; r < BT; ++r) {
+        float pv[RI], sv[RI];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          pv[i] = sP[r * LP + ty + TPR * i];
+          sv[i] = sS[r * LP + ty + TPR * i];
+        }
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          const float o = sO[r * LD + tx + TPR * j];
+          const float qq = sQ[r * LD + tx + TPR * j];
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
+            acc_v[i][j] = fmaf(pv[i], o, acc_v[i][j]);
+            acc_k[i][j] = fmaf(sv[i], qq, acc_k[i][j]);
+          }
+        }
+      }
+    }
+  }
+  T* dkb = dk + (long(b) * S * KV + kvh) * D;
+  T* dvb = dv + (long(b) * S * KV + kvh) * D;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int s = k0 + ty + TPR * i;
+    if (s >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const int c = tx + TPR * j;
+      dkb[long(s) * kv_stride + c] = from_f32<T>(acc_k[i][j] * scale);
+      dvb[long(s) * kv_stride + c] = from_f32<T>(acc_v[i][j]);
+    }
+  }
+}
+
+// One block per (q tile, b * H + h): dQ of its rows over every key tile
+// they see.
+template <typename T, int D, bool SOFTCAP>
+__global__ void __launch_bounds__(NT)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          T* __restrict__ dq, int S, int H, int KV, float scale, int causal,
+          int window, float softcap) {
+  constexpr int BT = tile<D>();
+  constexpr int LD = D + 1, LP = BT + 1, RI = BT / TPR, DJ = D / TPR;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + BT * LD;
+  float* sQ = sV + BT * LD;
+  float* sO = sQ + BT * LD;         // dO
+  float* sS = sO + BT * LD + BT * LP;
+  float* sL = sS + BT * LP;
+  float* sDl = sL + BT;
+
+  const int tid = threadIdx.x, tx = tid % TPR, ty = tid / TPR;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;   // longest rows first
+  const long bh = blockIdx.y;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KV);
+  const long q_stride = long(H) * D, kv_stride = long(KV) * D;
+  const T* kb = k + (long(b) * S * KV + kvh) * D;
+  const T* vb = v + (long(b) * S * KV + kvh) * D;
+  load_rows<T, BT, D>(sQ, q + (long(b) * S * H + h) * D, q_stride, q0, S,
+                      tid);
+  load_rows<T, BT, D>(sO, dout + (long(b) * S * H + h) * D, q_stride, q0, S,
+                      tid);
+  if (tid < BT) {
+    const int s = q0 + tid;
+    sL[tid] = s < S ? lse[bh * S + s] : 0.f;
+    sDl[tid] = s < S ? delta[bh * S + s] : 0.f;
+  }
+
+  float acc[RI][DJ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+
+  // key tiles that can be unmasked for some row of this q tile
+  const int q_last = min(q0 + BT, S) - 1;
+  const int kv_end = causal ? q_last + 1 : S;                 // exclusive
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  for (int k0 = (kv_begin / BT) * BT; k0 < kv_end; k0 += BT) {
+    __syncthreads();   // the last tile's sK/sS reads are done
+    load_rows<T, BT, D>(sK, kb, kv_stride, k0, S, tid);
+    load_rows<T, BT, D>(sV, vb, kv_stride, k0, S, tid);
+    __syncthreads();
+    scores<D, SOFTCAP>(sQ, sO, sK, sV, sL, sDl, nullptr, sS, q0, k0, S,
+                       scale, causal, window, softcap, tx, ty);
+    __syncthreads();
+    // dQ += dS K: q rows ty + 16 i, columns tx + 16 j
+#pragma unroll 2
+    for (int c = 0; c < BT; ++c) {
+      float sv[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) sv[i] = sS[(ty + TPR * i) * LP + c];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const float kk = sK[c * LD + tx + TPR * j];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(sv[i], kk, acc[i][j]);
+      }
+    }
+  }
+  T* dqb = dq + (long(b) * S * H + h) * D;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int s = q0 + ty + TPR * i;
+    if (s >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j)
+      dqb[long(s) * q_stride + tx + TPR * j] = from_f32<T>(acc[i][j] * scale);
+  }
+}
+
+template <typename T, int D, bool SOFTCAP>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int B, int S,
+                   int H, int KV, int causal, int window, float softcap,
+                   cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  constexpr int BT = tile<D>();
+  auto k_dkdv = dkdv_kernel<T, D, SOFTCAP>;
+  auto k_dq = dq_kernel<T, D, SOFTCAP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(k_dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(smem));
+  if (e != cudaSuccess) return e;
+  if (B * H > 65535) return cudaErrorInvalidValue;
+  const float scale = float(1.0 / sqrt(double(D)));
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const int rows = B * S * H;
+  delta_kernel<T><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const T*>(o), tdo, delta, rows, S, H, D);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int n_t = (S + BT - 1) / BT;
+  k_dkdv<<<dim3(n_t, B * KV), NT, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      S, H, KV, scale, causal, window, softcap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  k_dq<<<dim3(n_t, B * H), NT, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, KV, scale,
+      causal, window, softcap);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// Backward, bf16 at head dims 64 and 128: the products on the tensor cores
+// (mma.sync.m16n8k16, bf16 operands, f32 accumulation), the same three
+// grids and the same arithmetic as namespace bwd, whose D = rowsum(dO * O)
+// kernel it shares. Tiles are copied with cp.async into row-padded shared
+// memory (conflict-free ldmatrix, no swizzle) and read as fragments with
+// ldmatrix; P and dS are rounded to bf16 as the A operands of the next
+// products straight from the accumulators' registers (a relative error of
+// at most 2^-9 each, as the forward's P). Each block is four warps, each
+// warp 16 rows of the block's tile:
+//   * dkdv: 64 keys a block; S^T = K.Q^T and dP^T = V.dO^T for 32 queries
+//     at a time, then dV += P^T.dO and dK += dS^T.Q into registers;
+//   * dq: 64 queries a block; S = Q.K^T and dP = dO.V^T for 32 keys at a
+//     time, then dQ += dS.K.
+// What holds it back: one stage of shared memory (each tile's copy waits),
+// mma.sync rather than wgmma, and the scores computed twice (once a pass);
+// a wgmma/TMA design with dQ by atomics is the next step.
+namespace bwd_tc {
+
+using namespace mma_bf16;
+
+constexpr int NT = 128;         // four warps
+constexpr int BR = 64;          // the block's own rows (keys or queries)
+constexpr int BC = 32;          // the rows walked a step (queries or keys)
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // two BR x D tiles (the block's own), two BC x D tiles (walked), each row
+  // padded by PAD; lse and D of the query rows (dkdv: BC, dq: BR)
+  return sizeof(bf16) * size_t(2 * BR + 2 * BC) * (D + PAD) +
+         2 * BR * sizeof(float);
+}
+
+// ROWS x D rows s0.. of a tensor whose rows are `stride` elements apart,
+// into dst (row pitch D + PAD) with 16-byte cp.async; rows past S are 0
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          long stride, int s0, int S,
+                                          int tid) {
+  constexpr int CH = D / 8;
+  for (int i = tid; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = i % CH, s = s0 + r;
+    const bool ok = s < S;
+    cp_async16(dst + r * (D + PAD) + c * 8,
+               src + (ok ? long(s) * stride + c * 8 : 0), ok);
+  }
+}
+
+// acc (16 x BC, 4 n8 blocks) = A (this warp's 16 rows of sA) . B^T, B the
+// BC rows of sB, both (rows, D) in shared memory (D contiguous)
+template <int D>
+__device__ __forceinline__ void rows_dot(float (&acc)[BC / 8][4],
+                                         const bf16* sA, const bf16* sB,
+                                         int lane) {
+  constexpr int LD = D + PAD;
+#pragma unroll
+  for (int j = 0; j < BC / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(sA + (lane % 16) * LD + kk * 16 + (lane / 16) * 8, a[0], a[1],
+            a[2], a[3]);
+#pragma unroll
+    for (int p = 0; p < BC / 16; ++p) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4(sB + (p * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
+                  ((lane / 8) % 2) * 8,
+              b0, b1, b2, b3);
+      mma(acc[2 * p], a, b0, b1);
+      mma(acc[2 * p + 1], a, b2, b3);
+    }
+  }
+}
+
+// acc (16 x D) += A (16 x BC, bf16 fragments from registers) . sB, sB the
+// (BC, D) rows in shared memory (D contiguous)
+template <int D>
+__device__ __forceinline__ void frag_times_rows(float (&acc)[D / 8][4],
+                                                const uint32_t (&a)[BC / 16][4],
+                                                const bf16* sB, int lane) {
+  constexpr int LD = D + PAD;
+#pragma unroll
+  for (int kk = 0; kk < BC / 16; ++kk)
+#pragma unroll
+    for (int p = 0; p < D / 16; ++p) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4_t(sB + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
+                    p * 16 + (lane / 16) * 8,
+                b0, b1, b2, b3);
+      mma(acc[2 * p], a[kk], b0, b1);
+      mma(acc[2 * p + 1], a[kk], b2, b3);
+    }
+}
+
+// P and dS (without the scale) of one 16 x BC tile, packed to bf16 A
+// fragments: s and dp are the accumulators of the scores and of dO.V^T
+// (rows along the warp's 16, columns along BC); qpos/kpos give each
+// element's query and key; lse and delta are read per query.
+template <bool SOFTCAP, bool ROWS_ARE_KEYS>
+__device__ __forceinline__ void probs(const float (&s)[BC / 8][4],
+                                      const float (&dp)[BC / 8][4],
+                                      uint32_t (&p)[BC / 16][4],
+                                      uint32_t (&ds)[BC / 16][4],
+                                      const float* sL, const float* sDl,
+                                      int row0, int col0, int lane, int S,
+                                      float scale, int causal, int window,
+                                      float softcap) {
+  const int g = lane / 4, t = lane % 4;
+  float pv[BC / 8][4], dv[BC / 8][4];
+#pragma unroll
+  for (int j = 0; j < BC / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + 8 * (i >> 1), c = j * 8 + 2 * t + (i & 1);
+      const int qpos = ROWS_ARE_KEYS ? col0 + c : row0 + r;
+      const int kpos = ROWS_ARE_KEYS ? row0 + r : col0 + c;
+      // lse and D are kept per walked row (keys' pass: the queries)
+      const int li = ROWS_ARE_KEYS ? c : r;
+      bool ok = qpos < S && kpos < S;
+      if (causal) ok = ok && qpos >= kpos;
+      if (window > 0) ok = ok && qpos - kpos < window;
+      float x = s[j][i] * scale, th = 0.f;
+      if constexpr (SOFTCAP) {
+        th = tanhf(x / softcap);
+        x = th * softcap;
+      }
+      const float pr = ok ? expf(x - sL[li]) : 0.f;
+      float d = pr * (dp[j][i] - sDl[li]);
+      if constexpr (SOFTCAP) d *= 1.f - th * th;
+      pv[j][i] = pr;
+      dv[j][i] = d;
+    }
+#pragma unroll
+  for (int kk = 0; kk < BC / 16; ++kk) {
+    p[kk][0] = pack_bf16(pv[2 * kk][0], pv[2 * kk][1]);
+    p[kk][1] = pack_bf16(pv[2 * kk][2], pv[2 * kk][3]);
+    p[kk][2] = pack_bf16(pv[2 * kk + 1][0], pv[2 * kk + 1][1]);
+    p[kk][3] = pack_bf16(pv[2 * kk + 1][2], pv[2 * kk + 1][3]);
+    ds[kk][0] = pack_bf16(dv[2 * kk][0], dv[2 * kk][1]);
+    ds[kk][1] = pack_bf16(dv[2 * kk][2], dv[2 * kk][3]);
+    ds[kk][2] = pack_bf16(dv[2 * kk + 1][0], dv[2 * kk + 1][1]);
+    ds[kk][3] = pack_bf16(dv[2 * kk + 1][2], dv[2 * kk + 1][3]);
+  }
+}
+
+// a warp's 16 x D accumulator (times `mul`) to rows row0.. of a (rows, D)
+// tensor whose rows are `stride` elements apart; rows past S are skipped
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4],
+                                           long stride, int row0, int S,
+                                           float mul, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = row0 + g + 8 * h;
+    if (s >= S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + long(s) * stride + j * 8 + 2 * t) =
+          pack_bf16(acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
+  }
+}
+
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(NT)
+dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
+            int KV, float scale, int causal, int window, float softcap) {
+  constexpr int LD = D + PAD;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_tc);
+  bf16* sV = sK + BR * LD;
+  bf16* sQ = sV + BR * LD;
+  bf16* sO = sQ + BC * LD;          // dO
+  float* sL = reinterpret_cast<float*>(sO + BC * LD);
+  float* sDl = sL + BC;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * BR;   // the longest causal blocks first
+  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV, G = H / KV;
+  const long q_stride = long(H) * D, kv_stride = long(KV) * D;
+  load_rows<BR, D>(sK, k + (long(b) * S * KV + kvh) * D, kv_stride, k0, S,
+                   tid);
+  load_rows<BR, D>(sV, v + (long(b) * S * KV + kvh) * D, kv_stride, k0, S,
+                   tid);
+  cp_async_commit();
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.f;
+
+  const int krow0 = k0 + warp * 16;
+  const int k_last = min(k0 + BR, S) - 1;
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(S, k_last + window) : S;   // exclusive
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const long bh = long(b) * H + h;
+    for (int q0 = (q_begin / BC) * BC; q0 < q_end; q0 += BC) {
+      __syncthreads();   // the last tile's reads are done
+      load_rows<BC, D>(sQ, q + (long(b) * S * H + h) * D, q_stride, q0, S,
+                       tid);
+      load_rows<BC, D>(sO, dout + (long(b) * S * H + h) * D, q_stride, q0,
+                       S, tid);
+      cp_async_commit();
+      if (tid < BC) {
+        const int s = q0 + tid;
+        sL[tid] = s < S ? lse[bh * S + s] : 0.f;
+        sDl[tid] = s < S ? delta[bh * S + s] : 0.f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+      uint32_t p[BC / 16][4], ds[BC / 16][4];
+      {
+        float st[BC / 8][4], dpt[BC / 8][4];
+        rows_dot<D>(st, sK + warp * 16 * LD, sQ, lane);    // S^T = K.Q^T
+        rows_dot<D>(dpt, sV + warp * 16 * LD, sO, lane);   // dP^T = V.dO^T
+        probs<SOFTCAP, true>(st, dpt, p, ds, sL, sDl, krow0, q0, lane, S,
+                             scale, causal, window, softcap);
+      }
+      frag_times_rows<D>(acc_v, p, sO, lane);     // dV += P^T.dO
+      frag_times_rows<D>(acc_k, ds, sQ, lane);    // dK += dS^T.Q
+    }
+  }
+  cp_async_wait<0>();   // a block with no q tile still drains its copies
+  store_rows<D>(dk + (long(b) * S * KV + kvh) * D, acc_k, kv_stride, krow0,
+                S, scale, lane);
+  store_rows<D>(dv + (long(b) * S * KV + kvh) * D, acc_v, kv_stride, krow0,
+                S, 1.f, lane);
+}
+
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(NT)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          bf16* __restrict__ dq, int S, int H, int KV, float scale,
+          int causal, int window, float softcap) {
+  constexpr int LD = D + PAD;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_tc);
+  bf16* sO = sQ + BR * LD;          // dO
+  bf16* sK = sO + BR * LD;
+  bf16* sV = sK + BC * LD;
+  float* sL = reinterpret_cast<float*>(sV + BC * LD);   // the block's rows
+  float* sDl = sL + BR;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;   // longest rows first
+  const long bh = blockIdx.y;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KV);
+  const long q_stride = long(H) * D, kv_stride = long(KV) * D;
+  const bf16* kb = k + (long(b) * S * KV + kvh) * D;
+  const bf16* vb = v + (long(b) * S * KV + kvh) * D;
+  load_rows<BR, D>(sQ, q + (long(b) * S * H + h) * D, q_stride, q0, S, tid);
+  load_rows<BR, D>(sO, dout + (long(b) * S * H + h) * D, q_stride, q0, S,
+                   tid);
+  cp_async_commit();
+  if (tid < BR) {
+    const int s = q0 + tid;
+    sL[tid] = s < S ? lse[bh * S + s] : 0.f;
+    sDl[tid] = s < S ? delta[bh * S + s] : 0.f;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  const int qrow0 = q0 + warp * 16;
+  const int q_last = min(q0 + BR, S) - 1;
+  const int kv_end = causal ? q_last + 1 : S;                 // exclusive
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  for (int k0 = (kv_begin / BC) * BC; k0 < kv_end; k0 += BC) {
+    __syncthreads();   // the last tile's reads are done
+    load_rows<BC, D>(sK, kb, kv_stride, k0, S, tid);
+    load_rows<BC, D>(sV, vb, kv_stride, k0, S, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    uint32_t p[BC / 16][4], ds[BC / 16][4];
+    {
+      float s[BC / 8][4], dp[BC / 8][4];
+      rows_dot<D>(s, sQ + warp * 16 * LD, sK, lane);     // S = Q.K^T
+      rows_dot<D>(dp, sO + warp * 16 * LD, sV, lane);    // dP = dO.V^T
+      probs<SOFTCAP, false>(s, dp, p, ds, sL + warp * 16, sDl + warp * 16,
+                            qrow0, k0, lane, S, scale, causal, window,
+                            softcap);
+    }
+    frag_times_rows<D>(acc, ds, sK, lane);       // dQ += dS.K
+  }
+  store_rows<D>(dq + (long(b) * S * H + h) * D, acc, q_stride, qrow0, S,
+                scale, lane);
+}
+
+template <int D, bool SOFTCAP>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int B, int S,
+                   int H, int KV, int causal, int window, float softcap,
+                   cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  auto k_dkdv = dkdv_kernel<D, SOFTCAP>;
+  auto k_dq = dq_kernel<D, SOFTCAP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(k_dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(smem));
+  if (e != cudaSuccess) return e;
+  if (B * H > 65535) return cudaErrorInvalidValue;
+  const float scale = float(1.0 / sqrt(double(D)));
+  const bf16* tq = static_cast<const bf16*>(q);
+  const bf16* tk = static_cast<const bf16*>(k);
+  const bf16* tv = static_cast<const bf16*>(v);
+  const bf16* tdo = static_cast<const bf16*>(dout);
+  const int rows = B * S * H;
+  bwd::delta_kernel<bf16><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const bf16*>(o), tdo, delta, rows, S, H, D);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int n_t = (S + BR - 1) / BR;
+  k_dkdv<<<dim3(n_t, B * KV), NT, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, H, KV, scale, causal, window, softcap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  k_dq<<<dim3(n_t, B * H), NT, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), S, H, KV, scale,
+      causal, window, softcap);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd_tc
+
+// The backward for one head dim: bf16 at D 64 and 128 on the tensor cores
+// (bwd_tc), f32, and bf16 at D 256, on the CUDA cores (bwd)
+template <int D, bool SOFTCAP>
+cudaError_t launch_bwd_cap(const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const float* lse,
+                           float* delta, void* dq, void* dk, void* dv,
+                           int dtype, int B, int S, int H, int KV, int causal,
+                           int window, float softcap, cudaStream_t st) {
+  if (dtype == 0)
+    return bwd::launch<float, D, SOFTCAP>(q, k, v, o, dout, lse, delta, dq,
+                                          dk, dv, B, S, H, KV, causal,
+                                          window, softcap, st);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if constexpr (D <= 128)
+    return bwd_tc::launch<D, SOFTCAP>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, B, S, H, KV, causal, window,
+                                      softcap, st);
+  else
+    return bwd::launch<__nv_bfloat16, D, SOFTCAP>(
+        q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal,
+        window, softcap, st);
+}
+
+template <int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* delta, void* dq, void* dk, void* dv, int dtype,
+                       int B, int S, int H, int KV, int causal, int window,
+                       float softcap, cudaStream_t st) {
+  return softcap > 0.f
+             ? launch_bwd_cap<D, true>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, dtype, B, S, H, KV, causal, window,
+                                       softcap, st)
+             : launch_bwd_cap<D, false>(q, k, v, o, dout, lse, delta, dq, dk,
+                                        dv, dtype, B, S, H, KV, causal,
+                                        window, softcap, st);
+}
+
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int dtype, int B, int S, int H, int KV, int causal,
-                     int window, float softcap, cudaStream_t st) {
+                     float* lse, int dtype, int B, int S, int H, int KV,
+                     int causal, int window, float softcap, cudaStream_t st) {
   if (dtype == 0)
-    return f32::launch<D>(q, k, v, o, B, S, H, KV, causal, window, softcap, st);
+    return f32::launch<D>(q, k, v, o, lse, B, S, H, KV, causal, window,
+                          softcap, st);
   if (dtype == 1)
-    return bf16wg::launch<D>(q, k, v, o, B, S, H, KV, causal, window,
+    return bf16wg::launch<D>(q, k, v, o, lse, B, S, H, KV, causal, window,
                              softcap, st);
   return cudaErrorInvalidValue;
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int dtype, int B, int S, int H, int KV, int D,
-                     int causal, int window, float softcap, cudaStream_t st) {
+                     float* lse, int dtype, int B, int S, int H, int KV,
+                     int D, int causal, int window, float softcap,
+                     cudaStream_t st) {
   switch (D) {
-    case 16: return launch_d<16>(q, k, v, o, dtype, B, S, H, KV, causal, window, softcap, st);
-    case 32: return launch_d<32>(q, k, v, o, dtype, B, S, H, KV, causal, window, softcap, st);
-    case 64: return launch_d<64>(q, k, v, o, dtype, B, S, H, KV, causal, window, softcap, st);
-    case 128: return launch_d<128>(q, k, v, o, dtype, B, S, H, KV, causal, window, softcap, st);
-    case 256: return launch_d<256>(q, k, v, o, dtype, B, S, H, KV, causal, window, softcap, st);
+    case 16: return launch_d<16>(q, k, v, o, lse, dtype, B, S, H, KV, causal, window, softcap, st);
+    case 32: return launch_d<32>(q, k, v, o, lse, dtype, B, S, H, KV, causal, window, softcap, st);
+    case 64: return launch_d<64>(q, k, v, o, lse, dtype, B, S, H, KV, causal, window, softcap, st);
+    case 128: return launch_d<128>(q, k, v, o, lse, dtype, B, S, H, KV, causal, window, softcap, st);
+    case 256: return launch_d<256>(q, k, v, o, lse, dtype, B, S, H, KV, causal, window, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -591,13 +1354,37 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q: (B, S, H, D), k/v: (B, S, KV, D), o: (B, S, H, D), all contiguous, one
-// dtype (0 = float32, 1 = bfloat16). Returns the cudaError_t of the launch.
+// dtype (0 = float32, 1 = bfloat16); lse: null (serving) or (B, H, S) f32,
+// each row's log-sum-exp for the backward. Returns the cudaError_t of the
+// launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int B, int S, int H,
-                                   int KV, int D, int causal, int window,
-                                   float softcap, void* stream) {
+                                   void* o, float* lse, int dtype, int B,
+                                   int S, int H, int KV, int D, int causal,
+                                   int window, float softcap, void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0)
     return int(cudaErrorInvalidValue);
-  return int(dispatch(q, k, v, o, dtype, B, S, H, KV, D, causal, window,
+  return int(dispatch(q, k, v, o, lse, dtype, B, S, H, KV, D, causal, window,
                       softcap, static_cast<cudaStream_t>(stream)));
+}
+
+// The backward: q, k, v, o and dout (the gradient of o) as the forward's
+// tensors, lse the forward's (B, H, S) f32 output, delta a (B, H, S) f32
+// scratch buffer; writes dq (B, S, H, D), dk and dv (B, S, KV, D) in the
+// inputs' dtype. Head dims 64, 128 and 256. Returns the first cudaError_t
+// of its three launches.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
+                                   const void* o, const void* dout,
+                                   const float* lse, float* delta, void* dq,
+                                   void* dk, void* dv, int dtype, int B,
+                                   int S, int H, int KV, int D, int causal,
+                                   int window, float softcap, void* stream) {
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return int(launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, S, H, KV, causal, window, softcap, st));
+    case 128: return int(launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, S, H, KV, causal, window, softcap, st));
+    case 256: return int(launch_bwd<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, S, H, KV, causal, window, softcap, st));
+    default: return int(cudaErrorInvalidValue);
+  }
 }

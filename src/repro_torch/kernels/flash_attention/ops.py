@@ -1,8 +1,13 @@
 """Public flash attention op in the model's (B, S, H, D) layout.
 
-CPU tensors take the plain version (``ref.attention_ref``); CUDA tensors
-launch the hand-written kernel in ``csrc/flash_attention.cu`` or raise. There
-is no fallback from the card to the plain version.
+CPU tensors take the plain version (``ref.attention_ref``, differentiated
+by autograd); CUDA tensors launch the hand-written kernels in
+``csrc/flash_attention.cu`` or raise. There is no fallback from the card to
+the plain version. Where autograd records the call (grad enabled and an
+input that requires grad), the CUDA path runs ``FlashAttention``: its
+forward launches the kernel with each row's log-sum-exp and saves (q, k, v,
+o, lse), its backward launches the backward kernel. ``launches`` counts
+forward launches (serving and training), ``bwd_launches`` backward ones.
 """
 from __future__ import annotations
 
@@ -16,11 +21,13 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches in this process; a run resets it to show which calls went
-# through the kernel
+# kernel launches in this process, forward and backward; a run resets them
+# to show which calls went through the kernels
 launches = 0
+bwd_launches = 0
 _lib = None
 
 
@@ -32,8 +39,14 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = _build.load(SOURCE)
     fn = lib.flash_attention_fwd
-    # q, k, v, o; dtype, B, S, H, KV, D, causal, window; softcap; stream
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    # q, k, v, o, lse; dtype, B, S, H, KV, D, causal, window; softcap; stream
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.flash_attention_bwd
+    # q, k, v, o, dout, lse, delta, dq, dk, dv; dtype, B, S, H, KV, D,
+    # causal, window; softcap; stream
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _lib = lib
@@ -55,23 +68,12 @@ def _check(q, k, v):
         raise ValueError("q, k and v must be on one device")
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """q: (B, S, H, D); k/v: (B, S, KV, D). Returns (B, S, H, D) in q's
-    dtype. ``window`` > 0 keeps keys with qpos - kpos < window; ``softcap``
-    > 0 applies ``tanh(s / cap) * cap`` to the scaled scores."""
-    global launches
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
-                         f"{q.device.type}")
-    b, s, h, d = q.shape
+def _check_cuda(q, k, v, head_dims=HEAD_DIMS):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")
+    if q.shape[3] not in head_dims:
+        raise ValueError(f"the kernel takes head dims {head_dims}, not "
+                         f"{q.shape[3]}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel reads q, k, v in place: pass contiguous "
                          "tensors")
@@ -79,11 +81,20 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
                                          for t in (q, k, v)):
         raise ValueError("the bf16 kernel copies 16-byte rows: q, k and v "
                          "must start on a 16-byte boundary")
+
+
+def _forward(q, k, v, causal, window, softcap, with_lse: bool):
+    """Launch the forward kernel: (out, lse or None)."""
+    global launches
+    b, s, h, d = q.shape
     lib = load_library()
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             _DTYPE_CODE[q.dtype], b, s, h, k.shape[2], d, int(bool(causal)),
             int(window), float(softcap),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -92,4 +103,85 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
                            f"error {err} (B={b}, S={s}, H={h}, "
                            f"KV={k.shape[2]}, D={d}, {q.dtype})")
     launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=0,
+                        softcap=0.0):
+    """Launch the backward kernel: (dq, dk, dv) in q's dtype for the output
+    gradient ``dout``, from the forward's ``out`` and ``lse`` (B, H, S) f32.
+    CUDA tensors only; head dims ``BWD_HEAD_DIMS``."""
+    global bwd_launches
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError("the backward kernel runs on cuda tensors; the plain "
+                         "backward is ref.attention_ref_bwd")
+    _check_cuda(q, k, v, BWD_HEAD_DIMS)
+    b, s, h, d = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or \
+            out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"out and dout must match q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be (B, H, S) = {(b, h, s)} float32")
+    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    lib = load_library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, s, h,
+            k.shape[2], d, int(bool(causal)), int(window), float(softcap),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention backward launch failed with "
+                           f"CUDA error {err} (B={b}, S={s}, H={h}, "
+                           f"KV={k.shape[2]}, D={d}, {q.dtype})")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel pair as one differentiable op on CUDA tensors: forward
+    with the log-sum-exp, saving (q, k, v, o, lse); backward on the
+    backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _forward(q, k, v, causal, window, softcap, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=causal, window=window,
+                                         softcap=softcap)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """q: (B, S, H, D); k/v: (B, S, KV, D). Returns (B, S, H, D) in q's
+    dtype. ``window`` > 0 keeps keys with qpos - kpos < window; ``softcap``
+    > 0 applies ``tanh(s / cap) * cap`` to the scaled scores.
+    Differentiable: on the card through ``FlashAttention`` (head dims
+    ``BWD_HEAD_DIMS``), on the CPU through the plain version."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device.type}")
+    _check_cuda(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.shape[3] not in BWD_HEAD_DIMS:
+            raise ValueError(f"the backward kernel takes head dims "
+                             f"{BWD_HEAD_DIMS}, not {q.shape[3]}")
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, softcap, with_lse=False)[0]

@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the flash attention kernel: a materialised
-softmax in f32 (O(S^2) memory). The wrapper uses it for CPU tensors, and the
-on-card check holds the CUDA kernel against it."""
+"""Plain PyTorch version of the flash attention kernels: a materialised
+softmax in f32 (O(S^2) memory), and its backward by autograd. The wrapper
+uses them for CPU tensors, and the on-card checks hold the CUDA kernels
+against them."""
 from __future__ import annotations
 
 import math
@@ -30,3 +31,14 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqt,btkd->bqkgd", probs, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def attention_ref_bwd(q, k, v, dout, *, causal=True, window=0, softcap=0.0):
+    """The plain backward: (dq, dk, dv) of ``attention_ref`` for the output
+    gradient ``dout``, by autograd (f32 inside, each gradient in its
+    input's dtype)."""
+    with torch.enable_grad():
+        q_, k_, v_ = (t.detach().requires_grad_() for t in (q, k, v))
+        out = attention_ref(q_, k_, v_, causal=causal, window=window,
+                            softcap=softcap)
+        return torch.autograd.grad(out, (q_, k_, v_), dout)

@@ -6,6 +6,7 @@ shared attention+MLP block applied after each):
 
     model = build_model(cfg, device="cuda")
     params = model.init(generator)
+    logits, aux = model.forward(params, tokens)          # train mode
     logits, caches = model.prefill(params, tokens, max_seq)
     logits, caches = model.decode(params, caches, tokens, pos)
     logits, caches = model.prefill_chunk(params, caches, tokens, pos0)
@@ -36,18 +37,26 @@ Ported: every token-input config: dense and MoE transformers with global
 or sliding-window attention, QKV bias, QK norm, post norms and softcaps
 (``yi-9b``, ``qwen2-72b``, ``gemma2-27b``, ``gemma3-12b``,
 ``granite-moe-1b-a400m``, ``llama4``), pure SSM (``mamba2-370m``) and the
-hybrid (``zamba2-1.2b``). The ``embeddings`` input mode (``musicgen``,
-``internvl2``) raises ``NotImplementedError``. ``model.kernel_ops`` lists
+hybrid (``zamba2-1.2b``). Training (``forward``) is ported for the
+transformers: each super-block runs under ``cfg.remat_policy`` (``"full"``
+recomputes it in the backward, ``"minimal"`` saves its matmul outputs,
+``"none"`` saves everything), attention through the flash op's forward and
+backward kernels, MoE through the grouped matmul's. The SSM and hybrid
+``forward`` and the ``embeddings`` input mode (``musicgen``, ``internvl2``)
+raise ``NotImplementedError`` (ROADMAP A.7b). ``model.kernel_ops`` lists
 the kernel modules the model's path launches.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from types import SimpleNamespace
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -178,7 +187,9 @@ def _write_index(pos0, c: int, cache_len: int, rows=None, device=None,
 def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
               cache=None, pos=None, max_seq: Optional[int] = None,
               write=None, rows=None):
-    """One transformer sub-layer. Returns (h, new_cache).
+    """One transformer sub-layer. Returns (h, new_cache); in ``train``
+    mode (h, aux), aux the MoE layer's load-balance term (0 for a dense
+    FFN), differentiable.
 
     ``prefill``: attention over the whole sequence on the flash op; the new
     cache is this layer's K/V padded to ``max_seq``. ``decode``: one token
@@ -189,7 +200,9 @@ def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
     chunk attends over its rows of the cache, ``rows`` of it when given.
     ``write`` is the sub's ``_write_index`` (decode and chunk). A rolling
     sub (window < ``max_seq``, the global caches' length) keeps a cache of
-    its window and decodes at slot ``pos % window``."""
+    its window and decodes at slot ``pos % window``. ``train``: the
+    prefill's attention with no cache, differentiable (on the card the
+    flash op's forward and backward kernels)."""
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = L.qkv_proj(p["attn"], cfg, hn, positions, sub.theta)
     if mode in ("decode", "chunk"):
@@ -210,20 +223,26 @@ def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
         kc, vc = _build_prefill_cache(k, v, _cache_len(sub, max_seq))
         new_cache = {"k": kc, "v": vc}
         attn = L.attention(cfg, q, k, v, window=sub.window)
+    elif mode == "train":
+        attn = L.attention(cfg, q, k, v, window=sub.window)
     else:
         raise ValueError(f"mode {mode!r} is not ported (prefill, decode, "
-                         f"chunk)")
+                         f"chunk, train)")
     out = L.out_proj(attn, p["attn"]["wo"])
     if cfg.post_norm:
         out = L.rms_norm(out, p["post_ln1"], cfg.norm_eps)
     h = h + out
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    aux = None
     if sub.ffn == "dense":
         mo = L.mlp_apply(p["mlp"], hn)
     else:
-        mo, _ = MOE.moe_apply(p["moe"], cfg, hn)
+        mo, aux = MOE.moe_apply(p["moe"], cfg, hn)
     if cfg.post_norm:
         mo = L.rms_norm(mo, p["post_ln2"], cfg.norm_eps)
+    if mode == "train":
+        return h + mo, (aux if aux is not None else
+                        torch.zeros((), dtype=torch.float32, device=h.device))
     return h + mo, new_cache
 
 
@@ -236,6 +255,33 @@ def init_sub_cache(cfg, sub: Sub, n_super: int, batch: int, max_seq: int,
 
 
 # ---------------------------------------------------------------------------
+# Remat policies
+# ---------------------------------------------------------------------------
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective checkpointing as JAX's ``dots_with_no_batch_dims_saveable``:
+    keep the outputs of matmuls without batch dims, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy_name: str):
+    """``fn`` under ``policy_name``: "none" as it is, "minimal" saving its
+    matmul outputs, "full" recomputing all of it in the backward."""
+    if policy_name == "none":
+        return fn
+    kw = {}
+    if policy_name == "minimal":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    # no random ops run inside: no RNG state to stash
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
+
+
+# ---------------------------------------------------------------------------
 # Model builder
 # ---------------------------------------------------------------------------
 
@@ -245,9 +291,21 @@ def _dtype(cfg) -> torch.dtype:
 
 
 def _layer(tree: dict, i: int) -> dict:
-    """Super-block ``i`` of a stacked param/cache dict (views, no copies)."""
+    """Super-block ``i`` of a stacked param/cache dict (views, no copies),
+    or item ``i`` of a list of per-super-block dicts."""
+    if isinstance(tree, list):
+        return tree[i]
     return {k: _layer(x, i) if isinstance(x, dict) else x[i]
             for k, x in tree.items()}
+
+
+def check_trainable(cfg: ModelConfig):
+    """Raise ``NotImplementedError`` naming ROADMAP A.7b for a family the
+    port cannot train yet (SSM, hybrid: no ``forward``)."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family is not ported yet "
+            f"(ROADMAP A.7b: mamba_block, the SSD backward kernel)")
 
 
 def build_model(cfg: ModelConfig, device=None):
@@ -257,7 +315,8 @@ def build_model(cfg: ModelConfig, device=None):
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            f"serves token inputs: dense, MoE, SSM and hybrid)")
+            f"serves token inputs: dense, MoE, SSM and hybrid; ROADMAP "
+            f"A.7b)")
     device = resolve_device(device)
     if cfg.family == "ssm":
         return _build_ssm(cfg, device)
@@ -293,6 +352,38 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
                                   rows=rows)
                 new_caches[j].append(nc)
         return L.rms_norm(h, params["final_norm"], cfg.norm_eps), new_caches
+
+    def split_blocks(params):
+        """``params`` with each stacked block dict split into a list of its
+        ``n_super`` super-blocks (views of the stacked tensors, no copies):
+        ``forward`` takes either form, and a train step differentiates the
+        split form's leaves, so each super-block's gradient is its own
+        tensor rather than a scatter into the whole stack."""
+        return {**params, "blocks": [[_layer(bp, i) for i in range(n_super)]
+                                     for bp in params["blocks"]]}
+
+    def _train_block(block_params, h, aux, positions):
+        for sub, bp in zip(subs, block_params):
+            h, a = sub_apply(bp, cfg, sub, h, positions, "train")
+            aux = aux + a
+        return h, aux
+
+    def forward(params, inputs):
+        """Train mode. inputs: (B, S) token ids at positions 0..S-1.
+        Returns (logits (B, S, padded vocab) f32, aux): aux the summed MoE
+        load-balance terms (f32 scalar; 0 for a dense model), both
+        differentiable. Each super-block runs under ``cfg.remat_policy``.
+        ``params`` may be stacked or ``split_blocks``'s form."""
+        s = inputs.shape[1]
+        positions = torch.arange(s, device=inputs.device)[None, :]
+        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        block = _remat(_train_block, cfg.remat_policy)
+        for i in range(n_super):
+            h, aux = block([_layer(bp, i) for bp in params["blocks"]], h, aux,
+                           positions)
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return L.unembed_apply(params["embed"], cfg, h), aux
 
     def _writes(caches, pos0, c: int, rows=None, device=None):
         """(max_seq, each sub's ``_write_index``): one index for the global
@@ -380,7 +471,8 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
 
     kernel_ops = (flash_ops,) + ((gmm_ops,) if any(
         s.ffn == "moe" for s in subs) else ())
-    return SimpleNamespace(cfg=cfg, device=device, init=init, prefill=prefill,
+    return SimpleNamespace(cfg=cfg, device=device, init=init, forward=forward,
+                           split_blocks=split_blocks, prefill=prefill,
                            decode=decode, prefill_chunk=prefill_chunk,
                            decode_verify=decode_verify, init_cache=init_cache,
                            n_super=n_super, subs=subs, kernel_ops=kernel_ops)
@@ -471,9 +563,12 @@ def _build_ssm(cfg: ModelConfig, device: torch.device):
         return M.init_mamba_cache(cfg, batch, dtype, cache_device or device,
                                   n)
 
-    return SimpleNamespace(cfg=cfg, device=device, init=init, prefill=prefill,
-                           decode=decode, init_cache=init_cache,
-                           kernel_ops=(ssd_ops,))
+    def forward(params, inputs):
+        check_trainable(cfg)
+
+    return SimpleNamespace(cfg=cfg, device=device, init=init, forward=forward,
+                           prefill=prefill, decode=decode,
+                           init_cache=init_cache, kernel_ops=(ssd_ops,))
 
 
 def _hybrid_layout(cfg):
@@ -554,6 +649,10 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device):
                 init_sub_cache(cfg, shared, n_apps, batch, max_seq, dtype,
                                dev))
 
-    return SimpleNamespace(cfg=cfg, device=device, init=init, prefill=prefill,
-                           decode=decode, init_cache=init_cache,
+    def forward(params, inputs):
+        check_trainable(cfg)
+
+    return SimpleNamespace(cfg=cfg, device=device, init=init, forward=forward,
+                           prefill=prefill, decode=decode,
+                           init_cache=init_cache,
                            kernel_ops=(ssd_ops, flash_ops))

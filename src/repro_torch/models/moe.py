@@ -65,13 +65,22 @@ def _expert_buffers(x_flat, topk_w, topk_idx, num_experts: int,
     (E, C) f32). Assignment j (token-major, then slot k) for expert e lands
     in slot ``rank_j``, its order among e's assignments, if rank_j < C; the
     rest go to a spill row that is dropped. The JAX package loops over
-    experts with one cumsum each; here one cumsum over a (T*k, E) one-hot
-    gives every rank at once, with the same result."""
+    experts with one cumsum each; here a stable sort by expert gives every
+    rank at once (its place in the sort less its expert's first place),
+    with the same result: a cumsum along the (T*k) axis of a (T*k, E)
+    one-hot is one serial scan per expert on the card. The slots take their
+    token's row by a scatter, not a gather from ``buf_tok``: the gather's
+    gradient would sum every empty slot's zero into token 0 one row at a
+    time."""
     t, k = topk_idx.shape
     a = topk_idx.reshape(-1)                                   # (T*k,)
     tok = torch.arange(t, device=a.device).repeat_interleave(k)
-    rank = torch.cumsum(F.one_hot(a, num_experts), dim=0).gather(
-        1, a[:, None])[:, 0] - 1                               # order within e
+    order = torch.argsort(a, stable=True)
+    count = torch.zeros(num_experts, dtype=torch.long,
+                        device=a.device).scatter_add_(0, a, torch.ones_like(a))
+    first = torch.cumsum(count, 0) - count
+    rank = torch.empty_like(a)
+    rank[order] = torch.arange(a.numel(), device=a.device) - first[a[order]]
     keep = rank < capacity
     n = num_experts * capacity
     slot = torch.where(keep, a * capacity + rank, n)           # spill: row n
@@ -84,7 +93,10 @@ def _expert_buffers(x_flat, topk_w, topk_idx, num_experts: int,
                     torch.float32)
     buf_tok = scatter(torch.where(keep, tok, 0), torch.long)
     valid = scatter(keep, torch.float32)
-    buf_x = x_flat[buf_tok] * valid[..., None].to(x_flat.dtype)
+    d = x_flat.shape[1]
+    rows = x_flat[:, None].expand(t, k, d).reshape(t * k, d)   # row j: tok_j
+    buf_x = x_flat.new_zeros((n + 1, d)).index_put((slot,), rows)[:n].view(
+        num_experts, capacity, d)
     return buf_x, buf_w, buf_tok, valid
 
 

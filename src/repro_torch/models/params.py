@@ -13,7 +13,9 @@ exact: every leaf keeps its dtype, so the f32 leaves of a bf16 model
 (``router``, ``A_log``, ``D``, ``dt_bias``, the SSD state) stay f32. The
 caller turns JAX arrays into numpy (``jax.tree.map(np.asarray, tree)``); this
 module never sees JAX. bfloat16 numpy arrays (``ml_dtypes.bfloat16``) cross
-bit for bit.
+bit for bit. A train state (``{"params", "opt": {"m", "v", "count"[,
+"m_scale", "v_scale"]}}``, moments in the params' structure) crosses the
+same way with ``train_state_from_numpy`` / ``train_state_to_numpy``.
 """
 from __future__ import annotations
 
@@ -108,3 +110,28 @@ def to_device(tree, device):
     """Move a param or cache tree to ``device`` (no copy where it is
     already there; no leaf changes dtype)."""
     return _map(tree, lambda t: t.to(device))
+
+
+_OPT_KEYS = ({"m", "v", "count"}, {"m", "v", "count", "m_scale", "v_scale"})
+
+
+def _check_train_state(state):
+    if _keys(state) != {"params", "opt"} or _keys(state["opt"]) not in \
+            _OPT_KEYS:
+        raise ValueError("a train state is {'params', 'opt': {'m', 'v', "
+                         "'count'[, 'm_scale', 'v_scale']}}")
+    _check_params(state["params"])
+    for k in ("m", "v"):
+        _check_params(state["opt"][k])
+
+
+def train_state_from_numpy(state, device) -> dict:
+    """A JAX-layout numpy train state -> the port's tensors on ``device``
+    (0-dim leaves, the step count and int8 scales, too)."""
+    _check_train_state(state)
+    return _map(state, lambda x: _leaf_to_torch(x, device))
+
+
+def train_state_to_numpy(state) -> dict:
+    _check_train_state(state)
+    return _map(state, _leaf_to_numpy)

@@ -25,7 +25,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.fleet.driver", "repro_torch.serving.autoscaler",
             "repro_torch.observability.metrics",
             "repro_torch.observability.slo",
-            "repro_torch.observability.telemetry"} <= set(mods)
+            "repro_torch.observability.telemetry",
+            "repro_torch.optim.adamw", "repro_torch.training.train_step",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -46,3 +48,20 @@ def test_port_sources_do_not_import_jax_or_the_jax_package():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if bad.search(f.read_text())]
     assert offenders == []
+
+
+def test_training_modules_import_without_jax():
+    """The trainer's modules alone, in a fresh process: no JAX, nothing of
+    the JAX package."""
+    mods = ["repro_torch.optim.adamw", "repro_torch.training.train_step",
+            "repro_torch.launch.train"]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []

@@ -206,3 +206,103 @@ def test_chunked_prefill_on_the_card_matches_the_whole_prompt_path():
         np.testing.assert_array_equal(f.result(),
                                       greedy_generate(model, params, p, 2,
                                                       100))
+
+
+# (B, S, H, KV, D, window, softcap) for the backward kernel: the training
+# shapes of granite (D 64) and a gemma2-like softcap + window at D 128, S
+# off the 64-row tile, a window that bites, non-causal-free GQA, and D 256
+# at the 32-row tile
+BWD_CASES = [
+    (2, 128, 4, 2, 64, 0, 0.0),
+    (1, 200, 4, 1, 128, 0, 0.0),
+    (2, 77, 4, 4, 128, 0, 20.0),
+    (1, 300, 8, 4, 64, 64, 50.0),
+    (1, 130, 2, 1, 256, 0, 0.0),
+    (1, 100, 2, 2, 256, 40, 30.0),
+    (2, 512, 16, 8, 64, 0, 0.0),
+]
+
+
+# q's scale in a softcap case, so that the scaled scores reach a sizable
+# share of the cap (unit-scale inputs keep them near N(0, 1), where the
+# softcap is close to the identity and its gradient close to 1)
+SOFTCAP_Q_SCALE = 8.0
+
+
+def _bwd_tol(dtype):
+    # against an f32 plain backward, relative to the gradient's largest
+    # magnitude: f32 summation order; bf16 the gradients' rounding and the
+    # bf16 forward's output (its probabilities rounded before P.V) in D
+    return 2e-2 if dtype == torch.bfloat16 else 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,d,win,cap", BWD_CASES)
+def test_flash_backward_kernel_matches_plain_backward(b, s, h, kv, d, win,
+                                                      cap, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.flash_attention.ref import attention_ref_bwd
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    scales = (SOFTCAP_Q_SCALE if cap else 1.0, 1.0, 1.0)
+    q, k, v = ((torch.randn((b, s, n, d), generator=gen, device="cuda") * x)
+               .to(dtype).requires_grad_()
+               for n, x in zip((h, kv, kv), scales))
+    dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    before, before_bwd = ops.launches, ops.bwd_launches
+    out = ops.flash_attention(q, k, v, window=win, softcap=cap)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (ops.launches, ops.bwd_launches) == (before + 1, before_bwd + 1)
+    refs = attention_ref_bwd(*(t.detach().float() for t in (q, k, v)),
+                             dout.float(), window=win, softcap=cap)
+    tol = _bwd_tol(dtype)
+    for g, r in zip(grads, refs):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        err = float((g.float() - r).abs().max())
+        assert err <= tol * float(r.abs().max()), (err, float(r.abs().max()))
+    if cap:
+        # the check tells the softcap apart: without it the plain backward
+        # lies further than the tolerance from the kernel's gradients
+        nocap = attention_ref_bwd(*(t.detach().float() for t in (q, k, v)),
+                                  dout.float(), window=win)
+        for g, r in zip(grads, nocap):
+            apart = float((g.float() - r).abs().max())
+            assert apart > tol * float(r.abs().max()), (apart,
+                                                        float(r.abs().max()))
+
+
+# (E, C, d, f): granite's training capacity at 4 x 2048 tokens (2560), a
+# capacity off the multiple of 8, and the decode-sized capacities that take
+# the streaming kernel for dx
+GMM_BWD_CASES = [(32, 2560, 1024, 512), (32, 2560, 512, 1024),
+                 (8, 157, 256, 128), (8, 5, 256, 128), (4, 2, 104, 72)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", GMM_BWD_CASES)
+def test_grouped_matmul_backward_matches_plain_backward(e, c, d, f, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_matmul import ops as gmm
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, w = ((torch.randn(shape, generator=gen, device="cuda") * 0.3)
+            .to(dtype).requires_grad_() for shape in ((e, c, d), (e, d, f)))
+    dy = (torch.randn((e, c, f), generator=gen, device="cuda") * 0.3).to(dtype)
+    before = (gmm.launches, gmm.bwd_launches)
+    dx, dw = torch.autograd.grad(gmm.grouped_matmul(x, w), (x, w), dy)
+    torch.cuda.synchronize()
+    assert (gmm.launches, gmm.bwd_launches) == (before[0] + 1, before[1] + 2)
+    xr, wr = (t.detach().float().requires_grad_() for t in (x, w))
+    rx, rw = torch.autograd.grad(grouped_matmul_ref(xr, wr), (xr, wr),
+                                 dy.float())
+    # f32: summation order over up to 2560 terms; bf16: one output rounding
+    tol = 3e-4 if dtype == torch.float32 else 3e-2
+    for g, r in ((dx, rx), (dw, rw)):
+        assert g.dtype == dtype
+        err = float((g.float() - r).abs().max())
+        assert err <= tol * float(r.abs().max()), (err, float(r.abs().max()))

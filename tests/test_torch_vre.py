@@ -130,8 +130,10 @@ def test_vre_services_work_end_to_end(tmp_path):
 
 
 def test_failed_build_releases_what_was_built(tmp_path):
+    # an SSM arch's trainer fails at build (training it is ROADMAP A.7b)
     cfg = VREConfig(name="t", services=["volumes", "lm-trainer"],
-                    provider="cpu", workdir=str(tmp_path))
+                    arch="mamba2-370m", provider="cpu",
+                    workdir=str(tmp_path))
     vre = VirtualResearchEnvironment(cfg)
     with pytest.raises(NotImplementedError, match="A.7"):
         vre.instantiate()
