@@ -10,7 +10,12 @@ card, and the backward kernels (flash attention's, the grouped matmul's dx
 and dw) against the plain backward at the training shapes, in f32 and
 bf16; kernel timings at the serving shapes beside their bound and a library
 yardstick (the grouped matmul and SSD also with a cold L2), and the
-backward kernels' at the training shapes; the training path: yi-9b at full
+backward kernels' at the training shapes beside the earlier design's
+times, with one profiled call of each (its device kernels by name: the
+bf16 grouped-matmul backward may launch only its dx and dw products) and
+the flash backward's run-to-run spread of dQ (summed by atomics); the
+build requires warpgroup products (HGMMA) in both backward kernels; the
+training path: yi-9b at full
 width cut to 16 layers on one fixed 4 x 2048 batch (10 steps: finite and
 falling losses, step ms, tokens/s, the model FLOPs' share of the bf16 peak,
 peak memory, flash launches 2 x 16 a step under remat and backward
@@ -170,6 +175,20 @@ FLASH_BWD = [YI_TRAIN_ATTN, (2, 2048, 32, 4, 128, 0, 0.0), GRANITE_TRAIN_ATTN,
 # tolerance
 SOFTCAP_Q_SCALE = 8.0
 GMM_BWD = [(32, 2560, 1024, 512), (32, 2560, 512, 1024), (32, 157, 1024, 512)]
+# the backward kernels that must issue warpgroup products (HGMMA), by
+# library: flash attention's one-pass kernel (each instantiation) and the
+# grouped matmul's dx and dw
+WGMMA_KERNELS = {"flash_attention": ("bwd_wg::bwd_kernel",),
+                 "grouped_matmul": ("gmm_dx_kernel", "gmm_dw_kernel"),
+                 "ssd": ()}
+# the earlier design's times of the backward kernels (the mma.sync flash
+# backward, the grouped matmul on transposed copies; ms, bf16; PERF.md's
+# table, H100 80GB HBM3 at 700 W) beside this run's: flash attention's at
+# train_yi9b's and train_granite's shapes, the grouped matmul's at
+# granite's wi/wg and wo
+EARLIER_MS = {(4, 2048, 32, 4, 128, 0, 0.0): 3.552,
+              (4, 2048, 16, 8, 64, 0, 0.0): 1.073,
+              (32, 2560, 1024, 512): 1.248, (32, 2560, 512, 1024): 0.901}
 # train_yi9b: full width cut to 16 of 48 layers (all 48 need ~103 GB of bf16
 # params and grads and f32 moments), one fixed 4 x 2048 batch
 YI_TRAIN = dict(layers=16, batch=4, seq=2048, steps=10)
@@ -241,9 +260,10 @@ def cold_ms(fn, sets, iters: int) -> float:
 
 
 def sass_mma_counts(lib: Path) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) in each kernel of a built
-    library, from ``cuobjdump -sass`` of the toolkit that built it; each
-    kernel named by ``cu++filt``, without its parameters."""
+    """Tensor-core instructions in each kernel of a built library, from
+    ``cuobjdump -sass`` of the toolkit that built it: ``{"HMMA": n,
+    "HGMMA": m}`` (``mma.sync`` and the warpgroup ``wgmma``) for each kernel,
+    named by ``cu++filt`` without its parameters."""
     from repro_torch.kernels import _build
     tools = Path(_build.nvcc()).parent
     sass = subprocess.run([str(tools / "cuobjdump"), "-sass", str(lib)],
@@ -253,9 +273,11 @@ def sass_mma_counts(lib: Path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = 0
-        elif name is not None and re.search(r"\bH(G)?MMA\b", line):
-            counts[name] += 1
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            found = re.search(r"\b(HG?MMA)\b", line)
+            if found:
+                counts[name][found.group(1)] += 1
     names = subprocess.run([str(tools / "cu++filt"), *counts],
                            capture_output=True, text=True, timeout=60,
                            check=True).stdout.splitlines()
@@ -334,6 +356,17 @@ def step_profile(fn, top: int = 12) -> dict:
             "idle_share": max(0.0, 1 - busy / host_ms),
             "top_kernels": [{"name": n[:120], "ms": ms, "calls": c}
                             for n, (ms, c) in ranked]}
+
+
+def device_kernels(fn) -> dict:
+    """The device kernels of one call of ``fn`` after a warm one, by name
+    (as ``step_profile`` gives them) with their counts; fails when the
+    profiler records none."""
+    fn()
+    prof = step_profile(fn)
+    if "top_kernels" not in prof:
+        fail(f"the profiler recorded no device kernel: {prof}")
+    return {k["name"]: k["calls"] for k in prof["top_kernels"]}
 
 
 def device_busy_ms(fn) -> float | str:
@@ -673,9 +706,11 @@ def training_phases(smi: str, ops: dict) -> dict:
                 "flash_attention_bwd": layers * mbs * steps,
                 "grouped_matmul": 6 * layers * mbs * steps,
                 "grouped_matmul_bwd": 6 * layers * mbs * steps, "ssd": 0}
-        # capacity 2560 and the d, f rows of dw: the tile kernel throughout
-        want_variants = {"tile": 12 * layers * mbs * steps, "stream": 0,
-                         "f32": 0}
+        # capacity 2560: the tile kernel for the forward, its dx and dw
+        # variants for the backward
+        want_variants = {"tile": 6 * layers * mbs * steps, "stream": 0,
+                         "dx": 3 * layers * mbs * steps,
+                         "dw": 3 * layers * mbs * steps, "f32": 0}
         store = CheckpointStore(str(ckpt))
         saved = store.latest_step()
         restored = store.restore(state1, step=saved)
@@ -781,20 +816,26 @@ def training_phases(smi: str, ops: dict) -> dict:
                 "flash_attention_bwd": layers * 10,
                 "grouped_matmul": 6 * layers * 10,
                 "grouped_matmul_bwd": 6 * layers * 10, "ssd": 0}
+        # capacity _capacity(8 * 512, 8, 32, 1.25) = 1280: as train_granite
+        want_variants = {"tile": 6 * layers * 10, "stream": 0,
+                         "dx": 3 * layers * 10, "dw": 3 * layers * 10,
+                         "f32": 0}
         emit({"phase": "vre_train", "arch": "granite-moe-1b-a400m",
               "provider": "h100", "state_device": device1,
               "losses_before_destroy": losses1,
               "losses_after_restore": losses2, "healthy": healthy,
-              "launches": got, "expected_launches": want, "card": smi,
+              "launches": got, "expected_launches": want,
+              "expected_by_variant": want_variants, "card": smi,
               "seconds": time.perf_counter() - t0})
         if not (all(np.isfinite(losses1 + losses2)) and healthy
                 and losses2[0] < losses1[0] + 1.0):
             fail(f"vre_train: restore did not continue ({losses1} then "
                  f"{losses2})")
         if not device1.startswith("cuda") or \
-                {k: got[k] for k in want} != want:
+                {k: got[k] for k in want} != want or \
+                got["grouped_matmul_by_variant"] != want_variants:
             fail(f"vre_train: state on {device1}, launches {got}, expected "
-                 f"{want}")
+                 f"{want} and {want_variants}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     release("vre_train")
@@ -873,16 +914,21 @@ def main():
         emit({"phase": "build", "kernel": name, "library": lib.name,
               "nvcc_seconds": secs, "ptxas": ptxas,
               "sass_tensor_core_instructions": mma})
-        # the bf16 products (the flash backward's at head dims 64 and 128
-        # too) and the SSD kernel's split-TF32 products must run on the
-        # tensor cores
-        tc = {k: n for k, n in mma.items() if any(
-            s in k for s in ("flash_fwd_bf16_kernel", "bwd_tc::",
-                             "gmm_tile_kernel", "gmm_stream_kernel",
-                             "ssd_first_kernel", "ssd_y_kernel"))}
+        # the bf16 products and the SSD kernel's split-TF32 products must
+        # run on the tensor cores; the backward kernels (flash attention's
+        # at head dims 64 and 128, the grouped matmul's dx and dw) on the
+        # warpgroup ones (HGMMA)
+        tc = {k: n["HMMA"] + n["HGMMA"] for k, n in mma.items() if any(
+            s in k for s in ("flash_fwd_bf16_kernel", "gmm_tile_kernel",
+                             "gmm_stream_kernel", "ssd_first_kernel",
+                             "ssd_y_kernel"))}
         if not tc or min(tc.values()) == 0:
             fail(f"{name}: a tensor-core kernel issues no tensor-core "
                  f"instruction ({mma})")
+        for needle in WGMMA_KERNELS[name]:
+            hgmma = [n["HGMMA"] for k, n in mma.items() if needle in k]
+            if not hgmma or min(hgmma) == 0:
+                fail(f"{name}: {needle} issues no HGMMA ({mma})")
         kernels[name]["sass_tensor_core_instructions"] = mma
     for op in ops.values():
         op.load_library()
@@ -1064,7 +1110,12 @@ def main():
                                      dy.float())
         # f32: summation order over up to 2560 terms; bf16: one rounding
         tol = 3e-2 if dtype == torch.bfloat16 else 3e-4
-        errs, ok = {}, launched == (1, 2) and sum(went.values()) == 3
+        # the forward's kernel, then dx and dw: the tile kernel's variants
+        # (read in place) in bf16, the f32 kernel (on copies) in f32
+        want = ({gmm_ops._plan(c, d, f): 1, "dx": 1, "dw": 1}
+                if dtype == torch.bfloat16 else {"f32": 3})
+        errs, ok = {}, launched == (1, 2) and \
+            went == {k: want.get(k, 0) for k in went}
         for name, g, r in (("dx", dx, rx), ("dw", dw, rw)):
             errs[name] = float((g.float() - r).abs().max())
             ok = ok and g.dtype == dtype and \
@@ -1087,7 +1138,8 @@ def main():
         "name": "grouped_matmul_bwd", "route": "cuda",
         "source": kernels["grouped_matmul"]["source"],
         "replaces": kernels["grouped_matmul"]["replaces"],
-        "gradient_of": "grouped_matmul (dx, dw through the same kernels)"}
+        "gradient_of": "grouped_matmul (dx, dw on the tile kernel's "
+                       "gmm_dx_kernel and gmm_dw_kernel, read in place)"}
     for case in FLASH_BWD:
         for dtype in (torch.float32, torch.bfloat16):
             err, tol = check_flash_bwd(case, dtype)
@@ -1297,7 +1349,7 @@ def main():
         emit({"phase": "timing", "kernel": "flash_attention_bwd",
               "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
               "window": win, "softcap": cap, "dtype": "bfloat16", **t,
-              "card": smi})
+              "earlier_ms": EARLIER_MS.get(tuple(case)), "card": smi})
         return t
 
     def time_gmm_bwd(case) -> dict:
@@ -1318,7 +1370,7 @@ def main():
         t["share_of_bound"] = t["bound_ms"] / t["kernel_ms"]
         emit({"phase": "timing", "kernel": "grouped_matmul_bwd",
               "shape": {"E": e, "C": c, "d": d, "f": f}, "dtype": "bfloat16",
-              **t, "card": smi})
+              **t, "earlier_ms": EARLIER_MS.get(tuple(case)), "card": smi})
         return t
 
     timings["flash_attention_bwd"] = time_flash_bwd(YI_TRAIN_ATTN)
@@ -1328,6 +1380,73 @@ def main():
     timings["grouped_matmul_bwd"] = time_gmm_bwd(GMM_BWD[0])
     kernels["grouped_matmul_bwd"]["by_shape"] = [
         dict(time_gmm_bwd(GMM_BWD[1]), shape=GMM_BWD[1])]
+
+    # one profiled call of each backward, its device work by name: the bf16
+    # grouped-matmul backward launches its two products and nothing else
+    # (no transposed copy, pad or cast); the flash backward D = rowsum(dO *
+    # O), the main kernel, the dQ cast and the zeroing of its f32 dQ buffer
+    e, c, d, f = GMM_BWD[0]
+    x, w = (randn(shape, dtype, gen, 0.3) for shape in ((e, c, d), (e, d, f)))
+    dy = randn((e, c, f), dtype, gen, 0.3)
+    names = device_kernels(lambda: gmm_ops.grouped_matmul_bwd(x, w, dy))
+    roles = {n: "dx" if "gmm_dx_kernel" in n else
+             "dw" if "gmm_dw_kernel" in n else None for n in names}
+    ok = sorted(map(str, roles.values())) == ["dw", "dx"] and \
+        set(names.values()) == {1}
+    emit({"phase": "profiled_bwd", "kernel": "grouped_matmul_bwd",
+          "shape": {"E": e, "C": c, "d": d, "f": f}, "dtype": "bfloat16",
+          "device_kernels": names, "ok": ok})
+    if not ok:
+        fail(f"grouped_matmul_bwd launched more than its two products: "
+             f"{names}")
+    del x, w, dy
+    b, s, h, kv, d, win, cap = YI_TRAIN_ATTN
+    q, k, v = (randn((b, s, n, d), dtype, gen) for n in (h, kv, kv))
+    dout = randn((b, s, h, d), dtype, gen)
+    out, lse = fa_ops._forward(q, k, v, True, win, cap, with_lse=True)
+    names = device_kernels(lambda: fa_ops.flash_attention_bwd(
+        q, k, v, out, dout, lse, window=win, softcap=cap))
+    roles = {n: "D" if "delta_kernel" in n else
+             "main" if "bwd_wg::bwd_kernel" in n else
+             "dQ cast" if "dq_cast_kernel" in n else
+             "dQ buffer zeroed" if "Memset" in n or "FillFunctor" in n
+             else None for n in names}
+    ok = sorted(map(str, roles.values())) == sorted(
+        ["D", "main", "dQ cast", "dQ buffer zeroed"])
+    emit({"phase": "profiled_bwd", "kernel": "flash_attention_bwd",
+          "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
+          "dtype": "bfloat16", "device_kernels": names,
+          "roles": list(roles.values()), "ok": ok})
+    if not ok:
+        fail(f"flash_attention_bwd launched {names}")
+    # dQ is summed by f32 atomics, in an order that varies from run to
+    # run: two calls on the same inputs, dK and dV equal bit for bit, dQ
+    # within the bf16 tolerance of the checks (0.02 of its largest
+    # magnitude)
+    spread = {}
+    for case in (YI_TRAIN_ATTN, GRANITE_TRAIN_ATTN):
+        if case != YI_TRAIN_ATTN:
+            b, s, h, kv, d, win, cap = case
+            q, k, v = (randn((b, s, n, d), dtype, gen) for n in (h, kv, kv))
+            dout = randn((b, s, h, d), dtype, gen)
+            out, lse = fa_ops._forward(q, k, v, True, win, cap, with_lse=True)
+        one, two = (fa_ops.flash_attention_bwd(q, k, v, out, dout, lse,
+                                               window=win, softcap=cap)
+                    for _ in range(2))
+        top = float(one[0].float().abs().max())
+        rel = float((one[0].float() - two[0].float()).abs().max()) / top
+        same = torch.equal(one[1], two[1]) and torch.equal(one[2], two[2])
+        spread[str(case)] = rel
+        emit({"phase": "flash_bwd_spread", "shape": {"B": b, "S": s, "H": h,
+                                                      "KV": kv, "D": d},
+              "dtype": "bfloat16", "dq_max_diff_of_max": rel,
+              "dq_elements_unequal": int((one[0] != two[0]).sum()),
+              "dk_dv_equal": same, "tol_of_max": 2e-2, "card": smi})
+        if not same or rel > 2e-2:
+            fail(f"flash_attention_bwd: two calls differ (dq {rel} of its "
+                 f"max, dk and dv equal: {same})")
+    kernels["flash_attention_bwd"]["dq_run_to_run_of_max"] = spread
+    del q, k, v, dout, out, lse, one, two
     emit({"phase": "timing", "seconds": time.perf_counter() - t0})
     for name, t in timings.items():
         kernels[name].update(t)
@@ -1669,10 +1788,11 @@ def main():
                  f"and {syncs} draft syncs")
         # bf16 MoE: every prefill group's capacity (>= 80 at 256 tokens)
         # takes the tile kernel, every 4-slot decode step's (2) the
-        # streaming kernel
+        # streaming kernel; serving runs no backward
         per_call = want["grouped_matmul"] // max(prefills + steps, 1)
         want_variants = {"tile": per_call * prefills,
-                         "stream": per_call * steps, "f32": 0}
+                         "stream": per_call * steps, "dx": 0, "dw": 0,
+                         "f32": 0}
         if by_variant != want_variants:
             fail(f"{cfg.name}: grouped matmul kernels {by_variant}, expected "
                  f"{want_variants}")
@@ -2537,6 +2657,9 @@ def main():
                                              train_counts.items()}
     kernels["grouped_matmul"]["launches_by_variant"] = variant_counts[
         "granite-moe-1b-a400m"]
+    kernels["grouped_matmul_bwd"]["launches_by_variant"] = {
+        k: train_counts["train_granite"]["grouped_matmul_by_variant"][k]
+        for k in ("dx", "dw")}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": device})

@@ -299,17 +299,17 @@ constexpr size_t smem_bytes() {
 }
 
 // ROWS x D tile of rows s0.. of a (S, *, D) tensor whose rows are `stride`
-// elements apart, into 128-byte-swizzled column blocks of 64; rows at or
-// past S and columns at or past D are zero-filled.
-template <int ROWS, int D>
+// elements apart, into 128-byte-swizzled column blocks of 64, by THREADS
+// threads; rows at or past S and columns at or past D are zero-filled.
+template <int ROWS, int D, int THREADS = NT>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long stride, int s0, int S,
                                           int tid) {
   constexpr int CH = padded<D>() / 8;   // 16-byte chunks a row
-  static_assert(ROWS * CH % NT == 0, "every thread copies as many chunks");
+  static_assert(ROWS * CH % THREADS == 0, "every thread copies as many");
 #pragma unroll
-  for (int j = 0; j < ROWS * CH / NT; ++j) {
-    const int i = tid + j * NT, r = i / CH, c = i % CH, s = s0 + r;
+  for (int j = 0; j < ROWS * CH / THREADS; ++j) {
+    const int i = tid + j * THREADS, r = i / CH, c = i % CH, s = s0 + r;
     const bool ok = s < S && c * 8 < D;
     cp_async16(dst + (c / 8) * ROWS * 64 + sw128(r, c % 8),
                src + (ok ? long(s) * stride + c * 8 : 0), ok);
@@ -320,8 +320,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 template <int BK>
 __device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t desc_q,
                                          uint64_t desc_k, int scale_d) {
-  if constexpr (BK == 64) wgmma_ss_n64<0>(d, desc_q, desc_k, scale_d);
-  else wgmma_ss_n32<0>(d, desc_q, desc_k, scale_d);
+  if constexpr (BK == 64) wgmma_ss_n64<0, 0>(d, desc_q, desc_k, scale_d);
+  else wgmma_ss_n32<0, 0>(d, desc_q, desc_k, scale_d);
 }
 
 // P.V for one k16 step: the output fragment is padded<D>() wide
@@ -579,8 +579,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // ---------------------------------------------------------------------------
 // Backward, f32 (and bf16 at head dim 256): f32 FMAs on the CUDA cores,
-// three grids; bf16 at head dims 64 and 128 runs the same schedule on the
-// tensor cores (namespace bwd_tc, below).
+// three grids; bf16 at head dims 64 and 128 runs one pass on the tensor
+// cores (namespace bwd_wg, below).
 //
 // The TPU kernel has no backward (JAX differentiates the jnp attention
 // under jax.checkpoint, recomputing the scores), so this one follows the
@@ -945,364 +945,411 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace bwd
 
 // ---------------------------------------------------------------------------
-// Backward, bf16 at head dims 64 and 128: the products on the tensor cores
-// (mma.sync.m16n8k16, bf16 operands, f32 accumulation), the same three
-// grids and the same arithmetic as namespace bwd, whose D = rowsum(dO * O)
-// kernel it shares. Tiles are copied with cp.async into row-padded shared
-// memory (conflict-free ldmatrix, no swizzle) and read as fragments with
-// ldmatrix; P and dS are rounded to bf16 as the A operands of the next
-// products straight from the accumulators' registers (a relative error of
-// at most 2^-9 each, as the forward's P). Each block is four warps, each
-// warp 16 rows of the block's tile:
-//   * dkdv: 64 keys a block; S^T = K.Q^T and dP^T = V.dO^T for 32 queries
-//     at a time, then dV += P^T.dO and dK += dS^T.Q into registers;
-//   * dq: 64 queries a block; S = Q.K^T and dP = dO.V^T for 32 keys at a
-//     time, then dQ += dS.K.
-// What holds it back: one stage of shared memory (each tile's copy waits),
-// mma.sync rather than wgmma, and the scores computed twice (once a pass);
-// a wgmma/TMA design with dQ by atomics is the next step.
-namespace bwd_tc {
+// Backward, bf16 at head dims 64 and 128: FlashAttention-3's schedule on
+// the warpgroup tensor cores, with namespace bwd's D = rowsum(dO * O)
+// kernel and arithmetic (the masks, the softcap's derivative, the scale
+// applied once to dQ and dK), the probabilities exp(x - lse) taken as
+// 2^((x - lse) log2 e) on the special-function unit (ex2.approx, as the
+// forward's: about 5% faster than expf at yi-9b's shape on an H100; P is
+// rounded to bf16 after).
+//
+// What bounds it: the five products the gradient needs on the unmasked
+// (q, k) pairs, S = Q.K^T, dP = dO.V^T, dV, dK and dQ: at train_yi9b's
+// (4, 2048, 32, 4, 128) ~344 GFLOP against ~170 MB, operations (0.348 ms
+// at the bf16 peak). The earlier kernel ran them on mma.sync from one
+// shared-memory stage (every walked tile's copy waited) in two passes, a
+// dK/dV grid and a dQ grid, each computing S and dP: seven products' work
+// for five. Here:
+//   * one pass: a block owns a tile of keys of one (b, kv head), one
+//     warpgroup for each 64 columns of the head dim (64 keys at head dim
+//     64, 128 keys on two warpgroups at 128), and walks the q tiles of 64
+//     that the causal mask and the window leave it, for every q head of
+//     the GQA group. Per q tile each warpgroup runs, for its 64 keys, four
+//     products on wgmma: S^T = K.Q^T and dP^T = V.dO^T (both operands in
+//     shared memory, K-major), then, with P^T and dS^T built in registers
+//     from the rows' lse and D, dV += P^T.dO and dK += dS^T.Q with P^T and
+//     dS^T as register A operands (as the forward's P.V). dK and dV sum
+//     over the group in registers, with no atomics;
+//   * dQ: dS^T also goes to shared memory (bf16, as the A operand the
+//     forward rounds P to), and each warpgroup computes 64 columns of
+//     dQ_tile = dS.K over all the block's keys (dS^T read MN-major, the
+//     instruction's transpose) and adds them into an f32 (B, S, H, D)
+//     buffer with 16-byte vector reds (red.global.add.v4.f32); a small
+//     kernel scales it and casts to bf16. The scores are computed once. The
+//     atomics make dQ's summation order vary from run to run;
+//   * what the adds cost: at yi-9b's shape, 64 keys a block, they are
+//     ~2.2 GB of f32 sums into a 134 MB buffer, and with one red a float
+//     they took two thirds of the kernel's time on an H100. 16-byte reds,
+//     128 keys a block (half the sums) and the walk order below (the sums
+//     stay in the L2) cut that;
+//   * the walked Q, dO, lse and D tiles come through a ring of two
+//     shared-memory stages, copied with cp.async by every thread, so the
+//     next tile's copy overlaps this tile's products (146 KB of shared
+//     memory a block at head dim 128, 57 KB at 64). Q and dO by TMA
+//     instead (one thread issuing the 128-byte-swizzled boxes, an mbarrier
+//     a stage) measured 1% faster at train_yi9b's shape and no faster at
+//     train_granite's on an H100 (tools/bwd_ab.py): the ring already hides
+//     the loads, so the copies stay cp.async, which needs no tensor maps.
+// The longest causal walks (the first key tiles) are launched first, and
+// every block walks its q tiles from the last down, the group's heads
+// innermost, so the blocks running together add into the same few dQ
+// tiles at about the same time and the f32 sums stay in the L2. (Walking
+// each head's q tiles upwards from the diagonal, the sums went back and
+// forth to device memory.)
+namespace bwd_wg {
 
 using namespace mma_bf16;
+using bf16wg::load_tile;
 
-constexpr int NT = 128;         // four warps
-constexpr int BR = 64;          // the block's own rows (keys or queries)
-constexpr int BC = 32;          // the rows walked a step (queries or keys)
+constexpr int BQ = 64;          // queries a walked tile
+
+// one warpgroup for each 64 columns of the head dim: it owns 64 keys in
+// S^T, dP^T, dK and dV, and those 64 columns of dQ
+template <int D>
+__host__ __device__ constexpr int warpgroups() { return D / 64; }
+template <int D>
+__host__ __device__ constexpr int threads() { return 128 * warpgroups<D>(); }
+template <int D>
+__host__ __device__ constexpr int key_tile() { return 64 * warpgroups<D>(); }
 
 template <int D>
 constexpr size_t smem_bytes() {
-  // two BR x D tiles (the block's own), two BC x D tiles (walked), each row
-  // padded by PAD; lse and D of the query rows (dkdv: BC, dq: BR)
-  return sizeof(bf16) * size_t(2 * BR + 2 * BC) * (D + PAD) +
-         2 * BR * sizeof(float);
+  // K and V (key_tile x D), two stages of Q and dO (BQ x D), dS^T
+  // (key_tile x BQ), two stages of the rows' lse and D (f32); 1024 bytes of
+  // slack to align the swizzle blocks
+  return sizeof(bf16) * (size_t(2 * key_tile<D>() + 4 * BQ) * D +
+                         key_tile<D>() * BQ) +
+         4 * BQ * sizeof(float) + 1024;
 }
 
-// ROWS x D rows s0.. of a tensor whose rows are `stride` elements apart,
-// into dst (row pitch D + PAD) with 16-byte cp.async; rows past S are 0
-template <int ROWS, int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long stride, int s0, int S,
-                                          int tid) {
-  constexpr int CH = D / 8;
-  for (int i = tid; i < ROWS * CH; i += NT) {
-    const int r = i / CH, c = i % CH, s = s0 + r;
-    const bool ok = s < S;
-    cp_async16(dst + r * (D + PAD) + c * 8,
-               src + (ok ? long(s) * stride + c * 8 : 0), ok);
-  }
-}
-
-// acc (16 x BC, 4 n8 blocks) = A (this warp's 16 rows of sA) . B^T, B the
-// BC rows of sB, both (rows, D) in shared memory (D contiguous)
+// dV += P^T.dO or dK += dS^T.Q for one k16 step (16 queries): A from
+// registers, B (the dO or Q tile, BQ x D) MN-major, its rows the queries
 template <int D>
-__device__ __forceinline__ void rows_dot(float (&acc)[BC / 8][4],
-                                         const bf16* sA, const bf16* sB,
-                                         int lane) {
-  constexpr int LD = D + PAD;
-#pragma unroll
-  for (int j = 0; j < BC / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(sA + (lane % 16) * LD + kk * 16 + (lane / 16) * 8, a[0], a[1],
-            a[2], a[3]);
-#pragma unroll
-    for (int p = 0; p < BC / 16; ++p) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4(sB + (p * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
-                  ((lane / 8) % 2) * 8,
-              b0, b1, b2, b3);
-      mma(acc[2 * p], a, b0, b1);
-      mma(acc[2 * p + 1], a, b2, b3);
-    }
-  }
+__device__ __forceinline__ void wgmma_rows(float (&d)[D / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  if constexpr (D == 64) wgmma_rs_n64(d, a, desc_b);
+  else wgmma_rs_n128(d, a, desc_b);
 }
 
-// acc (16 x D) += A (16 x BC, bf16 fragments from registers) . sB, sB the
-// (BC, D) rows in shared memory (D contiguous)
-template <int D>
-__device__ __forceinline__ void frag_times_rows(float (&acc)[D / 8][4],
-                                                const uint32_t (&a)[BC / 16][4],
-                                                const bf16* sB, int lane) {
-  constexpr int LD = D + PAD;
-#pragma unroll
-  for (int kk = 0; kk < BC / 16; ++kk)
-#pragma unroll
-    for (int p = 0; p < D / 16; ++p) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4_t(sB + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
-                    p * 16 + (lane / 16) * 8,
-                b0, b1, b2, b3);
-      mma(acc[2 * p], a[kk], b0, b1);
-      mma(acc[2 * p + 1], a[kk], b2, b3);
-    }
-}
-
-// P and dS (without the scale) of one 16 x BC tile, packed to bf16 A
-// fragments: s and dp are the accumulators of the scores and of dO.V^T
-// (rows along the warp's 16, columns along BC); qpos/kpos give each
-// element's query and key; lse and delta are read per query.
-template <bool SOFTCAP, bool ROWS_ARE_KEYS>
-__device__ __forceinline__ void probs(const float (&s)[BC / 8][4],
-                                      const float (&dp)[BC / 8][4],
-                                      uint32_t (&p)[BC / 16][4],
-                                      uint32_t (&ds)[BC / 16][4],
-                                      const float* sL, const float* sDl,
-                                      int row0, int col0, int lane, int S,
-                                      float scale, int causal, int window,
-                                      float softcap) {
-  const int g = lane / 4, t = lane % 4;
-  float pv[BC / 8][4], dv[BC / 8][4];
-#pragma unroll
-  for (int j = 0; j < BC / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = g + 8 * (i >> 1), c = j * 8 + 2 * t + (i & 1);
-      const int qpos = ROWS_ARE_KEYS ? col0 + c : row0 + r;
-      const int kpos = ROWS_ARE_KEYS ? row0 + r : col0 + c;
-      // lse and D are kept per walked row (keys' pass: the queries)
-      const int li = ROWS_ARE_KEYS ? c : r;
-      bool ok = qpos < S && kpos < S;
-      if (causal) ok = ok && qpos >= kpos;
-      if (window > 0) ok = ok && qpos - kpos < window;
-      float x = s[j][i] * scale, th = 0.f;
-      if constexpr (SOFTCAP) {
-        th = tanhf(x / softcap);
-        x = th * softcap;
-      }
-      const float pr = ok ? expf(x - sL[li]) : 0.f;
-      float d = pr * (dp[j][i] - sDl[li]);
-      if constexpr (SOFTCAP) d *= 1.f - th * th;
-      pv[j][i] = pr;
-      dv[j][i] = d;
-    }
-#pragma unroll
-  for (int kk = 0; kk < BC / 16; ++kk) {
-    p[kk][0] = pack_bf16(pv[2 * kk][0], pv[2 * kk][1]);
-    p[kk][1] = pack_bf16(pv[2 * kk][2], pv[2 * kk][3]);
-    p[kk][2] = pack_bf16(pv[2 * kk + 1][0], pv[2 * kk + 1][1]);
-    p[kk][3] = pack_bf16(pv[2 * kk + 1][2], pv[2 * kk + 1][3]);
-    ds[kk][0] = pack_bf16(dv[2 * kk][0], dv[2 * kk][1]);
-    ds[kk][1] = pack_bf16(dv[2 * kk][2], dv[2 * kk][3]);
-    ds[kk][2] = pack_bf16(dv[2 * kk + 1][0], dv[2 * kk + 1][1]);
-    ds[kk][3] = pack_bf16(dv[2 * kk + 1][2], dv[2 * kk + 1][3]);
-  }
-}
-
-// a warp's 16 x D accumulator (times `mul`) to rows row0.. of a (rows, D)
-// tensor whose rows are `stride` elements apart; rows past S are skipped
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4],
-                                           long stride, int row0, int S,
-                                           float mul, int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int s = row0 + g + 8 * h;
-    if (s >= S) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + long(s) * stride + j * 8 + 2 * t) =
-          pack_bf16(acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
-  }
-}
-
+// One block per (b * KV + kv head, key tile); warpgroup w owns keys
+// kw0 = k0 + 64 w .. kw0 + 63, its warp u keys kw0 + 16 u .. kw0 + 16 u +
+// 15 (lane (g, t) keys g and g + 8 of those) in S^T, dP^T, dK and dV, and
+// queries q0 + 16 u .. in dQ's columns 64 w .. 64 w + 63.
 template <int D, bool SOFTCAP>
-__global__ void __launch_bounds__(NT)
-dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
-            int KV, float scale, int causal, int window, float softcap) {
-  constexpr int LD = D + PAD;
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_tc);
-  bf16* sV = sK + BR * LD;
-  bf16* sQ = sV + BR * LD;
-  bf16* sO = sQ + BC * LD;          // dO
-  float* sL = reinterpret_cast<float*>(sO + BC * LD);
-  float* sDl = sL + BC;
+__global__ void __launch_bounds__(threads<D>())
+bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           float* __restrict__ dq_acc, bf16* __restrict__ dk,
+           bf16* __restrict__ dv, int S, int H, int KV, float scale,
+           int causal, int window, float softcap) {
+  static_assert(D == 64 || D == 128, "head dims 64 and 128");
+  constexpr int NT = threads<D>(), BKV = key_tile<D>();
+  constexpr int KTILE = BKV * D, QTILE = BQ * D;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* sV = sK + KTILE;          // [D / 64][BKV][64], as K
+  bf16* sQ = sV + KTILE;          // [2][D / 64][BQ][64]
+  bf16* sO = sQ + 2 * QTILE;      // dO, as Q
+  bf16* sDS = sO + 2 * QTILE;     // dS^T, [BKV][BQ]
+  float* sL = reinterpret_cast<float*>(sDS + BKV * BQ);   // [2][BQ]
+  float* sDl = sL + 2 * BQ;                               // [2][BQ]
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int k0 = blockIdx.x * BR;   // the longest causal blocks first
-  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV, G = H / KV;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4;
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV, G = H / KV;
+  const int k0 = blockIdx.y * BKV, kw0 = k0 + 64 * wg;
   const long q_stride = long(H) * D, kv_stride = long(KV) * D;
-  load_rows<BR, D>(sK, k + (long(b) * S * KV + kvh) * D, kv_stride, k0, S,
-                   tid);
-  load_rows<BR, D>(sV, v + (long(b) * S * KV + kvh) * D, kv_stride, k0, S,
-                   tid);
-  cp_async_commit();
+  load_tile<BKV, D, NT>(sK, k + (long(b) * S * KV + kvh) * D, kv_stride, k0,
+                        S, tid);
+  load_tile<BKV, D, NT>(sV, v + (long(b) * S * KV + kvh) * D, kv_stride, k0,
+                        S, tid);
 
-  float acc_k[D / 8][4], acc_v[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.f;
-
-  const int krow0 = k0 + warp * 16;
-  const int k_last = min(k0 + BR, S) - 1;
+  // the q tiles whose rows can see a key of this tile, for each q head,
+  // walked from the last q tile down with the group's heads innermost:
+  // walk step `it` is q tile qt_last - it / G, and the heads are taken in
+  // an order rotated by the key tile. So the blocks of one (b, kv head),
+  // which start together, add into the same few dQ tiles at about the same
+  // time, spread over the group's heads: the f32 sums being added stay in
+  // the L2 (yi-9b's (4, 2048, 32, 128) buffer is 134 MB), and few blocks
+  // add into one tile at once.
+  const int k_last = min(k0 + BKV, S) - 1;
   const int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(S, k_last + window) : S;   // exclusive
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const long bh = long(b) * H + h;
-    for (int q0 = (q_begin / BC) * BC; q0 < q_end; q0 += BC) {
-      __syncthreads();   // the last tile's reads are done
-      load_rows<BC, D>(sQ, q + (long(b) * S * H + h) * D, q_stride, q0, S,
-                       tid);
-      load_rows<BC, D>(sO, dout + (long(b) * S * H + h) * D, q_stride, q0,
-                       S, tid);
-      cp_async_commit();
-      if (tid < BC) {
-        const int s = q0 + tid;
-        sL[tid] = s < S ? lse[bh * S + s] : 0.f;
-        sDl[tid] = s < S ? delta[bh * S + s] : 0.f;
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-      uint32_t p[BC / 16][4], ds[BC / 16][4];
-      {
-        float st[BC / 8][4], dpt[BC / 8][4];
-        rows_dot<D>(st, sK + warp * 16 * LD, sQ, lane);    // S^T = K.Q^T
-        rows_dot<D>(dpt, sV + warp * 16 * LD, sO, lane);   // dP^T = V.dO^T
-        probs<SOFTCAP, true>(st, dpt, p, ds, sL, sDl, krow0, q0, lane, S,
-                             scale, causal, window, softcap);
-      }
-      frag_times_rows<D>(acc_v, p, sO, lane);     // dV += P^T.dO
-      frag_times_rows<D>(acc_k, ds, sQ, lane);    // dK += dS^T.Q
+  const int q_end = window > 0 ? min(S, k_last + window) : S;  // exclusive
+  const int qt_last = (q_end - 1) / BQ;
+  const int n_it = G * (qt_last - q_begin / BQ + 1);
+  // Q, dO, lse and D of walk step `it` into stage st
+  auto load_q = [&](int it, int st) {
+    const int h = kvh * G + (it + blockIdx.y) % G;
+    const int q0 = (qt_last - it / G) * BQ;
+    const long row0 = long(b) * S * H + h;
+    load_tile<BQ, D, NT>(sQ + st * QTILE, q + row0 * D, q_stride, q0, S,
+                         tid);
+    load_tile<BQ, D, NT>(sO + st * QTILE, dout + row0 * D, q_stride, q0, S,
+                         tid);
+    if (tid < 2 * BQ) {
+      const int r = tid % BQ, qpos = q0 + r;
+      const bool ok = qpos < S;
+      const long i = ok ? (long(b) * H + h) * S + qpos : 0;
+      if (tid < BQ) cp_async4(sL + st * BQ + r, lse + i, ok);
+      else cp_async4(sDl + st * BQ + r, delta + i, ok);
     }
-  }
-  cp_async_wait<0>();   // a block with no q tile still drains its copies
-  store_rows<D>(dk + (long(b) * S * KV + kvh) * D, acc_k, kv_stride, krow0,
-                S, scale, lane);
-  store_rows<D>(dv + (long(b) * S * KV + kvh) * D, acc_v, kv_stride, krow0,
-                S, 1.f, lane);
-}
-
-template <int D, bool SOFTCAP>
-__global__ void __launch_bounds__(NT)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          bf16* __restrict__ dq, int S, int H, int KV, float scale,
-          int causal, int window, float softcap) {
-  constexpr int LD = D + PAD;
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_tc);
-  bf16* sO = sQ + BR * LD;          // dO
-  bf16* sK = sO + BR * LD;
-  bf16* sV = sK + BC * LD;
-  float* sL = reinterpret_cast<float*>(sV + BC * LD);   // the block's rows
-  float* sDl = sL + BR;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;   // longest rows first
-  const long bh = blockIdx.y;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KV);
-  const long q_stride = long(H) * D, kv_stride = long(KV) * D;
-  const bf16* kb = k + (long(b) * S * KV + kvh) * D;
-  const bf16* vb = v + (long(b) * S * KV + kvh) * D;
-  load_rows<BR, D>(sQ, q + (long(b) * S * H + h) * D, q_stride, q0, S, tid);
-  load_rows<BR, D>(sO, dout + (long(b) * S * H + h) * D, q_stride, q0, S,
-                   tid);
+  };
+  load_q(0, 0);
   cp_async_commit();
-  if (tid < BR) {
-    const int s = q0 + tid;
-    sL[tid] = s < S ? lse[bh * S + s] : 0.f;
-    sDl[tid] = s < S ? delta[bh * S + s] : 0.f;
-  }
 
-  float acc[D / 8][4];
+  float acc_k[D / 2], acc_v[D / 2], s[BQ / 2], dp[BQ / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+  const int krow = kw0 + warp * 16 + g;
+  const bf16* wK = sK + 64 * wg * 64;   // this warpgroup's keys in block 0
+  const bf16* wV = sV + 64 * wg * 64;
 
-  const int qrow0 = q0 + warp * 16;
-  const int q_last = min(q0 + BR, S) - 1;
-  const int kv_end = causal ? q_last + 1 : S;                 // exclusive
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  for (int k0 = (kv_begin / BC) * BC; k0 < kv_end; k0 += BC) {
-    __syncthreads();   // the last tile's reads are done
-    load_rows<BC, D>(sK, kb, kv_stride, k0, S, tid);
-    load_rows<BC, D>(sV, vb, kv_stride, k0, S, tid);
-    cp_async_commit();
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    const int h = kvh * G + (it + blockIdx.y) % G;
+    const int q0 = (qt_last - it / G) * BQ;
     cp_async_wait<0>();
-    __syncthreads();
-    uint32_t p[BC / 16][4], ds[BC / 16][4];
-    {
-      float s[BC / 8][4], dp[BC / 8][4];
-      rows_dot<D>(s, sQ + warp * 16 * LD, sK, lane);     // S = Q.K^T
-      rows_dot<D>(dp, sO + warp * 16 * LD, sV, lane);    // dP = dO.V^T
-      probs<SOFTCAP, false>(s, dp, p, ds, sL + warp * 16, sDl + warp * 16,
-                            qrow0, k0, lane, S, scale, causal, window,
-                            softcap);
+    fence_proxy_async();
+    __syncthreads();   // tile it has landed; every thread is done with it - 1
+    if (it + 1 < n_it) {
+      load_q(it + 1, st ^ 1);
+      cp_async_commit();
     }
-    frag_times_rows<D>(acc, ds, sK, lane);       // dQ += dS.K
+    const bf16* cQ = sQ + st * QTILE;
+    const bf16* cO = sO + st * QTILE;
+    const float* cL = sL + st * BQ;
+    const float* cDl = sDl + st * BQ;
+
+    // S^T = K.Q^T and dP^T = V.dO^T (this warpgroup's keys x queries): both
+    // operands K-major in shared memory, a k16 step 32 bytes into a
+    // swizzle row
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(
+          s, gmma_desc(wK + (kk / 4) * BKV * 64 + (kk % 4) * 16, 16, 1024),
+          gmma_desc(cQ + (kk / 4) * BQ * 64 + (kk % 4) * 16, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(
+          dp, gmma_desc(wV + (kk / 4) * BKV * 64 + (kk % 4) * 16, 16, 1024),
+          gmma_desc(cO + (kk / 4) * BQ * 64 + (kk % 4) * 16, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T and dS^T (without the scale) of this thread's pairs: keys krow
+    // and krow + 8, queries q0 + 8 nb + 2 t (+ 1); packed to bf16 as the A
+    // operands of dV and dK, and dS^T stored for dQ. A tile wholly inside
+    // every row's range skips the mask.
+    const bool inside = q0 + BQ <= S && kw0 + 64 <= S &&
+                        (!causal || q0 >= kw0 + 63) &&
+                        (window <= 0 || q0 + BQ - 1 - kw0 < window);
+    uint32_t p[BQ / 16][4], ds[BQ / 16][4];
+#pragma unroll
+    for (int nb = 0; nb < BQ / 8; ++nb) {
+      float pr[4], dd[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = nb * 8 + 2 * t + (i & 1);
+        const int qpos = q0 + c, kpos = krow + (i >> 1) * 8;
+        bool ok = true;
+        if (!inside) {
+          ok = qpos < S && kpos < S;
+          if (causal) ok = ok && qpos >= kpos;
+          if (window > 0) ok = ok && qpos - kpos < window;
+        }
+        float x = s[4 * nb + i] * scale, th = 0.f;
+        if constexpr (SOFTCAP) {
+          th = tanhf(x / softcap);
+          x = th * softcap;
+        }
+        pr[i] = ok ? exp2_ftz((x - cL[c]) * bf16wg::LOG2E) : 0.f;
+        dd[i] = pr[i] * (dp[4 * nb + i] - cDl[c]);
+        if constexpr (SOFTCAP) dd[i] *= 1.f - th * th;
+      }
+      // two n8 blocks of queries make one k16 step of dV and dK
+      p[nb / 2][(nb % 2) * 2] = pack_bf16(pr[0], pr[1]);
+      p[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(pr[2], pr[3]);
+      ds[nb / 2][(nb % 2) * 2] = pack_bf16(dd[0], dd[1]);
+      ds[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(dd[2], dd[3]);
+      // dS^T: [key][query], 128-byte swizzled (conflict-free: the 8 rows
+      // of a store sit on 8 different 16-byte chunks)
+      const int r = krow - k0;
+      *reinterpret_cast<uint32_t*>(sDS + sw128(r, nb) + 2 * t) =
+          ds[nb / 2][(nb % 2) * 2];
+      *reinterpret_cast<uint32_t*>(sDS + sw128(r + 8, nb) + 2 * t) =
+          ds[nb / 2][(nb % 2) * 2 + 1];
+    }
+    fence_proxy_async();   // the dS^T stores, for wgmma's reads
+
+    // dV += P^T.dO, dK += dS^T.Q: B the dO and Q tiles MN-major (their
+    // rows run along the reduced queries), a k16 step 16 rows
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rows<D>(acc_v, p[kk],
+                    gmma_desc(cO + kk * 16 * 64, BQ * 64 * sizeof(bf16),
+                              1024));
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rows<D>(acc_k, ds[kk],
+                    gmma_desc(cQ + kk * 16 * 64, BQ * 64 * sizeof(bf16),
+                              1024));
+    wgmma_commit();
+    __syncthreads();   // every warp's dS^T is in shared memory
+
+    // dQ's columns 64 wg .. 64 wg + 63 (queries x 64) += dS.K over all the
+    // block's keys: A = dS^T MN-major (its rows are the reduced keys), B =
+    // the K tile's column block wg, MN-major; the sum added into the f32
+    // buffer
+    float dq[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_ss_n64<1, 1>(
+          dq, gmma_desc(sDS + kk * 16 * 64, BKV * 64 * sizeof(bf16), 1024),
+          gmma_desc(sK + wg * BKV * 64 + kk * 16 * 64,
+                    BKV * 64 * sizeof(bf16), 1024),
+          kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();   // and dV, dK above
+    fence_regs(dq);
+    fence_regs(p);     // P^T's and dS^T's registers were read until here
+    fence_regs(ds);
+    // 16-byte vector reds (sm_90): lanes t and t ^ 1 trade halves, so the
+    // even lane adds columns 4 (t / 2) .. + 3 of an n8 block in row qrow
+    // and the odd lane the same columns of row qrow + 8
+    const bool odd = t & 1;
+    const int qpos = q0 + warp * 16 + g + (odd ? 8 : 0);
+    float* row = dq_acc + ((long(b) * S + qpos) * H + h) * D + wg * 64 +
+                 4 * (t / 2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float c0 = dq[4 * j], c1 = dq[4 * j + 1];
+      const float c2 = dq[4 * j + 2], c3 = dq[4 * j + 3];
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c0 : c2, 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c1 : c3, 1);
+      if (qpos < S)
+        atomicAdd(reinterpret_cast<float4*>(row + 8 * j),
+                  odd ? make_float4(r0, r1, c2, c3)
+                      : make_float4(c0, c1, r0, r1));
+    }
   }
-  store_rows<D>(dq + (long(b) * S * H + h) * D, acc, q_stride, qrow0, S,
-                scale, lane);
+  fence_regs(acc_k);
+  fence_regs(acc_v);
+
+  // dK (times the scale) and dV of this warpgroup's keys; rows past S
+  // skipped
+  bf16* dkb = dk + (long(b) * S * KV + kvh) * D;
+  bf16* dvb = dv + (long(b) * S * KV + kvh) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = krow + 8 * r;
+    if (kpos >= S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const long off = long(kpos) * kv_stride + j * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dkb + off) =
+          pack_bf16(acc_k[4 * j + 2 * r] * scale,
+                    acc_k[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + off) =
+          pack_bf16(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+    }
+  }
 }
 
+// dq = scale * the f32 sums, to bf16: eight elements a thread
+__global__ void __launch_bounds__(256)
+dq_cast_kernel(const float* __restrict__ acc, bf16* __restrict__ dq,
+               long n8, float scale) {
+  const long i = long(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= n8) return;
+  const float4 a = reinterpret_cast<const float4*>(acc)[2 * i];
+  const float4 c = reinterpret_cast<const float4*>(acc)[2 * i + 1];
+  uint4 out;
+  out.x = pack_bf16(a.x * scale, a.y * scale);
+  out.y = pack_bf16(a.z * scale, a.w * scale);
+  out.z = pack_bf16(c.x * scale, c.y * scale);
+  out.w = pack_bf16(c.z * scale, c.w * scale);
+  reinterpret_cast<uint4*>(dq)[i] = out;
+}
+
+// D = rowsum(dO * O), the main kernel, the cast: dq_acc is the zeroed f32
+// (B, S, H, D) buffer the wrapper allocates
 template <int D, bool SOFTCAP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, int B, int S,
-                   int H, int KV, int causal, int window, float softcap,
-                   cudaStream_t stream) {
+                   float* delta, float* dq_acc, void* dq, void* dk, void* dv,
+                   int B, int S, int H, int KV, int causal, int window,
+                   float softcap, cudaStream_t stream) {
+  if (dq_acc == nullptr) return cudaErrorInvalidValue;
   constexpr size_t smem = smem_bytes<D>();
-  auto k_dkdv = dkdv_kernel<D, SOFTCAP>;
-  auto k_dq = dq_kernel<D, SOFTCAP>;
+  auto kernel = bwd_kernel<D, SOFTCAP>;
   cudaError_t e = cudaFuncSetAttribute(
-      k_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(k_dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           int(smem));
-  if (e != cudaSuccess) return e;
-  if (B * H > 65535) return cudaErrorInvalidValue;
+  const int n_kv = (S + key_tile<D>() - 1) / key_tile<D>();
+  if (n_kv > 65535) return cudaErrorInvalidValue;
   const float scale = float(1.0 / sqrt(double(D)));
-  const bf16* tq = static_cast<const bf16*>(q);
-  const bf16* tk = static_cast<const bf16*>(k);
-  const bf16* tv = static_cast<const bf16*>(v);
   const bf16* tdo = static_cast<const bf16*>(dout);
   const int rows = B * S * H;
   bwd::delta_kernel<bf16><<<(rows + 7) / 8, 256, 0, stream>>>(
       static_cast<const bf16*>(o), tdo, delta, rows, S, H, D);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int n_t = (S + BR - 1) / BR;
-  k_dkdv<<<dim3(n_t, B * KV), NT, smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, H, KV, scale, causal, window, softcap);
+  kernel<<<dim3(B * KV, n_kv), threads<D>(), smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), tdo, lse, delta, dq_acc,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, KV, scale,
+      causal, window, softcap);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  k_dq<<<dim3(n_t, B * H), NT, smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), S, H, KV, scale,
-      causal, window, softcap);
+  const long n8 = long(rows) * D / 8;
+  dq_cast_kernel<<<unsigned((n8 + 255) / 256), 256, 0, stream>>>(
+      dq_acc, static_cast<bf16*>(dq), n8, scale);
   return cudaGetLastError();
 }
 
-}  // namespace bwd_tc
+}  // namespace bwd_wg
 
-// The backward for one head dim: bf16 at D 64 and 128 on the tensor cores
-// (bwd_tc), f32, and bf16 at D 256, on the CUDA cores (bwd)
+// Whether the backward of (dtype, D) runs on the tensor cores (bwd_wg: bf16
+// at D 64 and 128) and so sums dQ into the caller's f32 buffer dq_acc; f32,
+// and bf16 at D 256, run on the CUDA cores (bwd), dq_acc unused. The
+// wrapper asks flash_attention_bwd_sums_dq, below, so the rule lives here
+__host__ __device__ constexpr bool on_bwd_wg(int dtype, int D) {
+  return dtype == 1 && (D == 64 || D == 128);
+}
+
+// The backward for one head dim, on bwd_wg or bwd as on_bwd_wg says
 template <int D, bool SOFTCAP>
 cudaError_t launch_bwd_cap(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const float* lse,
-                           float* delta, void* dq, void* dk, void* dv,
-                           int dtype, int B, int S, int H, int KV, int causal,
-                           int window, float softcap, cudaStream_t st) {
+                           float* delta, float* dq_acc, void* dq, void* dk,
+                           void* dv, int dtype, int B, int S, int H, int KV,
+                           int causal, int window, float softcap,
+                           cudaStream_t st) {
   if (dtype == 0)
     return bwd::launch<float, D, SOFTCAP>(q, k, v, o, dout, lse, delta, dq,
                                           dk, dv, B, S, H, KV, causal,
                                           window, softcap, st);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (D <= 128)
-    return bwd_tc::launch<D, SOFTCAP>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, B, S, H, KV, causal, window,
-                                      softcap, st);
+  if constexpr (on_bwd_wg(1, D))
+    return bwd_wg::launch<D, SOFTCAP>(q, k, v, o, dout, lse, delta, dq_acc,
+                                      dq, dk, dv, B, S, H, KV, causal,
+                                      window, softcap, st);
   else
     return bwd::launch<__nv_bfloat16, D, SOFTCAP>(
         q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal,
@@ -1312,16 +1359,17 @@ cudaError_t launch_bwd_cap(const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
-                       float* delta, void* dq, void* dk, void* dv, int dtype,
-                       int B, int S, int H, int KV, int causal, int window,
-                       float softcap, cudaStream_t st) {
+                       float* delta, float* dq_acc, void* dq, void* dk,
+                       void* dv, int dtype, int B, int S, int H, int KV,
+                       int causal, int window, float softcap,
+                       cudaStream_t st) {
   return softcap > 0.f
-             ? launch_bwd_cap<D, true>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, dtype, B, S, H, KV, causal, window,
-                                       softcap, st)
-             : launch_bwd_cap<D, false>(q, k, v, o, dout, lse, delta, dq, dk,
-                                        dv, dtype, B, S, H, KV, causal,
-                                        window, softcap, st);
+             ? launch_bwd_cap<D, true>(q, k, v, o, dout, lse, delta, dq_acc,
+                                       dq, dk, dv, dtype, B, S, H, KV,
+                                       causal, window, softcap, st)
+             : launch_bwd_cap<D, false>(q, k, v, o, dout, lse, delta, dq_acc,
+                                        dq, dk, dv, dtype, B, S, H, KV,
+                                        causal, window, softcap, st);
 }
 
 template <int D>
@@ -1367,24 +1415,34 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                       softcap, static_cast<cudaStream_t>(stream)));
 }
 
+// 1 where the backward of dtype (0 f32, 1 bf16) at head dim D sums dQ into
+// a zeroed f32 buffer (its dq_acc argument), else 0
+extern "C" int flash_attention_bwd_sums_dq(int dtype, int D) {
+  return int(on_bwd_wg(dtype, D));
+}
+
 // The backward: q, k, v, o and dout (the gradient of o) as the forward's
 // tensors, lse the forward's (B, H, S) f32 output, delta a (B, H, S) f32
-// scratch buffer; writes dq (B, S, H, D), dk and dv (B, S, KV, D) in the
-// inputs' dtype. Head dims 64, 128 and 256. Returns the first cudaError_t
-// of its three launches.
+// scratch buffer, dq_acc (where flash_attention_bwd_sums_dq says so, else
+// unused and may be null) a zeroed (B, S, H, D) f32 buffer that dQ is
+// summed into;
+// writes dq (B, S, H, D), dk and dv (B, S, KV, D) in the inputs' dtype.
+// Head dims 64, 128 and 256. Returns the first cudaError_t of its three
+// launches.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout,
-                                   const float* lse, float* delta, void* dq,
-                                   void* dk, void* dv, int dtype, int B,
-                                   int S, int H, int KV, int D, int causal,
-                                   int window, float softcap, void* stream) {
+                                   const float* lse, float* delta,
+                                   float* dq_acc, void* dq, void* dk,
+                                   void* dv, int dtype, int B, int S, int H,
+                                   int KV, int D, int causal, int window,
+                                   float softcap, void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return int(launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, S, H, KV, causal, window, softcap, st));
-    case 128: return int(launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, S, H, KV, causal, window, softcap, st));
-    case 256: return int(launch_bwd<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, S, H, KV, causal, window, softcap, st));
+    case 64: return int(launch_bwd<64>(q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv, dtype, B, S, H, KV, causal, window, softcap, st));
+    case 128: return int(launch_bwd<128>(q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv, dtype, B, S, H, KV, causal, window, softcap, st));
+    case 256: return int(launch_bwd<256>(q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv, dtype, B, S, H, KV, causal, window, softcap, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -8,6 +8,12 @@ input that requires grad), the CUDA path runs ``FlashAttention``: its
 forward launches the kernel with each row's log-sum-exp and saves (q, k, v,
 o, lse), its backward launches the backward kernel. ``launches`` counts
 forward launches (serving and training), ``bwd_launches`` backward ones.
+
+The backward of bf16 at head dims 64 and 128 runs on the tensor cores in
+one pass over the scores and sums dQ into an f32 buffer by atomics, so its
+dQ's summation order varies from run to run; f32 (the parity path) and
+head dim 256 run on the CUDA cores, deterministic. The library says which
+(``flash_attention_bwd_sums_dq``).
 """
 from __future__ import annotations
 
@@ -44,10 +50,14 @@ def load_library() -> ctypes.CDLL:
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.flash_attention_bwd
-    # q, k, v, o, dout, lse, delta, dq, dk, dv; dtype, B, S, H, KV, D,
-    # causal, window; softcap; stream
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    # q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv; dtype, B, S, H, KV,
+    # D, causal, window; softcap; stream
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    # dtype, D: 1 where the backward sums dQ into a zeroed f32 buffer
+    fn = lib.flash_attention_bwd_sums_dq
+    fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -110,7 +120,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=0,
                         softcap=0.0):
     """Launch the backward kernel: (dq, dk, dv) in q's dtype for the output
     gradient ``dout``, from the forward's ``out`` and ``lse`` (B, H, S) f32.
-    CUDA tensors only; head dims ``BWD_HEAD_DIMS``."""
+    CUDA tensors only; head dims ``BWD_HEAD_DIMS``. The kernels allocate
+    nothing: the wrapper gives them delta's (B, H, S) f32 scratch and,
+    where the library's ``flash_attention_bwd_sums_dq`` says so (bf16 at
+    head dims 64 and 128), the zeroed f32 buffer dQ is summed into."""
     global bwd_launches
     _check(q, k, v)
     if q.device.type != "cuda":
@@ -128,10 +141,14 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=0,
     lib = load_library()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dq_acc = (torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+              if lib.flash_attention_bwd_sums_dq(_DTYPE_CODE[q.dtype], d)
+              else None)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, s, h,
             k.shape[2], d, int(bool(causal)), int(window), float(softcap),
             torch.cuda.current_stream(q.device).cuda_stream)

@@ -40,8 +40,25 @@
 //     Granite's decode calls give 256 (wi/wg) and 512 (wo) such blocks for
 //     the 132 SMs, so every block walks the whole of D.
 //
+// The backward, bf16 (the training path): autograd's dx = dy . w^T and
+// dw = x^T . dy, two launches of the tile kernel's body (gmm_dx_kernel,
+// gmm_dw_kernel). What bounds it: at granite's training capacity
+// (C = 2560, d 1024, f 512) the two products are ~172 GFLOP against ~200
+// MB of x, w, dy, dx and dw: operations, 0.174 ms at the bf16 peak. The
+// earlier design ran the forward kernel on contiguous copies of w^T and
+// x^T (x^T alone 168 MB written and read again) and zero-padded C to a
+// multiple of 8, so the copies cost more than the products' own reads.
+// Here nothing is copied: wgmma takes a shared-memory operand K-major or
+// MN-major (its transpose flag), so dx reads w's (d, f) rows as a K-major
+// B (the contraction f is contiguous) and dw reads x as an MN-major A and
+// dy as an MN-major B, all through the same swizzled cp.async ring; dw's
+// contraction C is masked by zero-fill in the tile loads, so C need not
+// be a multiple of 8. At C = 2560 a 64 x 128 dw tile walks 40 depth steps
+// and the grid is 16 x 4 x 32 blocks.
+//
 // f32 (the parity runs, where TF32 would change tokens): f32 FMAs on the
-// CUDA cores, one block per (expert, 64-row C tile, 64-column F tile).
+// CUDA cores, one block per (expert, 64-row C tile, 64-column F tile); its
+// backward (off the timed path) runs this kernel on transposed copies.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -262,7 +279,15 @@ cudaError_t launch(const void* x, const void* w, void* o, int E, int C,
 }  // namespace bf16stream
 
 // ---------------------------------------------------------------------------
-// bf16 tile kernel: warpgroup tensor-core products (wgmma), cp.async ring
+// bf16 tile kernels: warpgroup tensor-core products (wgmma), cp.async ring.
+// One body serves the forward and both gradients of the backward. They
+// differ only in how each operand lies in device memory: K-major (its rows
+// run along the contraction) or MN-major (its rows run along the output).
+// wgmma reads either from shared memory, the MN-major one through the
+// instruction's transpose, so every tensor is read where it lies:
+//   forward  out (C, F) = x (C, D) . w (D, F)     A K-major,  B MN-major
+//   dx       dx (C, D) = dy (C, F) . w^T          A K-major,  B K-major
+//   dw       dw (D, F) = x^T . dy (C, F)          A MN-major, B MN-major
 namespace bf16wg {
 
 using namespace mma_bf16;
@@ -270,62 +295,95 @@ using namespace mma_bf16;
 // One warpgroup a block (three blocks share an SM; two warpgroups sharing
 // a 128-row tile were slower, though they read each w tile half as often)
 constexpr int NT = 128;
-constexpr int BM = 64;            // rows of C a block
-constexpr int BN = 128;           // columns of F a block
+constexpr int BM = 64;            // output rows a block
+constexpr int BN = 128;           // output columns a block
 constexpr int BK = 64;            // depth a stage: one 128-byte swizzle row
+// 3 stages, each step's products waited for before the next copy is
+// issued: three blocks share an SM and run out of step. (Four stages with
+// one step's products left in flight, two blocks an SM, were no faster for
+// the backward's dx and dw.)
 constexpr int STAGES = 3;
-constexpr int A_ELEMS = BM * BK;  // x tile, [BM][64]
-constexpr int B_ELEMS = BK * BN;  // w tile, [BN / 64][BK][64]
+constexpr int A_ELEMS = BM * BK;  // A tile, [BM][64] or [64][BM]
+constexpr int B_ELEMS = BK * BN;  // B tile, [BN][64] or [BN / 64][BK][64]
 // the stages and 1024 bytes of slack to align the swizzle blocks
 constexpr size_t SMEM = sizeof(bf16) * STAGES * (A_ELEMS + B_ELEMS) + 1024;
 
-// the x tile (rows m0.., depth k0..) and the w tile (depth k0.., columns
-// n0..) into one stage, 128-byte swizzled; rows past C and columns past D
-// or F zero-filled
-__device__ __forceinline__ void load_stage(bf16* sA, bf16* sB, const bf16* xe,
-                                           const bf16* we, int m0, int n0,
-                                           int k0, int C, int D, int F,
-                                           int tid) {
-  static_assert(BM * 8 % NT == 0 && BK * BN / 8 % NT == 0, "even split");
+// A K-major tile: rows r0.. of a (rows, K) row-major matrix, depth k0..,
+// into [ROWS][64], 128-byte swizzled; rows past `rows` and depth past K
+// zero-filled
+template <int ROWS>
+__device__ __forceinline__ void load_kmajor(bf16* dst, const bf16* src,
+                                            int r0, int k0, int rows, int K,
+                                            int tid) {
+  static_assert(ROWS * 8 % NT == 0, "even split");
 #pragma unroll
-  for (int j = 0; j < BM * 8 / NT; ++j) {
+  for (int j = 0; j < ROWS * 8 / NT; ++j) {
     const int i = tid + j * NT, r = i / 8, c = i % 8;
-    const bool ok = m0 + r < C && k0 + c * 8 < D;
-    cp_async16(sA + sw128(r, c),
-               xe + (ok ? size_t(m0 + r) * D + k0 + c * 8 : 0), ok);
-  }
-#pragma unroll
-  for (int j = 0; j < BK * BN / 8 / NT; ++j) {
-    const int i = tid + j * NT, r = i / (BN / 8), c = i % (BN / 8);
-    const bool ok = k0 + r < D && n0 + c * 8 < F;
-    cp_async16(sB + (c / 8) * BK * 64 + sw128(r, c % 8),
-               we + (ok ? size_t(k0 + r) * F + n0 + c * 8 : 0), ok);
+    const bool ok = r0 + r < rows && k0 + c * 8 < K;
+    cp_async16(dst + sw128(r, c),
+               src + (ok ? size_t(r0 + r) * K + k0 + c * 8 : 0), ok);
   }
 }
 
-// grid (C tiles, F tiles, E), C tiles fastest: the blocks that share a
-// weight stripe run together. Warp w owns rows m0 + 16 w .. m0 + 16 w + 15,
-// lane (g, t) rows g and g + 8 of those.
-__global__ void __launch_bounds__(NT)
-gmm_tile_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                bf16* __restrict__ o, int C, int D, int F) {
+// An MN-major tile: depth rows k0.. of a (K, cols) row-major matrix,
+// columns c0.., into [COLS / 64][BK][64], 128-byte swizzled; depth past K
+// (a ragged contraction then adds nothing) and columns past `cols`
+// zero-filled
+template <int COLS>
+__device__ __forceinline__ void load_mnmajor(bf16* dst, const bf16* src,
+                                             int k0, int c0, int K, int cols,
+                                             int tid) {
+  static_assert(BK * COLS / 8 % NT == 0, "even split");
+#pragma unroll
+  for (int j = 0; j < BK * COLS / 8 / NT; ++j) {
+    const int i = tid + j * NT, r = i / (COLS / 8), c = i % (COLS / 8);
+    const bool ok = k0 + r < K && c0 + c * 8 < cols;
+    cp_async16(dst + (c / 8) * BK * 64 + sw128(r, c % 8),
+               src + (ok ? size_t(k0 + r) * cols + c0 + c * 8 : 0), ok);
+  }
+}
+
+// Descriptor of one k16 step of a stage's tile: K-major, 32 bytes into the
+// swizzle rows; MN-major, 16 rows down, its 64-column blocks BK rows apart
+template <bool MN>
+__device__ __forceinline__ uint64_t step_desc(const bf16* tile, int kk) {
+  if constexpr (MN)
+    return gmma_desc(tile + kk * 16 * 64, BK * 64 * sizeof(bf16), 1024);
+  else
+    return gmma_desc(tile + kk * 16, 16, 1024);
+}
+
+// out (M, N) = A (M x K) . B (K x N) for expert blockIdx.z, in a's dtype:
+// A stored (M, K), or (K, M) if A_MN; B stored (N, K), or (K, N) if B_MN.
+// grid (M tiles, N tiles, E), M tiles fastest: the blocks that share a B
+// stripe run together. Warp w owns rows m0 + 16 w .. m0 + 16 w + 15, lane
+// (g, t) rows g and g + 8 of those.
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void tile_body(const bf16* __restrict__ a,
+                                          const bf16* __restrict__ b,
+                                          bf16* __restrict__ o, int M, int N,
+                                          int K) {
   extern __shared__ unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, e = blockIdx.z;
   const int tid = threadIdx.x;
-  const bf16* xe = x + size_t(e) * C * D;
-  const bf16* we = w + size_t(e) * D * F;
-  const int n_k = (D + BK - 1) / BK;
+  const bf16* ae = a + size_t(e) * M * K;
+  const bf16* be = b + size_t(e) * K * N;
+  const int n_k = (K + BK - 1) / BK;
   auto stage_a = [&](int s) { return smem + s * (A_ELEMS + B_ELEMS); };
   auto stage_b = [&](int s) { return stage_a(s) + A_ELEMS; };
+  auto load_stage = [&](int s, int k0) {
+    if constexpr (A_MN) load_mnmajor<BM>(stage_a(s), ae, k0, m0, K, M, tid);
+    else load_kmajor<BM>(stage_a(s), ae, m0, k0, M, K, tid);
+    if constexpr (B_MN) load_mnmajor<BN>(stage_b(s), be, k0, n0, K, N, tid);
+    else load_kmajor<BN>(stage_b(s), be, n0, k0, N, K, tid);
+  };
 
   // prologue: STAGES - 1 tiles in flight (empty groups keep the count)
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_k)
-      load_stage(stage_a(s), stage_b(s), xe, we, m0, n0, s * BK, C, D, F,
-                 tid);
+    if (s < n_k) load_stage(s, s * BK);
     cp_async_commit();
   }
   float acc[BN / 2];
@@ -337,57 +395,77 @@ gmm_tile_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     fence_proxy_async();
     __syncthreads();   // tile kt has landed; every warp is done with kt - 1
     const int nk = kt + STAGES - 1;   // into the stage kt - 1 used
-    if (nk < n_k)
-      load_stage(stage_a(nk % STAGES), stage_b(nk % STAGES), xe, we, m0, n0,
-                 nk * BK, C, D, F, tid);
+    if (nk < n_k) load_stage(nk % STAGES, nk * BK);
     cp_async_commit();
 
-    // x K-major (a k16 step is 32 bytes into a swizzle row), w MN-major
-    // (its rows run along the depth: a k16 step is 16 rows)
     const bf16* sA = stage_a(kt % STAGES);
     const bf16* sB = stage_b(kt % STAGES);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_ss_n128<1>(acc, gmma_desc(sA + kk * 16, 16, 1024),
-                       gmma_desc(sB + kk * 16 * 64, BK * 64 * sizeof(bf16),
-                                 1024),
-                       1);
+      wgmma_ss_n128<int(A_MN), int(B_MN)>(acc, step_desc<A_MN>(sA, kk),
+                                          step_desc<B_MN>(sB, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
   }
   cp_async_wait<0>();   // only empty groups remain; leave none behind
 
-  // store: rows past C and columns past F masked (F % 8 == 0, so a
+  // store: rows past M and columns past N masked (N % 8 == 0, so a
   // thread's column pair is wholly in or out)
   const int lane = tid % 32, g = lane / 4, t = lane % 4;
   const int row = m0 + (tid / 32) * 16 + g;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int gm = row + 8 * r;
-    if (gm >= C) continue;
-    bf16* orow = o + (size_t(e) * C + gm) * F;
+    if (gm >= M) continue;
+    bf16* orow = o + (size_t(e) * M + gm) * N;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int gn = n0 + 8 * j + 2 * t;
-      if (gn < F)
+      if (gn < N)
         *reinterpret_cast<uint32_t*>(orow + gn) =
             pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
   }
 }
 
-cudaError_t launch_tile(const void* x, const void* w, void* o, int E, int C,
-                        int D, int F, cudaStream_t stream) {
-  if (E > 65535 || (F + BN - 1) / BN > 65535) return cudaErrorInvalidValue;
+// the forward: out (E, C, F) = x (E, C, D) . w (E, D, F)
+__global__ void __launch_bounds__(NT)
+gmm_tile_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                bf16* __restrict__ o, int C, int D, int F) {
+  tile_body<false, true>(x, w, o, C, F, D);
+}
+
+// dx (E, C, D) = dy (E, C, F) . w^T: w's rows (d) are the K-major B
+__global__ void __launch_bounds__(NT)
+gmm_dx_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w,
+              bf16* __restrict__ dx, int C, int D, int F) {
+  tile_body<false, false>(dy, w, dx, C, D, F);
+}
+
+// dw (E, D, F) = x^T . dy: x (E, C, D) is the MN-major A, dy (E, C, F)
+// the MN-major B, the contraction C masked
+__global__ void __launch_bounds__(NT)
+gmm_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+              bf16* __restrict__ dw, int C, int D, int F) {
+  tile_body<true, true>(x, dy, dw, D, F, C);
+}
+
+// one of the three kernels over an (M tiles, N tiles, E) grid; every
+// kernel takes its tensors and (C, D, F)
+using TileKernel = void (*)(const bf16*, const bf16*, bf16*, int, int, int);
+
+cudaError_t launch(TileKernel kernel, const void* a, const void* b, void* o,
+                   int E, int C, int D, int F, int M, int N,
+                   cudaStream_t stream) {
+  if (E > 65535 || (N + BN - 1) / BN > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gmm_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(SMEM));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
   if (err != cudaSuccess) return err;
-  dim3 grid((C + BM - 1) / BM, (F + BN - 1) / BN, E);
-  gmm_tile_kernel<<<grid, NT, SMEM, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, E);
+  kernel<<<grid, NT, SMEM, stream>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
       static_cast<bf16*>(o), C, D, F);
   return cudaGetLastError();
 }
@@ -412,7 +490,8 @@ extern "C" int grouped_matmul_fwd(const void* x, const void* w, void* o,
     case 0: return int(f32::launch(x, w, o, E, C, D, F, st));
     case 1:
       if (D % 8 || F % 8) return int(cudaErrorInvalidValue);
-      return int(bf16wg::launch_tile(x, w, o, E, C, D, F, st));
+      return int(bf16wg::launch(bf16wg::gmm_tile_kernel, x, w, o, E, C, D,
+                                F, C, F, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -425,4 +504,26 @@ extern "C" int grouped_matmul_stream_fwd(const void* x, const void* w,
     return int(cudaErrorInvalidValue);
   return int(bf16stream::launch(x, w, o, E, C, D, F,
                                 static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 backward of out = x . w for the output gradient dy (E, C, F),
+// every tensor read in place: dx (E, C, D) = dy . w^T. D and F multiples
+// of 8, any C.
+extern "C" int grouped_matmul_bwd_dx(const void* dy, const void* w, void* dx,
+                                     int E, int C, int D, int F,
+                                     void* stream) {
+  if (bad_shape(E, C, D, F) || D % 8 || F % 8)
+    return int(cudaErrorInvalidValue);
+  return int(bf16wg::launch(bf16wg::gmm_dx_kernel, dy, w, dx, E, C, D, F, C,
+                            D, static_cast<cudaStream_t>(stream)));
+}
+
+// dw (E, D, F) = x^T . dy, x (E, C, D): as grouped_matmul_bwd_dx.
+extern "C" int grouped_matmul_bwd_dw(const void* x, const void* dy, void* dw,
+                                     int E, int C, int D, int F,
+                                     void* stream) {
+  if (bad_shape(E, C, D, F) || D % 8 || F % 8)
+    return int(cudaErrorInvalidValue);
+  return int(bf16wg::launch(bf16wg::gmm_dw_kernel, x, dy, dw, E, C, D, F, D,
+                            F, static_cast<cudaStream_t>(stream)));
 }

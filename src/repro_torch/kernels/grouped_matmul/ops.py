@@ -9,10 +9,12 @@ f32 takes the CUDA-core kernel.
 
 Where autograd records the call (grad enabled and an input that requires
 grad), the CUDA path runs ``GroupedMatmul``, whose backward computes
-``dx = gmm(dy, w^T)`` and ``dw = gmm(x^T, dy)`` through the same kernels, on
-contiguous transposed copies (the capacity, dw's contraction, zero-padded
-to a multiple of 8 for the bf16 kernels). CPU tensors are differentiated
-through the plain version by autograd.
+``dx = dy . w^T`` and ``dw = x^T . dy`` on two more launches
+(``_bwd_calls``): in bf16 the tile kernel's dx and dw variants, which read
+dy, w and x where they lie (no transposed or padded copy); in f32 (the
+parity path, off the timed path) the f32 kernel on contiguous transposed
+copies. CPU tensors are differentiated through the plain version by
+autograd.
 """
 from __future__ import annotations
 
@@ -20,7 +22,6 @@ import ctypes
 from pathlib import Path
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
@@ -33,21 +34,28 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 STREAM_MAX_C = 16
 
 # forward launches in this process, backward launches (two a backward: dx
-# and dw), and every launch per kernel ("tile", "stream" for bf16, "f32");
-# a run resets them to show which calls went through which kernel
+# and dw), and every launch per kernel ("tile", "stream" for the bf16
+# forward, "dx", "dw" for the bf16 backward, "f32"); a run resets them to
+# show which calls went through which kernel
 launches = 0
 bwd_launches = 0
-launches_by_variant = {"tile": 0, "stream": 0, "f32": 0}
+launches_by_variant = {"tile": 0, "stream": 0, "dx": 0, "dw": 0, "f32": 0}
 _lib = None
+
+
+def _check_rows(d: int, f: int):
+    """Raises unless d and f are multiples of 8 (the bf16 kernels copy
+    16-byte rows)."""
+    if d % 8 or f % 8:
+        raise ValueError(f"the kernels take d and f in multiples of 8, not "
+                         f"d={d}, f={f}")
 
 
 def _plan(c: int, d: int, f: int) -> str:
     """The bf16 kernel that serves x (E, c, d) @ w (E, d, f): "stream" for
-    decode-sized c, "tile" above. Raises unless d and f are multiples of 8
-    (the kernels copy 16-byte rows)."""
-    if d % 8 or f % 8:
-        raise ValueError(f"the kernels take d and f in multiples of 8, not "
-                         f"d={d}, f={f}")
+    decode-sized c, "tile" above. Raises unless d and f are multiples of
+    8."""
+    _check_rows(d, f)
     return "stream" if c <= STREAM_MAX_C else "tile"
 
 
@@ -62,10 +70,13 @@ def load_library() -> ctypes.CDLL:
     # x, w, o; dtype, E, C, D, F; stream
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    fn = lib.grouped_matmul_stream_fwd
-    # x, w, o; E, C, D, F; stream
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    # the streaming kernel (x, w, o) and the backward's dx (dy, w, dx) and
+    # dw (x, dy, dw); then E, C, D, F; stream
+    for fn in (lib.grouped_matmul_stream_fwd, lib.grouped_matmul_bwd_dx,
+               lib.grouped_matmul_bwd_dw):
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -82,62 +93,87 @@ def _check(x, w):
         raise ValueError("x and w must be on one device")
 
 
-def _launch(x, w):
-    """One launch of the kernel that ``_plan`` picks for x @ w (CUDA
-    tensors, checked by the caller): (E, C, f) in x's dtype."""
-    if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"the kernel takes float32 or bfloat16, not {x.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("the kernel reads x and w in place: pass contiguous "
-                         "tensors")
-    e, c, d = x.shape
-    f = w.shape[2]
-    variant = "f32"
-    if x.dtype == torch.bfloat16:
-        variant = _plan(c, d, f)
-        if x.data_ptr() % 16 or w.data_ptr() % 16:
-            raise ValueError("the bf16 kernels copy 16-byte rows: x and w "
-                             "must start on a 16-byte boundary")
+# each variant's exported function; all take (a, b, out, E, C, d, f,
+# stream) for the product (E, C, d) @ (E, d, f), grouped_matmul_fwd ("tile"
+# and "f32") with the dtype code after out
+_FUNCTIONS = {"tile": "grouped_matmul_fwd", "f32": "grouped_matmul_fwd",
+              "stream": "grouped_matmul_stream_fwd",
+              "dx": "grouped_matmul_bwd_dx", "dw": "grouped_matmul_bwd_dw"}
+
+
+def _launch(variant, a, b, e, c, d, f):
+    """One launch of ``variant``'s kernel (CUDA tensors, checked by the
+    caller) for the product (E, C, d) @ (E, d, f): the product itself (E,
+    C, f) from a = x, b = w ("tile", "stream", "f32"), dx (E, C, d) from a
+    = dy, b = w ("dx"), or dw (E, d, f) from a = x, b = dy ("dw")."""
+    if a.dtype not in _DTYPE_CODE:
+        raise ValueError(f"the kernel takes float32 or bfloat16, not {a.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the kernel reads its tensors in place: pass "
+                         "contiguous tensors")
+    if a.dtype == torch.bfloat16 and (a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError("the bf16 kernels copy 16-byte rows: x, w and dy "
+                         "must start on a 16-byte boundary")
     lib = load_library()
-    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        if variant == "stream":
-            err = lib.grouped_matmul_stream_fwd(
-                x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
-                stream)
-        else:
-            err = lib.grouped_matmul_fwd(
-                x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                _DTYPE_CODE[x.dtype], e, c, d, f, stream)
+    shape = {"dx": (e, c, d), "dw": (e, d, f)}.get(variant, (e, c, f))
+    out = torch.empty(shape, dtype=a.dtype, device=a.device)
+    dtype = [_DTYPE_CODE[a.dtype]] if variant in ("tile", "f32") else []
+    with torch.cuda.device(a.device):
+        err = getattr(lib, _FUNCTIONS[variant])(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), *dtype, e, c, d, f,
+            torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"grouped_matmul {variant} kernel launch failed "
                            f"with CUDA error {err} (E={e}, C={c}, d={d}, "
-                           f"f={f}, {x.dtype})")
+                           f"f={f}, {a.dtype})")
     launches_by_variant[variant] += 1
     return out
 
 
+def _forward(x, w):
+    """x @ w on the kernel that ``_plan`` picks (CUDA tensors, checked by
+    the caller): (E, C, f) in x's dtype."""
+    e, c, d = x.shape
+    f = w.shape[2]
+    variant = _plan(c, d, f) if x.dtype == torch.bfloat16 else "f32"
+    return _launch(variant, x, w, e, c, d, f)
+
+
+def _bwd_calls(x, w, dy, need_dx: bool, need_dw: bool) -> dict:
+    """The launches of the backward of x (E, C, d) @ w (E, d, f) for the
+    output gradient dy (E, C, f), by gradient: (variant, a, b, (E, C, d,
+    f) of the product the variant computes), ``_launch``'s arguments. bf16
+    takes the tile kernel's "dx" (dy, w) and "dw" (x, dy) variants on the
+    tensors themselves; float32, the parity path, takes the f32 kernel on
+    w^T and x^T copied contiguous. Raises for bf16 unless d and f are
+    multiples of 8. A gradient not needed is not launched."""
+    e, c, d = x.shape
+    f = w.shape[2]
+    if x.dtype == torch.bfloat16:
+        _check_rows(d, f)
+        calls = {"dx": ("dx", dy, w, (e, c, d, f)),
+                 "dw": ("dw", x, dy, (e, c, d, f))}
+    else:
+        calls = {"dx": ("f32", dy, w.transpose(1, 2).contiguous(),
+                        (e, c, f, d)),
+                 "dw": ("f32", x.transpose(1, 2).contiguous(), dy,
+                        (e, d, c, f))}
+    return {g: call for g, call in calls.items()
+            if {"dx": need_dx, "dw": need_dw}[g]}
+
+
 def grouped_matmul_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
-    """(dx, dw) of x @ w for the output gradient ``dy`` on the kernels:
-    dx = dy @ w^T (E, C, d), dw = x^T @ dy (E, d, f), each through ``w^T``
-    or ``x^T`` copied contiguous; dw's contraction (the capacity C) is
-    zero-padded to a multiple of 8 for bf16, which adds nothing to the sum.
-    An output not needed is None and not launched."""
+    """(dx, dw) of x @ w for the output gradient ``dy`` on the kernels
+    (CUDA tensors): dx = dy @ w^T (E, C, d), dw = x^T @ dy (E, d, f), one
+    launch each as ``_bwd_calls`` plans them. An output not needed is
+    None."""
     global bwd_launches
-    dy = dy.contiguous()
-    dx = dw = None
-    if need_dx:
-        dx = _launch(dy, w.transpose(1, 2).contiguous())
+    grads = {}
+    for g, (variant, a, b, dims) in _bwd_calls(x, w, dy.contiguous(), need_dx,
+                                               need_dw).items():
+        grads[g] = _launch(variant, a, b, *dims)
         bwd_launches += 1
-    if need_dw:
-        xt = x.transpose(1, 2).contiguous()                   # (E, d, C)
-        pad = -x.shape[1] % 8 if x.dtype == torch.bfloat16 else 0
-        if pad:
-            xt, dy = F.pad(xt, (0, pad)), F.pad(dy, (0, 0, 0, pad))
-        dw = _launch(xt, dy)
-        bwd_launches += 1
-    return dx, dw
+    return grads.get("dx"), grads.get("dw")
 
 
 class GroupedMatmul(torch.autograd.Function):
@@ -148,7 +184,7 @@ class GroupedMatmul(torch.autograd.Function):
     def forward(ctx, x, w):
         global launches
         ctx.save_for_backward(x, w)
-        out = _launch(x, w)
+        out = _forward(x, w)
         launches += 1
         return out
 
@@ -171,6 +207,6 @@ def grouped_matmul(x, w):
                          f"{x.device.type}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return GroupedMatmul.apply(x, w)
-    out = _launch(x, w)
+    out = _forward(x, w)
     launches += 1
     return out

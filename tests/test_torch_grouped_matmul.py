@@ -106,3 +106,54 @@ def test_plan_rejects_rows_off_16_bytes(d, f):
     x, w = torch.ones((4, 2, d)), torch.ones((4, d, f))
     torch.testing.assert_close(ops.grouped_matmul(x, w),
                                torch.full((4, 2, f), float(d)))
+
+
+# The backward's launches (``_bwd_calls``), pure Python on meta tensors (no
+# memory), at every MoE configuration's training capacity, full width and
+# reduced: bf16 takes the tile kernel's "dx" and "dw" variants on dy, w and
+# x themselves (no transposed or padded copy, any capacity); float32, the
+# parity path, the f32 kernel on w^T and x^T copied contiguous.
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("size,tokens", [("full", 4 * 2048),
+                                         ("reduced", 2 * 33)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_plan_at_training_capacity(arch, size, tokens, dtype):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.moe import _capacity
+    cfg = get_config(arch)
+    if size == "reduced":
+        cfg = reduced(cfg)
+    m = cfg.moe
+    c = _capacity(tokens, m.top_k, m.num_experts, m.capacity_factor)
+    for d, f in ((cfg.d_model, m.expert_d_ff), (m.expert_d_ff, cfg.d_model)):
+        x, w, dy = (torch.empty(shape, dtype=dtype, device="meta")
+                    for shape in ((m.num_experts, c, d),
+                                  (m.num_experts, d, f),
+                                  (m.num_experts, c, f)))
+        calls = ops._bwd_calls(x, w, dy, True, True)
+        e = m.num_experts
+        assert {g: v for g, (v, *_) in calls.items()} == (
+            {"dx": "dx", "dw": "dw"} if dtype == torch.bfloat16
+            else {"dx": "f32", "dw": "f32"})
+        (_, a_dx, b_dx, dims_dx), (_, a_dw, b_dw, dims_dw) = \
+            calls["dx"], calls["dw"]
+        if dtype == torch.bfloat16:
+            assert a_dx is dy and b_dx is w and a_dw is x and b_dw is dy
+            assert dims_dx == dims_dw == (e, c, d, f)
+        else:
+            assert a_dx is dy and b_dw is dy
+            assert b_dx.shape == (e, f, d) and b_dx.is_contiguous()
+            assert a_dw.shape == (e, d, c) and a_dw.is_contiguous()
+            # the f32 kernel computes (E, C, f) @ (E, f, d) and (E, d, C)
+            # @ (E, C, f)
+            assert dims_dx == (e, c, f, d) and dims_dw == (e, d, c, f)
+        # one gradient only: one launch
+        assert list(ops._bwd_calls(x, w, dy, False, True)) == ["dw"]
+
+
+def test_backward_plan_rejects_rows_off_16_bytes():
+    x, w, dy = (torch.empty(s, dtype=torch.bfloat16, device="meta")
+                for s in ((2, 5, 100), (2, 100, 64), (2, 5, 64)))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops._bwd_calls(x, w, dy, True, True)

@@ -211,7 +211,9 @@ def test_chunked_prefill_on_the_card_matches_the_whole_prompt_path():
 # (B, S, H, KV, D, window, softcap) for the backward kernel: the training
 # shapes of granite (D 64) and a gemma2-like softcap + window at D 128, S
 # off the 64-row tile, a window that bites, non-causal-free GQA, and D 256
-# at the 32-row tile
+# at the 32-row tile; then the tensor-core kernel's edges: S = 1000 (off
+# the 64-key tile) at GQA groups of 2 and 8, with a window that bites and
+# with softcap 50
 BWD_CASES = [
     (2, 128, 4, 2, 64, 0, 0.0),
     (1, 200, 4, 1, 128, 0, 0.0),
@@ -220,6 +222,11 @@ BWD_CASES = [
     (1, 130, 2, 1, 256, 0, 0.0),
     (1, 100, 2, 2, 256, 40, 30.0),
     (2, 512, 16, 8, 64, 0, 0.0),
+    (1, 1000, 8, 4, 128, 0, 0.0),
+    (2, 1000, 16, 2, 64, 0, 0.0),
+    (1, 1000, 16, 2, 128, 300, 0.0),
+    (1, 1000, 8, 4, 64, 200, 50.0),
+    (1, 1000, 16, 2, 128, 0, 50.0),
 ]
 
 
@@ -274,10 +281,12 @@ def test_flash_backward_kernel_matches_plain_backward(b, s, h, kv, d, win,
 
 
 # (E, C, d, f): granite's training capacity at 4 x 2048 tokens (2560), a
-# capacity off the multiple of 8, and the decode-sized capacities that take
-# the streaming kernel for dx
+# capacity off the multiple of 8, decode-sized capacities, and C = 5, 157
+# and 2560 with d and f off the 128-column tile (the contraction of dw
+# ragged or long, dx's columns and dw's rows masked)
 GMM_BWD_CASES = [(32, 2560, 1024, 512), (32, 2560, 512, 1024),
-                 (8, 157, 256, 128), (8, 5, 256, 128), (4, 2, 104, 72)]
+                 (8, 157, 256, 128), (8, 5, 256, 128), (4, 2, 104, 72),
+                 (4, 5, 104, 72), (4, 157, 104, 72), (4, 2560, 104, 72)]
 
 
 @pytest.mark.gpu
@@ -294,9 +303,19 @@ def test_grouped_matmul_backward_matches_plain_backward(e, c, d, f, dtype):
             .to(dtype).requires_grad_() for shape in ((e, c, d), (e, d, f)))
     dy = (torch.randn((e, c, f), generator=gen, device="cuda") * 0.3).to(dtype)
     before = (gmm.launches, gmm.bwd_launches)
+    by_variant = dict(gmm.launches_by_variant)
     dx, dw = torch.autograd.grad(gmm.grouped_matmul(x, w), (x, w), dy)
     torch.cuda.synchronize()
     assert (gmm.launches, gmm.bwd_launches) == (before[0] + 1, before[1] + 2)
+    # the forward's kernel, then dx and dw: the tile kernel's variants in
+    # bf16, the f32 kernel in f32
+    if dtype == torch.bfloat16:
+        by_variant[gmm._plan(c, d, f)] += 1
+        by_variant["dx"] += 1
+        by_variant["dw"] += 1
+    else:
+        by_variant["f32"] += 3
+    assert gmm.launches_by_variant == by_variant
     xr, wr = (t.detach().float().requires_grad_() for t in (x, w))
     rx, rw = torch.autograd.grad(grouped_matmul_ref(xr, wr), (xr, wr),
                                  dy.float())
@@ -306,3 +325,29 @@ def test_grouped_matmul_backward_matches_plain_backward(e, c, d, f, dtype):
         assert g.dtype == dtype
         err = float((g.float() - r).abs().max())
         assert err <= tol * float(r.abs().max()), (err, float(r.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,d", [(2, 1024, 8, 2, 128),
+                                        (2, 1000, 16, 8, 64)])
+def test_flash_backward_runs_agree(b, s, h, kv, d):
+    """Two bf16 backward calls on the same inputs: dK and dV (summed in
+    registers) are equal bit for bit; dQ (summed by f32 atomics, in an order
+    that varies from run to run) agrees within the bf16 tolerance of the
+    check against the plain backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for n in (h, kv, kv))
+    dout = torch.randn((b, s, h, d), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    out, lse = ops._forward(q, k, v, True, 0, 0.0, with_lse=True)
+    first, second = (ops.flash_attention_bwd(q, k, v, out, dout, lse)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2],
+                                                            second[2])
+    spread = float((first[0].float() - second[0].float()).abs().max())
+    assert spread <= _bwd_tol(torch.bfloat16) * float(
+        first[0].float().abs().max())

@@ -22,55 +22,26 @@ card's name and power limit.
 """
 from __future__ import annotations
 
-import argparse
-import importlib.util
 import json
-import statistics
-import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-sys.path.insert(0, str(ROOT / "src"))
-
-import chip_smoke as cs  # noqa: E402  (the measurement helpers)
-
-ORDER = ("this", "other", "other", "this")
-
-
-def abba(read, rounds: int) -> dict:
-    """``read(side)`` for each side in ``ORDER``, ``rounds`` times: every
-    reading per side and their median."""
-    got = {"this": [], "other": []}
-    for _ in range(rounds):
-        for side in ORDER:
-            got[side].append(read(side))
-    return {**got, "median": {k: statistics.median(v)
-                              for k, v in got.items()}}
+import ab  # puts the repo root and src/ on sys.path
+import chip_smoke as cs  # the measurement helpers
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", type=Path, required=True,
-                    help="root of the other checkout")
-    ap.add_argument("--rounds", type=int, default=15)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
+    args = ab.parse_args(__doc__, 15)
+    if args is None:
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd import ops
     from repro_torch.models.model import build_model
 
     path = args.other / "src" / "repro_torch" / "kernels" / "ssd" / "ops.py"
-    spec = importlib.util.spec_from_file_location("other_ssd_ops", path)
-    other = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(other)
+    other = ab.module("other_ssd_ops", path)
     wrappers = {"this": ops.ssd_intra_chunk, "other": other.ssd_intra_chunk}
     out = {"other": str(args.other), "rounds": args.rounds}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -80,13 +51,13 @@ def main() -> int:
         sets = [cs.ssd_kernel_inputs(*cs.ssd_inputs(b, s, nh, hd, ds, gen), ch)
                 for _ in range(2 + 2 * cs.L2_BYTES
                                // cs.ssd_set_bytes(b, s, nh, hd, ds, ch))]
-        out[f"kernel_cold_ms_{label}"] = abba(
+        out[f"kernel_cold_ms_{label}"] = ab.abba(
             lambda side: cs.cold_ms(lambda st: wrappers[side](*st), sets, 40),
             2)
-        out[f"kernel_warm_ms_{label}"] = abba(
+        out[f"kernel_warm_ms_{label}"] = ab.abba(
             lambda side: cs.cuda_ms(lambda: wrappers[side](*sets[0]), 40), 2)
         if label == "1024":
-            out["host_us_per_call"] = abba(
+            out["host_us_per_call"] = ab.abba(
                 lambda side: cs.host_us(lambda: wrappers[side](*sets[0])),
                 args.rounds)
         del sets
@@ -102,15 +73,11 @@ def main() -> int:
         return cs.host_ms(lambda: model.prefill(params, toks, 2048))
 
     with torch.inference_mode():
-        out["prefill_1x1024_host_ms"] = abba(prefill_ms, args.rounds)
+        out["prefill_1x1024_host_ms"] = ab.abba(prefill_ms, args.rounds)
     ops.ssd_intra_chunk = wrappers["this"]
 
     print(json.dumps(out), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else "nvidia-smi: no reading", flush=True)
+    ab.print_card()
     return 0
 
 
