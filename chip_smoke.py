@@ -7,15 +7,18 @@ sources in this checkout (one nvcc per source, all started together,
 sm_90a), with each kernel's tensor-core instruction count from
 ``cuobjdump -sass``; every kernel against its plain PyTorch version on the
 card, and the backward kernels (flash attention's, the grouped matmul's dx
-and dw) against the plain backward at the training shapes, in f32 and
-bf16; kernel timings at the serving shapes beside their bound and a library
-yardstick (the grouped matmul and SSD also with a cold L2), and the
-backward kernels' at the training shapes beside the earlier design's
+and dw, the SSD intra-chunk's four grids) against the plain backward at the
+training shapes, in f32 and bf16 (SSD: f32, at the sweep, the tiling
+edges, mamba2's decay range and the microbatches of train_mamba2 and
+train_zamba2); kernel timings at the serving shapes beside their bound and
+a library yardstick (the grouped matmul and SSD also with a cold L2), and
+the backward kernels' at the training shapes beside the earlier design's
 times, with one profiled call of each (its device kernels by name: the
-bf16 grouped-matmul backward may launch only its dx and dw products) and
-the flash backward's run-to-run spread of dQ (summed by atomics); the
-build requires warpgroup products (HGMMA) in both backward kernels; the
-training path: yi-9b at full
+bf16 grouped-matmul backward may launch only its dx and dw products, the
+SSD backward only its four grids) and the flash backward's run-to-run
+spread of dQ (summed by atomics; the SSD backward's two calls equal bit for
+bit); the build requires warpgroup products (HGMMA) in the flash and
+grouped-matmul backward kernels; the training path: yi-9b at full
 width cut to 16 layers on one fixed 4 x 2048 batch (10 steps: finite and
 falling losses, step ms, tokens/s, the model FLOPs' share of the bf16 peak,
 peak memory, flash launches 2 x 16 a step under remat and backward
@@ -24,8 +27,14 @@ same params (3 steps: losses and params), ``python -m
 repro_torch.launch.train`` for granite-moe-1b-a400m at full width and
 depth (10 steps in 2 microbatches, saved every 5, resumed for 5 more; the
 restored state equal to the saved one leaf for leaf) and a VRE's
-``lm-trainer`` on provider h100 across a destroy and re-instantiation,
-each with exact forward and backward launch counts; full-width (depth 2, float32) engine tokens against a reference for yi-9b
+``lm-trainer`` on provider h100 across a destroy and re-instantiation;
+mamba2-370m (2 layers) and zamba2-1.2b (one segment of 6 and the shared
+block) in f32 on the card against the CPU (3 steps: losses, grad norms and
+params); ``python -m repro_torch.launch.train`` for mamba2-370m at full
+width and depth (8 x 2048 in 2 microbatches, 10 steps saved every 5,
+resumed for 5, the restored state equal leaf for leaf) with one profiled
+step; zamba2-1.2b at full width and depth on one fixed 4 x 2048 batch (10
+steps); each with exact forward and backward launch counts; full-width (depth 2, float32) engine tokens against a reference for yi-9b
 and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
 same engine on the CPU), and for yi-9b with chunked prefill, the prefix
 cache, speculative decoding (n-gram and model drafts, and a prompt that runs
@@ -195,6 +204,19 @@ YI_TRAIN = dict(layers=16, batch=4, seq=2048, steps=10)
 # train_granite: launch/train.py at full width and depth
 GRANITE_TRAIN = ["--arch", "granite-moe-1b-a400m", "--global-batch", "8",
                  "--seq-len", "2048", "--microbatches", "2"]
+
+# the SSD backward at the training microbatches of train_mamba2 (8 x 2048
+# in 2 microbatches) and train_zamba2 (4 x 2048), each gradient within the
+# forward's tolerance, its atol taken relative to the gradient's largest
+# magnitude
+MAMBA2_TRAIN_SSD = (4, 2048, 32, 64, 128, 256)
+ZAMBA2_TRAIN_SSD = (4, 2048, 64, 64, 64, 256)
+SSD_BWD_TOL = dict(atol_of_max=5e-4, rtol=5e-3)
+# train_mamba2: launch/train.py at full width and depth; train_zamba2: full
+# width and depth, one fixed batch
+MAMBA2_TRAIN = ["--arch", "mamba2-370m", "--global-batch", "8",
+                "--seq-len", "2048", "--microbatches", "2"]
+ZAMBA2_TRAIN = dict(batch=4, seq=2048, steps=10)
 
 SERVE = dict(replicas=1, slots=4, max_seq=2048)
 LOAD = dict(requests=8, rate_rps=4.0, max_new_tokens=32, lo=256, hi=1025)
@@ -456,6 +478,31 @@ def ssd_bound_ms(b, nh, nc, c, hd, ds, peak=H100_TF32_FLOPS,
     return bound(passes * flops, nbytes, peak)
 
 
+def ssd_bwd_bound_ms(b, nh, nc, c, hd, ds, peak=H100_TF32_FLOPS,
+                     passes=3) -> tuple[float, str]:
+    """The SSD intra-chunk backward, f32: the least work the gradient
+    needs. C.B^T on the causal triangle once per (batch, chunk); per head
+    dy.xdt^T and M^T.dy on the triangle, B.dS and xdt.dS^T; per (batch,
+    chunk) dC = dG.B and dB = dG^T.C on the triangle. a, xdt, B, C, dy and
+    dS read once; da, dxdt, dB and dC written once. By default in split
+    TF32 (three TF32 products for each f32 one at the TF32 peak);
+    ``peak=H100_F32_FLOPS, passes=1`` gives the bound on the CUDA cores,
+    the instruction class of this kernel."""
+    pairs = c * (c + 1) // 2
+    flops = (b * nc * 3 * 2.0 * pairs * ds
+             + b * nh * nc * (4.0 * pairs * hd + 4.0 * c * ds * hd))
+    nbytes = 4 * (2 * b * nh * nc * c + 3 * b * nh * nc * c * hd
+                  + 4 * b * nc * c * ds + b * nh * nc * ds * hd)
+    return bound(passes * flops, nbytes, peak)
+
+
+def ssd_bwd_set_bytes(b, s, nh, hd, ds, ch) -> int:
+    """Bytes of one set of the backward's inputs and outputs."""
+    nc = s // ch
+    return 4 * (2 * b * nh * s + 3 * b * nh * s * hd + 4 * b * s * ds
+                + b * nh * nc * ds * hd)
+
+
 def randn(shape, dtype, gen, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda",
                         dtype=torch.float32) * scale).to(dtype)
@@ -544,12 +591,13 @@ def training_phases(smi: str, ops: dict) -> dict:
     from repro_torch.training.train_step import (TrainStepConfig, init_state,
                                                  make_train_step)
     fa_ops, gmm_ops = ops["flash_attention"], ops["grouped_matmul"]
+    ssd_ops = ops["ssd"]
     counts = {}
 
     def reset():
         for op in ops.values():
             op.launches = 0
-        fa_ops.bwd_launches = gmm_ops.bwd_launches = 0
+        fa_ops.bwd_launches = gmm_ops.bwd_launches = ssd_ops.bwd_launches = 0
         gmm_ops.launches_by_variant.update(
             dict.fromkeys(gmm_ops.launches_by_variant, 0))
 
@@ -557,6 +605,7 @@ def training_phases(smi: str, ops: dict) -> dict:
         return {**{name: op.launches for name, op in ops.items()},
                 "flash_attention_bwd": fa_ops.bwd_launches,
                 "grouped_matmul_bwd": gmm_ops.bwd_launches,
+                "ssd_bwd": ssd_ops.bwd_launches,
                 "grouped_matmul_by_variant": dict(
                     gmm_ops.launches_by_variant)}
 
@@ -839,6 +888,221 @@ def training_phases(smi: str, ops: dict) -> dict:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     release("vre_train")
+
+    # -- train_parity_ssm_f32: mamba2 and zamba2 cut to 2 layers (zamba2:
+    # one segment of 6 and the shared block), f32, the card against the
+    # CPU from the same params: the SSD backward's gradients reach the
+    # params (a dropped intra-chunk term shows here)
+    for arch, over, batch, seq in (
+            ("mamba2-370m", dict(num_layers=2), 2, 512),
+            ("zamba2-1.2b", dict(num_layers=6), 1, 512)):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
+        opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=10)
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_state = init_state(cpu_model, opt_cfg,
+                               torch.Generator().manual_seed(0))
+        card_model = build_model(cfg, device="cuda")
+        card_state = to_device(cpu_state, "cuda")     # the same params
+        data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=seq, global_batch=batch))
+        runs = {}
+        for label, model, st in (("cuda", card_model, card_state),
+                                 ("cpu", cpu_model, cpu_state)):
+            step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
+            reset()
+            ls, ns = [], []
+            for i in range(3):
+                b = {k: torch.as_tensor(v).to(model.device)
+                     for k, v in data.batch(i).items()}
+                st, m = step_fn(st, b)
+                ls.append(float(m["loss"]))
+                ns.append(float(m["grad_norm"]))
+            runs[label] = (ls, ns, st, read())
+        (cl, cn, cst, ccounts), (hl, hn, hst, _) = runs["cuda"], runs["cpu"]
+        # f32 on both: summation orders (the kernels', the CPU's); params
+        # to tests/test_training.py's accumulation tolerance
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(cl, hl))
+        norm_rel = max(abs(a - b) / abs(b) for a, b in zip(cn, hn))
+        worst, ok = 0.0, loss_rel <= 1e-4 and norm_rel <= 1e-3
+        for a, b in zip(leaves(cst["params"]), leaves(hst["params"])):
+            diff = (a.cpu() - b).abs()
+            worst = max(worst, float(diff.max()))
+            ok = ok and bool((diff <= 5e-5 + 5e-4 * b.abs()).all())
+        n = cfg.num_layers
+        apps = n // cfg.shared_attn_every if cfg.shared_attn_every else 0
+        # remat "full": each Mamba2 layer's forward twice a step; the
+        # shared block once
+        want = {"ssd": 2 * n * 3, "ssd_bwd": n * 3,
+                "flash_attention": apps * 3, "flash_attention_bwd": apps * 3}
+        emit({"phase": "train_parity_ssm_f32", "arch": arch, "layers": n,
+              "shared_block_applications": apps, "batch": batch,
+              "seq": seq, "losses_cuda": cl, "losses_cpu": hl,
+              "grad_norms_cuda": cn, "grad_norms_cpu": hn,
+              "loss_max_rel_diff": loss_rel, "loss_rtol": 1e-4,
+              "grad_norm_max_rel_diff": norm_rel, "grad_norm_rtol": 1e-3,
+              "params_max_abs_diff": worst,
+              "params_tol": {"atol": 5e-5, "rtol": 5e-4},
+              "launches_cuda": ccounts, "expected_launches": want, "ok": ok,
+              "card": smi, "seconds": time.perf_counter() - t0})
+        if not ok or {k: ccounts[k] for k in want} != want:
+            fail(f"train_parity_ssm_f32 {arch}: card and CPU disagree "
+                 f"(losses {cl} vs {hl}, grad norms {cn} vs {hn}, params "
+                 f"{worst}) or launches {ccounts} != {want}")
+        del cpu_model, cpu_state, card_model, card_state, runs, cst, hst, st
+        release(f"train_parity_ssm_f32 {arch}")
+
+    # -- train_mamba2: launch/train.py, full width and depth, resumed -----
+    t0 = time.perf_counter()
+    ckpt = Path(tempfile.mkdtemp(prefix="train_mamba2_"))
+    try:
+        args = train_driver.parse_args(MAMBA2_TRAIN + [
+            "--steps", "10", "--ckpt-every", "5", "--ckpt-dir", str(ckpt)])
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t1 = time.perf_counter()
+        out = io.StringIO()
+        mon = Monitor(name="train")
+        with contextlib.redirect_stdout(out):
+            losses1, state1 = train_driver.run(args, monitor=mon)
+        run1_s = time.perf_counter() - t1
+        counts["train_mamba2"] = got = read()
+        peak1 = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = [1e3 * e["seconds"] for e in mon.events("train")
+                   if e["event"] == "step.done"]
+        cfg = get_config("mamba2-370m")
+        tokens = 8 * 2048
+        median_ms = float(np.median(step_ms[2:]))
+        layers, steps, mbs = cfg.num_layers, 10, 2
+        n_params = sum(t.numel() for t in leaves(state1["params"]))
+        # remat "full": each layer's SSD forward twice a microbatch, its
+        # backward once
+        want = {"ssd": 2 * layers * mbs * steps,
+                "ssd_bwd": layers * mbs * steps, "flash_attention": 0,
+                "flash_attention_bwd": 0, "grouped_matmul": 0,
+                "grouped_matmul_bwd": 0}
+        store = CheckpointStore(str(ckpt))
+        saved = store.latest_step()
+        restored = store.restore(state1, step=saved)
+        mismatched = [i for i, (a, b) in enumerate(zip(
+            leaves(restored), leaves(state1))) if not torch.equal(a, b)]
+        n_leaves = len(leaves(state1))
+        del restored, state1
+        store.gc(keep_last=1)
+        release("train_mamba2 run 1")
+        out2 = io.StringIO()
+        reset()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out2):
+            losses2 = train_driver.main(MAMBA2_TRAIN + [
+                "--steps", "5", "--ckpt-every", "5", "--resume",
+                "--ckpt-dir", str(ckpt)])
+        run2_s = time.perf_counter() - t1
+        got2 = read()
+        want2 = {k: v // 2 for k, v in want.items()}
+        emit({"phase": "train_mamba2", "layers": layers, "params": n_params,
+              "d_model": cfg.d_model, "dtype": cfg.dtype,
+              "moments": "float32", "remat_policy": cfg.remat_policy,
+              "argv": MAMBA2_TRAIN + ["--steps", "10", "--ckpt-every", "5"],
+              "losses": losses1, "resumed_losses": losses2,
+              "printed": out.getvalue().splitlines(),
+              "printed_resume": out2.getvalue().splitlines(),
+              "step_ms": step_ms, "step_ms_median_3_10": median_ms,
+              "tokens_per_s": tokens / median_ms * 1e3,
+              "run_seconds": run1_s, "resume_run_seconds": run2_s,
+              "tokens_per_s_with_saves": 10 * tokens / run1_s,
+              "saved_step": saved, "leaves": n_leaves,
+              "restored_leaves_unequal": mismatched,
+              "launches": got, "expected_launches": want,
+              "resume_launches": got2, "expected_resume_launches": want2,
+              "peak_memory_gb": peak1, "card": smi,
+              "seconds": time.perf_counter() - t0})
+        check_losses("train_mamba2", losses1)
+        if not all(np.isfinite(losses2)) or \
+                "[resume] restored step 10" not in out2.getvalue():
+            fail(f"train_mamba2: the resumed run {losses2} did not restore "
+                 f"step 10")
+        if saved != 10 or mismatched:
+            fail(f"train_mamba2: step {saved} restored with leaves "
+                 f"{mismatched} unequal")
+        if {k: got[k] for k in want} != want or \
+                {k: got2[k] for k in want2} != want2:
+            fail(f"train_mamba2: launches {got} then {got2}, expected {want} "
+                 f"then {want2}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    release("train_mamba2")
+    # one step of train_mamba2's shape (8 x 2048 in 2 microbatches) under
+    # the profiler, after a warm one
+    cfg = get_config("mamba2-370m")
+    model = build_model(cfg, device="cuda")
+    opt_cfg = OptimizerConfig(warmup_steps=5, total_steps=10)
+    holder = [init_state(model, opt_cfg,
+                         torch.Generator(device="cuda").manual_seed(0))]
+    step_fn = make_train_step(model, cfg, opt_cfg,
+                              TrainStepConfig(microbatches=2))
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=2048, global_batch=8))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0).items()}
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], batch)
+    one_step()
+    emit({"phase": "train_mamba2_profile", **step_profile(one_step, top=16),
+          "card": smi})
+    del model, holder, step_fn, batch
+    release("train_mamba2_profile")
+
+    # -- train_zamba2: full width and depth, one fixed 4 x 2048 batch -----
+    t0 = time.perf_counter()
+    cfg = get_config("zamba2-1.2b")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda")
+    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
+    state = init_state(model, opt_cfg,
+                       torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=ZAMBA2_TRAIN["seq"],
+                                      global_batch=ZAMBA2_TRAIN["batch"]))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0).items()}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, norms, step_ms = [], [], []
+    reset()
+    for _ in range(ZAMBA2_TRAIN["steps"]):
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))     # waits for the step
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        norms.append(float(metrics["grad_norm"]))
+    counts["train_zamba2"] = got = read()
+    steps, layers = ZAMBA2_TRAIN["steps"], cfg.num_layers
+    apps = layers // cfg.shared_attn_every
+    # Mamba2 layers remat'd (SSD forward twice), the shared block not
+    want = {"ssd": 2 * layers * steps, "ssd_bwd": layers * steps,
+            "flash_attention": apps * steps,
+            "flash_attention_bwd": apps * steps, "grouped_matmul": 0,
+            "grouped_matmul_bwd": 0}
+    tokens = ZAMBA2_TRAIN["batch"] * ZAMBA2_TRAIN["seq"]
+    median_ms = float(np.median(step_ms[2:]))
+    emit({"phase": "train_zamba2", "layers": layers,
+          "shared_block_applications": apps, "d_model": cfg.d_model,
+          "params": n_params, "dtype": cfg.dtype, "moments": "float32",
+          "remat_policy": cfg.remat_policy, "batch": ZAMBA2_TRAIN["batch"],
+          "seq": ZAMBA2_TRAIN["seq"], "losses": losses, "grad_norms": norms,
+          "step_ms": step_ms, "step_ms_median_3_10": median_ms,
+          "tokens_per_s": tokens / median_ms * 1e3,
+          "launches": got, "expected_launches": want,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "init_seconds": init_s, "card": smi,
+          "seconds": time.perf_counter() - t0})
+    check_losses("train_zamba2", losses, norms)
+    if {k: got[k] for k in want} != want:
+        fail(f"train_zamba2: launches {got}, expected {want}")
+    del model, state, step_fn, batch, metrics
+    release("train_zamba2")
     return counts
 
 
@@ -858,7 +1122,8 @@ def main():
     from repro_torch.kernels.grouped_matmul import ops as gmm_ops
     from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+    from repro_torch.kernels.ssd.ref import (ssd_intra_chunk_ref,
+                                             ssd_intra_chunk_ref_bwd)
     from repro_torch.launch.serve import (build_replicaset, make_prompts,
                                           run_load)
     from repro_torch.models.mamba2 import ssd_ref
@@ -1152,6 +1417,59 @@ def main():
             if case == GMM_BWD[0] and dtype == torch.bfloat16:
                 kernels["grouped_matmul_bwd"].update(max_abs_err=err,
                                                      tol_of_max=tol)
+
+    def check_ssd_bwd(case, wide):
+        """The op's gradients through ``SSDIntraChunk`` (one forward and
+        one backward launch) against the plain backward on the same inputs
+        and output gradients, f32."""
+        b, s, nh, hd, ds, ch = case
+        ins = [t.requires_grad_() for t in ssd_kernel_inputs(
+            *ssd_inputs(b, s, nh, hd, ds, gen, wide), ch)]
+        dy = randn(ins[1].shape, torch.float32, gen)
+        dS = randn((b, nh, s // ch, ds, hd), torch.float32, gen)
+        before = (ssd_ops.launches, ssd_ops.bwd_launches)
+        y, S = ssd_ops.ssd_intra_chunk(*ins)
+        tracked = y.grad_fn is not None and S.grad_fn is not None
+        grads = torch.autograd.grad((y, S), ins, (dy, dS))
+        torch.cuda.synchronize()
+        launched = (ssd_ops.launches - before[0],
+                    ssd_ops.bwd_launches - before[1])
+        refs = ssd_intra_chunk_ref_bwd(*(t.detach() for t in ins), dy, dS)
+        errs, tops, ok = {}, {}, launched == (1, 1) and tracked
+        for name, g, r in zip(("da", "dxdt", "dB", "dC"), grads, refs):
+            errs[name] = float((g - r).abs().max())
+            tops[name] = float(r.abs().max())
+            ok = ok and bool(torch.isfinite(g).all()) and bool((
+                (g - r).abs() <= SSD_BWD_TOL["atol_of_max"] * tops[name]
+                + SSD_BWD_TOL["rtol"] * r.abs()).all())
+        emit({"phase": "kernel_vs_plain_bwd", "kernel": "ssd_bwd",
+              "shape": {"b": b, "nh": nh, "nc": s // ch, "c": ch, "hd": hd,
+                        "ds": ds},
+              "decay": "A=-linspace(1,16)" if wide else "A=-exp(linspace(0,1))",
+              "dtype": "float32", "launched_fwd_bwd": list(launched),
+              "outputs_tracked": tracked, "max_abs_err": errs,
+              "grad_max": tops, "tol": SSD_BWD_TOL, "ok": ok})
+        if not ok:
+            misses.append(("ssd_bwd", case, "float32", wide))
+        return (max(errs.values()),
+                max(e / tops[n] for n, e in errs.items()))
+
+    kernels["ssd_bwd"] = {
+        "name": "ssd_bwd", "route": "cuda",
+        "source": kernels["ssd"]["source"],
+        "replaces": kernels["ssd"]["replaces"],
+        "gradient_of": "ssd_intra_chunk (the Pallas kernel has no backward; "
+                       "f32 on the CUDA cores, the heads' sums in a fixed "
+                       "order)"}
+    for case, wide in ([(c, False) for c in SSD_SWEEP + SSD_EDGES
+                        + [MAMBA2_TRAIN_SSD, ZAMBA2_TRAIN_SSD]]
+                       + [(c, True) for c in SSD_WIDE_DECAY
+                          + [MAMBA2_TRAIN_SSD, ZAMBA2_TRAIN_SSD]]):
+        err, err_of_max = check_ssd_bwd(case, wide)
+        if case == MAMBA2_TRAIN_SSD and not wide:
+            kernels["ssd_bwd"].update(max_abs_err=err,
+                                      max_abs_err_of_max=err_of_max,
+                                      tol=SSD_BWD_TOL)
     if misses:
         fail(f"kernels disagree with their plain versions: {misses}")
 
@@ -1447,6 +1765,72 @@ def main():
                  f"max, dk and dv equal: {same})")
     kernels["flash_attention_bwd"]["dq_run_to_run_of_max"] = spread
     del q, k, v, dout, out, lse, one, two
+
+    # the SSD backward at the training microbatches: cold (input sets past
+    # the L2, as each of a step's layers finds its own), warm, the plain
+    # backward; no one PyTorch call computes it
+    def time_ssd_bwd(case) -> dict:
+        b, s, nh, hd, ds, ch = case
+        nc = s // ch
+
+        def one_set():
+            a, xdt, Bc, Cc = ssd_kernel_inputs(
+                *ssd_inputs(b, s, nh, hd, ds, gen, wide_decay=True), ch)
+            return (a, xdt, Bc.contiguous(), Cc.contiguous(),
+                    randn(xdt.shape, torch.float32, gen),
+                    randn((b, nh, nc, ds, hd), torch.float32, gen))
+        sets = [one_set() for _ in range(
+            2 + 2 * L2_BYTES // ssd_bwd_set_bytes(b, s, nh, hd, ds, ch))]
+        first = sets[0]
+        t = {"kernel_ms": cold_ms(lambda st: ssd_ops.ssd_intra_chunk_bwd(
+            *st), sets, 10),
+             "kernel_warm_ms": cuda_ms(
+                 lambda: ssd_ops.ssd_intra_chunk_bwd(*first), 10),
+             "input_sets": len(sets)}
+        t["ms"] = t["kernel_ms"]
+        ins = [x.detach().requires_grad_() for x in first[:4]]
+        ref = ssd_intra_chunk_ref(*ins)
+        t["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            ref, ins, first[4:], retain_graph=True), 3)
+        del ref
+        t["library_ms"] = None
+        t["bound_ms"], t["bound_by"] = ssd_bwd_bound_ms(b, nh, nc, ch, hd,
+                                                        ds)
+        t["bound_f32_simt_ms"], t["bound_f32_simt_by"] = ssd_bwd_bound_ms(
+            b, nh, nc, ch, hd, ds, peak=H100_F32_FLOPS, passes=1)
+        t["share_of_bound"] = t["bound_ms"] / t["kernel_ms"]
+        t["share_of_f32_simt_bound"] = t["bound_f32_simt_ms"] / t["kernel_ms"]
+        t["host_us_per_call"] = host_us(
+            lambda: ssd_ops.ssd_intra_chunk_bwd(*first))
+        emit({"phase": "timing", "kernel": "ssd_bwd",
+              "shape": {"b": b, "nh": nh, "nc": nc, "c": ch, "hd": hd,
+                        "ds": ds}, "dtype": "float32", **t, "card": smi})
+        return t, first
+
+    timings["ssd_bwd"], first = time_ssd_bwd(MAMBA2_TRAIN_SSD)
+    # one profiled call: the four grids of the kernel and nothing else (the
+    # wrapper only allocates); a second call gives the same bits
+    names = device_kernels(lambda: ssd_ops.ssd_intra_chunk_bwd(*first))
+    roles = {n: "C.B^T" if "bwd_cb_kernel" in n else
+             "per head" if "bwd_head_kernel" in n else
+             "head sum" if "bwd_dg_sum_kernel" in n else
+             "dB, dC" if "bwd_dbc_kernel" in n else None for n in names}
+    one, two = (ssd_ops.ssd_intra_chunk_bwd(*first) for _ in range(2))
+    same = all(torch.equal(g, h) for g, h in zip(one, two))
+    ok = sorted(map(str, roles.values())) == sorted(
+        ["C.B^T", "per head", "head sum", "dB, dC"]) and \
+        set(names.values()) == {1} and same
+    emit({"phase": "profiled_bwd", "kernel": "ssd_bwd",
+          "shape": dict(zip(("b", "s", "nh", "hd", "ds", "chunk"),
+                            MAMBA2_TRAIN_SSD)),
+          "dtype": "float32", "device_kernels": names,
+          "roles": list(roles.values()), "run_to_run_equal": same, "ok": ok})
+    if not ok:
+        fail(f"ssd_bwd launched {names} (two calls equal: {same})")
+    kernels["ssd_bwd"]["run_to_run_equal"] = same
+    del first, one, two
+    zamba2_bwd, _ = time_ssd_bwd(ZAMBA2_TRAIN_SSD)
+    kernels["ssd_bwd"]["by_shape"] = [dict(zamba2_bwd, shape=ZAMBA2_TRAIN_SSD)]
     emit({"phase": "timing", "seconds": time.perf_counter() - t0})
     for name, t in timings.items():
         kernels[name].update(t)
@@ -2650,7 +3034,8 @@ def main():
         kernels[name]["launches_by_path"].update(
             {run: c[name] for run, c in train_counts.items()})
     for name, run in (("flash_attention_bwd", "train_yi9b"),
-                      ("grouped_matmul_bwd", "train_granite")):
+                      ("grouped_matmul_bwd", "train_granite"),
+                      ("ssd_bwd", "train_mamba2")):
         kernels[name]["launches"] = train_counts[run][name]
         kernels[name]["launches_path"] = run
         kernels[name]["launches_by_path"] = {r: c[name] for r, c in
@@ -2660,6 +3045,12 @@ def main():
     kernels["grouped_matmul_bwd"]["launches_by_variant"] = {
         k: train_counts["train_granite"]["grouped_matmul_by_variant"][k]
         for k in ("dx", "dw")}
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    short = {k["name"]: [n for n in keys if n not in k]
+             for k in kernels.values() if any(n not in k for n in keys)}
+    if short:
+        fail(f"the kernels line lacks {short}")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": device})

@@ -10,9 +10,10 @@ A port of the JAX package's ``repro.core.services``. Provider ``"cpu"``
 serves and trains the reduced config of the VRE's arch, the card
 (``"h100"``) its full widths. ``lm-server`` has the JAX service's
 autoscaler (with SLO targets), ``rebalance``, ``replicas: "auto"`` and a
-fleet's shared prefix cache. ``lm-trainer`` trains the transformer archs
-(dense and MoE) with its state on the card of the VRE's first share; an
-SSM or hybrid arch fails at build (ROADMAP A.7b).
+fleet's shared prefix cache. ``lm-trainer`` trains every token-input
+arch (dense, MoE, the SSM ``mamba2-370m`` and the hybrid ``zamba2-1.2b``)
+with its state on the card of the VRE's first share; an ``embeddings``
+input arch (musicgen, internvl2) fails at build (ROADMAP A.7c).
 """
 from __future__ import annotations
 

@@ -610,6 +610,495 @@ cudaError_t launch(const float* a, const float* xdt, const float* B,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The backward of the intra-chunk dual form.
+//
+// The TPU kernel has no backward: JAX differentiates its jnp ssd_chunked
+// (src/repro/models/mamba2.py). Per (batch, chunk, head), with L_ij =
+// exp(acs_i - acs_j) for i >= j, G = C.B^T, M = G o L and w_j =
+// exp(acs_end - acs_j), for the output gradients dy (c, hd) and dS (ds, hd):
+//   dM    = dy.xdt^T on the causal triangle, P = dM o M, U = B.dS (c, hd)
+//   dxdt  = M^T.dy + diag(w).U
+//   dacs  = rowsum(P) - colsum(P) - q, q_j = w_j (U_j . xdt_j), and
+//           dacs_end += sum_j q_j;  da = the reverse cumsum of dacs
+//   dG_h  = dM o L
+// and per (batch, chunk), the heads summed:
+//   dC = (sum_h dG_h).B,  dB = (sum_h dG_h)^T.C + sum_h diag(w_h).xdt_h.dS_h^T
+//
+// What bounds it on this card: at mamba2-370m's training microbatch (4 x
+// 2048 tokens, 32 heads, chunk 256, d_state 128, head dim 64) the least work
+// is ~18 GFLOP on the causal triangle with C.B^T once per (batch, chunk),
+// and the least traffic ~0.25 GB (a, xdt, B, C, dy, dS read once; da, dxdt,
+// dB, dC written once): ~0.076 ms of bytes, ~0.27 ms of f32 FMA on the CUDA
+// cores (67 TFLOP/s), ~0.11 ms in split TF32 on the tensor cores. This first
+// kernel is plain f32 FMA on the CUDA cores, one 64 x 64 tile of 4 x 4
+// outputs a thread; its redesign onto the tensor cores is later work. The
+// design:
+//   * four grids on the stream, one launch of the wrapper: (1) G = C.B^T once
+//     per (batch, chunk) for each causal 64 x 64 tile pair, into the
+//     workspace of the forward's C.B^T; (2) one block per (batch, chunk,
+//     head), which walks the key tiles and, for each, the row tiles below
+//     it: dxdt, the row and column sums of P, q and da all stay in the
+//     block, and dG_h goes to a workspace (b, nc, nh, c, c); (3) the heads'
+//     dG_h summed in head order into the first workspace, one block per
+//     tile pair; (4) dC and dB, one block per (batch, chunk, 64 rows, 64
+//     state columns), the head sum of xdt.dS^T reduced over (head, head dim)
+//     in the block. Every sum runs in a fixed order: no atomics, the same
+//     bits from run to run;
+//   * the decay is taken per element from differences of acs, never
+//     factorised, as in the forward.
+
+namespace bwd {
+
+constexpr int T = 64;           // rows and keys of a tile
+constexpr int NTB = 256;        // threads a block, 16 x 16, 4 x 4 outputs each
+constexpr int PT = T + 4;       // pitch of a 64-wide tile (16-byte rows)
+constexpr int KC = 32;          // depth of a staged slice of ds or hd
+constexpr int MAX_C = 1024;     // chunk rows the head kernel keeps sums of
+
+__host__ __device__ inline int tiles(int n) { return (n + T - 1) / T; }
+__host__ __device__ inline int pairs(int c) {
+  const int r = tiles(c);
+  return r * (r + 1) / 2;
+}
+
+// (row tile, key tile) of causal pair p, row by row
+__device__ inline void pair_of(int p, int& rt, int& kt) {
+  rt = 0;
+  while (p > rt) {
+    p -= rt + 1;
+    ++rt;
+  }
+  kt = p;
+}
+
+__device__ inline float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// (1) G = C.B^T on causal tile pair (rt, kt) of chunk bn, into cb (bn, c, c)
+__global__ void __launch_bounds__(NTB)
+bwd_cb_kernel(const float* __restrict__ B, const float* __restrict__ C,
+              float* __restrict__ cb, int c, int ds) {
+  __shared__ __align__(16) float Cs[KC * PT];
+  __shared__ __align__(16) float Bs[KC * PT];
+  int rt, kt;
+  pair_of(blockIdx.x, rt, kt);
+  const int bn = blockIdx.y;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const float* Cb = C + size_t(bn) * c * ds;
+  const float* Bb = B + size_t(bn) * c * ds;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < ds; k0 += KC) {
+    for (int e = tid; e < T * KC; e += NTB) {
+      const int r = e / KC, k = e % KC;
+      const bool kok = k0 + k < ds;
+      const int gi = rt * T + r, gj = kt * T + r;
+      Cs[k * PT + r] = kok && gi < c ? Cb[size_t(gi) * ds + k0 + k] : 0.f;
+      Bs[k * PT + r] = kok && gj < c ? Bb[size_t(gj) * ds + k0 + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < KC; ++k) {
+      const float4 cv = ld4(&Cs[k * PT + ty * 4]);
+      const float4 bv = ld4(&Bs[k * PT + tx * 4]);
+      const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(cr[r], br[s], acc[r][s]);
+    }
+    __syncthreads();
+  }
+  float* out = cb + size_t(bn) * c * c;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int gi = rt * T + ty * 4 + r;
+    if (gi >= c) continue;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int gj = kt * T + tx * 4 + s;
+      if (gj < c) out[size_t(gi) * c + gj] = acc[r][s];
+    }
+  }
+}
+
+template <int HD>
+__host__ __device__ constexpr int head_smem_floats() {
+  // XkT, DyT (HD x PT), Dy (64 x HD+4), Ms (64 x PT), Bs (KC x PT), dSs
+  // (KC x HD+4), column partials (16 x 64)
+  return 2 * HD * PT + T * (HD + 4) + T * PT + KC * PT + KC * (HD + 4) +
+         16 * T;
+}
+
+template <int HD>
+size_t head_smem(int c) {
+  return sizeof(float) * (head_smem_floats<HD>() + 5 * round4(c));
+}
+
+// CP of the head dim a thread holds: a 64 x HD tile is 16 x 16 threads of
+// 4 rows x CP columns
+template <int CP>
+__device__ inline void ld_cols(const float* p, float (&v)[CP]) {
+  if constexpr (CP % 4 == 0) {
+#pragma unroll
+    for (int s = 0; s < CP; s += 4) {
+      const float4 x = ld4(p + s);
+      v[s] = x.x;
+      v[s + 1] = x.y;
+      v[s + 2] = x.z;
+      v[s + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < CP; ++s) v[s] = p[s];
+  }
+}
+
+// half-warp sum: the 16 threads of one ty (lanes tx of one half of a warp)
+__device__ inline float sum16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// (2) one block per (head, batch x chunk): dxdt, da and dG_h
+template <int HD>
+__global__ void __launch_bounds__(NTB)
+bwd_head_kernel(const float* __restrict__ a, const float* __restrict__ xdt,
+                const float* __restrict__ B, const float* __restrict__ dy,
+                const float* __restrict__ dS, const float* __restrict__ cb,
+                float* __restrict__ da, float* __restrict__ dxdt,
+                float* __restrict__ dg, float* __restrict__ acs_out, int nh,
+                int nc, int c, int ds) {
+  constexpr int CP = HD / 16;
+  constexpr int PY = HD + 4;
+  extern __shared__ __align__(16) float sm[];
+  float* XkT = sm;                  // xdt of the key tile, (HD x PT)
+  float* DyT = XkT + HD * PT;       // dy of the row tile, (HD x PT)
+  float* Dy = DyT + HD * PT;        // the same, (64 x PY)
+  float* Ms = Dy + T * PY;          // G, then M, of the tile, (64 x PT)
+  float* Bs = Ms + T * PT;          // B of the key tile, (KC x PT)
+  float* dSs = Bs + KC * PT;        // dS, (KC x PY)
+  float* colp = dSs + KC * PY;      // column partials of P, (16 x 64)
+  const int cp4 = round4(c);
+  float* acs = colp + 16 * T;
+  float* w = acs + cp4;
+  float* rsum = w + cp4;
+  float* csum = rsum + cp4;
+  float* qv = csum + cp4;
+
+  const int h = blockIdx.x, bn = blockIdx.y;
+  const int bi = bn / nc, n = bn % nc;
+  const size_t bhn = (size_t(bi) * nh + h) * nc + n;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const float* x_b = xdt + bhn * c * HD;
+  const float* dy_b = dy + bhn * c * HD;
+  const float* dS_b = dS + bhn * ds * HD;
+  const float* B_b = B + size_t(bn) * c * ds;
+  const float* cb_b = cb + size_t(bn) * c * c;
+  float* dg_b = dg + (size_t(bn) * nh + h) * c * c;
+
+  if (tid == 0) {               // the cumsum in order, as one thread
+    float run = 0.f;
+    for (int i = 0; i < c; ++i) {
+      run += a[bhn * c + i];
+      acs[i] = run;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < c; i += NTB) {
+    w[i] = expf(acs[c - 1] - acs[i]);
+    rsum[i] = csum[i] = 0.f;
+    acs_out[bhn * c + i] = acs[i];
+  }
+  __syncthreads();
+
+  const int nt = tiles(c);
+  for (int kt = 0; kt < nt; ++kt) {
+    // xdt of the key tile, transposed; U = B.dS for its rows
+    for (int e = tid; e < T * HD; e += NTB) {
+      const int j = e / HD, p = e % HD, gj = kt * T + j;
+      XkT[p * PT + j] = gj < c ? x_b[size_t(gj) * HD + p] : 0.f;
+    }
+    float u[4][CP] = {};
+    for (int k0 = 0; k0 < ds; k0 += KC) {
+      for (int e = tid; e < T * KC; e += NTB) {
+        const int j = e / KC, k = e % KC, gj = kt * T + j;
+        Bs[k * PT + j] = gj < c && k0 + k < ds ?
+            B_b[size_t(gj) * ds + k0 + k] : 0.f;
+      }
+      for (int e = tid; e < KC * HD; e += NTB) {
+        const int k = e / HD, p = e % HD;
+        dSs[k * PY + p] = k0 + k < ds ? dS_b[size_t(k0 + k) * HD + p] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int k = 0; k < KC; ++k) {
+        const float4 bv = ld4(&Bs[k * PT + ty * 4]);
+        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+        float dv[CP];
+        ld_cols<CP>(&dSs[k * PY + tx * CP], dv);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int s = 0; s < CP; ++s) u[r][s] = fmaf(br[r], dv[s], u[r][s]);
+      }
+      __syncthreads();
+    }
+
+    float acc[4][CP] = {};      // M^T.dy for the key tile's rows
+    for (int rt = kt; rt < nt; ++rt) {
+      for (int e = tid; e < T * HD; e += NTB) {
+        const int i = e / HD, p = e % HD, gi = rt * T + i;
+        const float v = gi < c ? dy_b[size_t(gi) * HD + p] : 0.f;
+        Dy[i * PY + p] = v;
+        DyT[p * PT + i] = v;
+      }
+      for (int e = tid; e < T * T; e += NTB) {
+        const int i = e / T, j = e % T, gi = rt * T + i, gj = kt * T + j;
+        Ms[i * PT + j] = gi < c && gj < c ? cb_b[size_t(gi) * c + gj] : 0.f;
+      }
+      __syncthreads();
+      // dM = dy.xdt^T on the tile
+      float dm[4][4] = {};
+#pragma unroll 4
+      for (int p = 0; p < HD; ++p) {
+        const float4 yv = ld4(&DyT[p * PT + ty * 4]);
+        const float4 xv = ld4(&XkT[p * PT + tx * 4]);
+        const float yr[4] = {yv.x, yv.y, yv.z, yv.w};
+        const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int s = 0; s < 4; ++s) dm[r][s] = fmaf(yr[r], xr[s], dm[r][s]);
+      }
+      // L, M, P and dG_h; the row sums of P across the 16 threads of a row
+      float colv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = ty * 4 + r, gi = rt * T + i;
+        float prow = 0.f;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int j = tx * 4 + s, gj = kt * T + j;
+          const bool on = gi < c && gj <= gi;
+          const float l = on ? expf(acs[gi] - acs[gj]) : 0.f;
+          const float m = Ms[i * PT + j] * l;
+          const float pv = dm[r][s] * m;
+          Ms[i * PT + j] = m;   // each thread rewrites only what it read
+          prow += pv;
+          colv[s] += pv;
+          if (gi < c && gj < c) dg_b[size_t(gi) * c + gj] = dm[r][s] * l;
+        }
+        prow = sum16(prow);
+        if (tx == 0 && gi < c) rsum[gi] += prow;
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) colp[ty * T + tx * 4 + s] = colv[s];
+      __syncthreads();
+      if (tid < T && kt * T + tid < c) {
+        float cs = 0.f;
+        for (int t = 0; t < 16; ++t) cs += colp[t * T + tid];
+        csum[kt * T + tid] += cs;
+      }
+      // dxdt += M^T.dy
+#pragma unroll 4
+      for (int i = 0; i < T; ++i) {
+        const float4 mv = ld4(&Ms[i * PT + ty * 4]);
+        const float mr[4] = {mv.x, mv.y, mv.z, mv.w};
+        float yv[CP];
+        ld_cols<CP>(&Dy[i * PY + tx * CP], yv);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int s = 0; s < CP; ++s)
+            acc[r][s] = fmaf(mr[r], yv[s], acc[r][s]);
+      }
+      __syncthreads();
+    }
+    // dxdt = M^T.dy + w U; q_j = w_j (U_j . xdt_j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = ty * 4 + r, gj = kt * T + j;
+      const float wj = gj < c ? w[gj] : 0.f;
+      float qp = 0.f;
+#pragma unroll
+      for (int s = 0; s < CP; ++s) {
+        const int p = tx * CP + s;
+        qp = fmaf(u[r][s], XkT[p * PT + j], qp);
+        if (gj < c)
+          dxdt[(bhn * c + gj) * HD + p] = fmaf(wj, u[r][s], acc[r][s]);
+      }
+      qp = sum16(qp);
+      if (tx == 0 && gj < c) qv[gj] = wj * qp;
+    }
+    __syncthreads();
+  }
+  // dacs, then da = its reverse cumsum, in order by one thread
+  if (tid == 0) {
+    float qsum = 0.f;
+    for (int i = 0; i < c; ++i) qsum += qv[i];
+    float run = qsum;
+    for (int i = c - 1; i >= 0; --i) {
+      run += rsum[i] - csum[i] - qv[i];
+      da[bhn * c + i] = run;
+    }
+  }
+}
+
+// (3) dG = sum_h dG_h on causal tile pair (rt, kt), in head order, into cb
+__global__ void __launch_bounds__(NTB)
+bwd_dg_sum_kernel(const float* __restrict__ dg, float* __restrict__ cb,
+                  int nh, int c) {
+  int rt, kt;
+  pair_of(blockIdx.x, rt, kt);
+  const int bn = blockIdx.y;
+  const int tid = threadIdx.x;
+  const size_t cc = size_t(c) * c;
+  for (int e = tid; e < T * T; e += NTB) {
+    const int gi = rt * T + e / T, gj = kt * T + e % T;
+    if (gi >= c || gj >= c) continue;
+    const size_t o = size_t(gi) * c + gj;
+    const float* src = dg + size_t(bn) * nh * cc + o;
+    float s = 0.f;
+    for (int h = 0; h < nh; ++h) s += src[h * cc];
+    cb[size_t(bn) * cc + o] = s;
+  }
+}
+
+// (4) dC and dB for rows [64 rt, 64 rt + 64) and state columns
+// [64 st, 64 st + 64) of chunk bn
+template <int HD>
+__global__ void __launch_bounds__(NTB)
+bwd_dbc_kernel(const float* __restrict__ B, const float* __restrict__ C,
+               const float* __restrict__ xdt, const float* __restrict__ dS,
+               const float* __restrict__ dgs, const float* __restrict__ acs,
+               float* __restrict__ dB, float* __restrict__ dC, int nh, int nc,
+               int c, int ds) {
+  __shared__ __align__(16) float Gs[T * PT];
+  __shared__ __align__(16) float Vs[T * PT];
+  __shared__ float wv[T];
+  const int st = blockIdx.x, rt = blockIdx.y, bn = blockIdx.z;
+  const int bi = bn / nc, n = bn % nc;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int s0 = st * T;
+  const float* dg_b = dgs + size_t(bn) * c * c;
+  const float* B_b = B + size_t(bn) * c * ds;
+  const float* C_b = C + size_t(bn) * c * ds;
+  const int nt = tiles(c);
+  float dc[4][4] = {}, db[4][4] = {};
+
+  auto inner = [&](float (&out)[4][4], int depth) {
+#pragma unroll 4
+    for (int k = 0; k < depth; ++k) {
+      const float4 gv = ld4(&Gs[k * PT + ty * 4]);
+      const float4 vv = ld4(&Vs[k * PT + tx * 4]);
+      const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
+      const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) out[r][s] = fmaf(gr[r], vr[s], out[r][s]);
+    }
+  };
+
+  // dC = dG.B over the keys up to this row tile
+  for (int kt = 0; kt <= rt; ++kt) {
+    for (int e = tid; e < T * T; e += NTB) {
+      const int i = e / T, k = e % T, gi = rt * T + i, gk = kt * T + k;
+      Gs[k * PT + i] = gi < c && gk < c ? dg_b[size_t(gi) * c + gk] : 0.f;
+      const int kk = e / T, s = e % T, gkk = kt * T + kk;
+      Vs[kk * PT + s] = gkk < c && s0 + s < ds ?
+          B_b[size_t(gkk) * ds + s0 + s] : 0.f;
+    }
+    __syncthreads();
+    inner(dc, T);
+    __syncthreads();
+  }
+  // dB = dG^T.C over the rows from this key tile on
+  for (int r2 = rt; r2 < nt; ++r2) {
+    for (int e = tid; e < T * T; e += NTB) {
+      const int i = e / T, j = e % T, gi = r2 * T + i, gj = rt * T + j;
+      Gs[i * PT + j] = gi < c && gj < c ? dg_b[size_t(gi) * c + gj] : 0.f;
+      Vs[i * PT + j] = gi < c && s0 + j < ds ?
+          C_b[size_t(gi) * ds + s0 + j] : 0.f;
+    }
+    __syncthreads();
+    inner(db, T);
+    __syncthreads();
+  }
+  // dB += sum_h diag(w_h).xdt_h.dS_h^T, reduced over (head, head dim)
+  for (int h = 0; h < nh; ++h) {
+    const size_t bhn = (size_t(bi) * nh + h) * nc + n;
+    if (tid < T) {
+      const int gj = rt * T + tid;
+      wv[tid] = gj < c ? expf(acs[bhn * c + c - 1] - acs[bhn * c + gj]) : 0.f;
+    }
+    __syncthreads();
+    const float* x_b = xdt + bhn * c * HD;
+    const float* dS_b = dS + bhn * ds * HD;
+    for (int p0 = 0; p0 < HD; p0 += KC) {
+      constexpr int KD = HD < KC ? HD : KC;
+      for (int e = tid; e < T * KD; e += NTB) {
+        const int j = e / KD, p = e % KD, gj = rt * T + j;
+        Gs[p * PT + j] = gj < c ? wv[j] * x_b[size_t(gj) * HD + p0 + p] : 0.f;
+        const int s = j;
+        Vs[p * PT + s] = s0 + s < ds ? dS_b[size_t(s0 + s) * HD + p0 + p]
+                                     : 0.f;
+      }
+      __syncthreads();
+      inner(db, KD);
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int gi = rt * T + ty * 4 + r;
+    if (gi >= c) continue;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int gs = s0 + tx * 4 + s;
+      if (gs >= ds) continue;
+      dC[(size_t(bn) * c + gi) * ds + gs] = dc[r][s];
+      dB[(size_t(bn) * c + gi) * ds + gs] = db[r][s];
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_bwd(const float* a, const float* xdt, const float* B,
+                       const float* C, const float* dy, const float* dS,
+                       float* da, float* dxdt, float* dB, float* dC, float* cb,
+                       float* acs, float* dg, int b, int nh, int nc, int c,
+                       int ds, cudaStream_t stream) {
+  static size_t head_set = 0;
+  const size_t smem = head_smem<HD>(c);
+  cudaError_t e;
+  if (smem > head_set) {
+    e = cudaFuncSetAttribute(bwd_head_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(smem));
+    if (e != cudaSuccess) return e;
+    head_set = smem;
+  }
+  const int n_bc = b * nc;
+  bwd_cb_kernel<<<dim3(pairs(c), n_bc), NTB, 0, stream>>>(B, C, cb, c, ds);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  bwd_head_kernel<HD><<<dim3(nh, n_bc), NTB, smem, stream>>>(
+      a, xdt, B, dy, dS, cb, da, dxdt, dg, acs, nh, nc, c, ds);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  bwd_dg_sum_kernel<<<dim3(pairs(c), n_bc), NTB, 0, stream>>>(dg, cb, nh, c);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  bwd_dbc_kernel<HD><<<dim3(tiles(ds), tiles(c), n_bc), NTB, 0, stream>>>(
+      B, C, xdt, dS, cb, acs, dB, dC, nh, nc, c, ds);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // a: (b, nh, nc, c); xdt: (b, nh, nc, c, hd); B, C: (b, nc, c, ds);
@@ -641,4 +1130,45 @@ extern "C" int ssd_intra_chunk_fwd(const void* a, const void* xdt,
     case 128: return int(launch<128>(fa, fx, fB, fC, fy, fS, fCB, facs, b, nh, nc, c, ds, st));
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+// The backward. a, xdt, B, C as the forward's; dy: (b, nh, nc, c, hd), dS:
+// (b, nh, nc, ds, hd). Writes da (b, nh, nc, c), dxdt (b, nh, nc, c, hd),
+// dB and dC (b, nc, c, ds); workspace cb (b, nc, c, c), acs (b, nh, nc, c)
+// and dg (b, nc, nh, c, c). All float32, contiguous; c at most 1024.
+// Launches the four kernels on the stream and returns the cudaError_t of
+// the launches.
+extern "C" int ssd_intra_chunk_bwd(const void* a, const void* xdt,
+                                   const void* B, const void* C,
+                                   const void* dy, const void* dS, void* da,
+                                   void* dxdt, void* dB, void* dC, void* cb,
+                                   void* acs, void* dg, int b, int nh, int nc,
+                                   int c, int hd, int ds, void* stream) {
+  if (b <= 0 || nh <= 0 || nc <= 0 || c <= 0 || ds <= 0 ||
+      c > bwd::MAX_C || b * nc > 65535 || nh > 65535)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* f[6] = {static_cast<const float*>(a),
+                       static_cast<const float*>(xdt),
+                       static_cast<const float*>(B),
+                       static_cast<const float*>(C),
+                       static_cast<const float*>(dy),
+                       static_cast<const float*>(dS)};
+  float* o[7] = {static_cast<float*>(da), static_cast<float*>(dxdt),
+                 static_cast<float*>(dB), static_cast<float*>(dC),
+                 static_cast<float*>(cb), static_cast<float*>(acs),
+                 static_cast<float*>(dg)};
+#define SSD_BWD(HD)                                                          \
+  case HD:                                                                   \
+    return int(bwd::launch_bwd<HD>(f[0], f[1], f[2], f[3], f[4], f[5], o[0], \
+                                   o[1], o[2], o[3], o[4], o[5], o[6], b, nh, \
+                                   nc, c, ds, st));
+  switch (hd) {
+    SSD_BWD(16)
+    SSD_BWD(32)
+    SSD_BWD(64)
+    SSD_BWD(128)
+    default: return int(cudaErrorInvalidValue);
+  }
+#undef SSD_BWD
 }

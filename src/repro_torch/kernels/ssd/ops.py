@@ -2,10 +2,15 @@
 
 ``ssd_intra_chunk`` is the counterpart of the JAX package's
 ``ssd_intra_chunk``: CPU tensors take the plain version
-(``ref.ssd_intra_chunk_ref``); CUDA tensors launch the hand-written kernels
-in ``csrc/ssd.cu`` (split TF32 on the tensor cores: C·Bᵀ once per (batch,
-chunk) and the state product in a first grid, y in a second, one head a
-block) or raise.
+(``ref.ssd_intra_chunk_ref``, which autograd differentiates); CUDA tensors
+launch the hand-written kernels in ``csrc/ssd.cu`` (split TF32 on the
+tensor cores: C·Bᵀ once per (batch, chunk) and the state product in a
+first grid, y in a second, one head a block) or raise. With grad enabled
+and an input that requires grad, a CUDA call goes through
+``SSDIntraChunk``, whose backward launches the backward kernels
+(``ssd_intra_chunk_bwd``: f32 on the CUDA cores, the heads' share of dB
+and dC summed in a fixed order), so a CUDA result never lacks the
+gradient of the intra-chunk term.
 ``ssd_chunked`` is the counterpart of ``ssd_chunked_pallas``: the kernel for
 the intra-chunk dual form, the short inter-chunk recurrence in torch.
 """
@@ -26,9 +31,11 @@ HEAD_DIMS = (16, 32, 64, 128)
 TILE = 64           # rows of y a block computes
 KEY_PART = 128      # keys a block of y reduces over; y adds up the parts
 
-# kernel launches in this process; a run resets it to show which calls went
-# through the kernel
+# kernel launches in this process (forward, backward); a run resets them to
+# show which calls went through the kernels
 launches = 0
+bwd_launches = 0
+MAX_BWD_CHUNK = 1024    # chunk rows the backward's head kernel keeps sums of
 _lib = None
 
 
@@ -57,6 +64,13 @@ def load_library() -> ctypes.CDLL:
     # c, hd, ds; stream
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.ssd_intra_chunk_bwd
+    # a, xdt, B, C, dy, dS, da, dxdt, dB, dC, workspaces for C·Bᵀ (then the
+    # heads' sum of dG), the cumsums and each head's dG; b, nh, nc, c, hd,
+    # ds; stream
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -77,24 +91,23 @@ def _check(a, xdt, B, C):
         raise ValueError("a, xdt, B and C must be on one device")
 
 
-def ssd_intra_chunk(a, xdt, B, C):
-    """a: (b, nh, nc, c) log-decays; xdt: (b, nh, nc, c, hd); B/C:
-    (b, nc, c, ds); float32. Returns (y_intra (b, nh, nc, c, hd), S_local
-    (b, nh, nc, ds, hd)), float32."""
-    global launches
-    _check(a, xdt, B, C)
-    if a.device.type == "cpu":
-        return ssd_intra_chunk_ref(a, xdt, B, C)
+def _check_cuda(a, xdt, B, C):
     if a.device.type != "cuda":
         raise ValueError(f"ssd_intra_chunk runs on cpu or cuda, not "
                          f"{a.device.type}")
-    b, nh, nc, c = a.shape
-    hd, ds = xdt.shape[-1], B.shape[-1]
+    hd = xdt.shape[-1]
     if hd not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {hd}")
     if not all(t.is_contiguous() for t in (a, xdt, B, C)):
         raise ValueError("the kernel reads its inputs in place: pass "
                          "contiguous tensors")
+
+
+def _forward(a, xdt, B, C):
+    """Launch the forward kernels on checked CUDA inputs: (y, S)."""
+    global launches
+    b, nh, nc, c = a.shape
+    hd, ds = xdt.shape[-1], B.shape[-1]
     lib = load_library()
     y = torch.empty_like(xdt)
     S = torch.empty((b, nh, nc, ds, hd), dtype=torch.float32, device=a.device)
@@ -113,6 +126,88 @@ def ssd_intra_chunk(a, xdt, B, C):
                            f"hd={hd}, ds={ds})")
     launches += 1
     return y, S
+
+
+def ssd_intra_chunk_bwd(a, xdt, B, C, dy, dS):
+    """Launch the backward kernels: (da, dxdt, dB, dC) for the output
+    gradients ``dy`` (b, nh, nc, c, hd) and ``dS`` (b, nh, nc, ds, hd), f32.
+    CUDA tensors only; head dims ``HEAD_DIMS``, chunks up to
+    ``MAX_BWD_CHUNK``. The kernels allocate nothing: the wrapper gives them
+    C·Bᵀ's (b, nc, c, c) workspace (which then holds the heads' sum of dG),
+    the cumsums' (b, nh, nc, c) and each head's dG (b, nc, nh, c, c)."""
+    global bwd_launches
+    _check(a, xdt, B, C)
+    if a.device.type != "cuda":
+        raise ValueError("the backward kernel runs on cuda tensors; the "
+                         "plain backward is ref.ssd_intra_chunk_ref_bwd")
+    _check_cuda(a, xdt, B, C)
+    b, nh, nc, c = a.shape
+    hd, ds = xdt.shape[-1], B.shape[-1]
+    if dy.shape != xdt.shape or dS.shape != (b, nh, nc, ds, hd) or \
+            dy.dtype != torch.float32 or dS.dtype != torch.float32 or \
+            dy.device != a.device or dS.device != a.device:
+        raise ValueError(f"dy must be {tuple(xdt.shape)} and dS "
+                         f"{(b, nh, nc, ds, hd)}, float32 on {a.device}")
+    if c > MAX_BWD_CHUNK:
+        raise ValueError(f"the backward kernel takes chunks up to "
+                         f"{MAX_BWD_CHUNK}, not {c}")
+    dy, dS = dy.contiguous(), dS.contiguous()
+    lib = load_library()
+    da, dxdt = torch.empty_like(a), torch.empty_like(xdt)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    f32 = dict(dtype=torch.float32, device=a.device)
+    cb = torch.empty((b, nc, c, c), **f32)
+    acs = torch.empty((b, nh, nc, c), **f32)
+    dg = torch.empty((b, nc, nh, c, c), **f32)
+    with torch.cuda.device(a.device):
+        err = lib.ssd_intra_chunk_bwd(
+            a.data_ptr(), xdt.data_ptr(), B.data_ptr(), C.data_ptr(),
+            dy.data_ptr(), dS.data_ptr(), da.data_ptr(), dxdt.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), cb.data_ptr(), acs.data_ptr(),
+            dg.data_ptr(), b, nh, nc, c, hd, ds,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_intra_chunk backward launch failed with "
+                           f"CUDA error {err} (b={b}, nh={nh}, nc={nc}, "
+                           f"c={c}, hd={hd}, ds={ds})")
+    bwd_launches += 1
+    return da, dxdt, dB, dC
+
+
+class SSDIntraChunk(torch.autograd.Function):
+    """The kernel pair as one differentiable op on CUDA tensors: the forward
+    kernels, saving (a, xdt, B, C); the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, a, xdt, B, C):
+        y, S = _forward(a, xdt, B, C)
+        ctx.save_for_backward(a, xdt, B, C)
+        return y, S
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        # an output the loss does not reach comes as zeros (autograd
+        # materialises the gradients of a Function by default)
+        return ssd_intra_chunk_bwd(*ctx.saved_tensors, dy, dS)
+
+
+def ssd_intra_chunk(a, xdt, B, C):
+    """a: (b, nh, nc, c) log-decays; xdt: (b, nh, nc, c, hd); B/C:
+    (b, nc, c, ds); float32. Returns (y_intra (b, nh, nc, c, hd), S_local
+    (b, nh, nc, ds, hd)), float32. Differentiable: on the card through
+    ``SSDIntraChunk`` (chunks up to ``MAX_BWD_CHUNK``), on the CPU through
+    the plain version."""
+    _check(a, xdt, B, C)
+    if a.device.type == "cpu":
+        return ssd_intra_chunk_ref(a, xdt, B, C)
+    _check_cuda(a, xdt, B, C)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (a, xdt, B, C)):
+        if a.shape[-1] > MAX_BWD_CHUNK:
+            raise ValueError(f"the backward kernel takes chunks up to "
+                             f"{MAX_BWD_CHUNK}, not {a.shape[-1]}")
+        return SSDIntraChunk.apply(a, xdt, B, C)
+    return _forward(a, xdt, B, C)
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int):

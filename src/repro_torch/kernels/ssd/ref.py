@@ -1,7 +1,8 @@
 """Plain PyTorch version of the SSD intra-chunk kernel, the same arithmetic
 as the JAX package's ``_ssd_kernel``: the full (c x c) decay matrix is
-formed. The wrapper uses it for CPU tensors, and the on-card check holds the
-CUDA kernel against it."""
+formed, and its backward by autograd. The wrapper uses the forward for CPU
+tensors (autograd differentiates it there), and the on-card checks hold the
+CUDA kernels against both."""
 from __future__ import annotations
 
 import torch
@@ -21,3 +22,13 @@ def ssd_intra_chunk_ref(a, xdt, B, C):
     decay_out = torch.exp(acs[..., -1:] - acs)
     S = torch.einsum("bncs,bhnc,bhncp->bhnsp", B, decay_out, xdt)
     return y, S
+
+
+def ssd_intra_chunk_ref_bwd(a, xdt, B, C, dy, dS):
+    """The plain backward: (da, dxdt, dB, dC) of ``ssd_intra_chunk_ref``
+    for the output gradients ``dy`` (of y_intra) and ``dS`` (of S_local),
+    by autograd."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (a, xdt, B, C)]
+        y, S = ssd_intra_chunk_ref(*ins)
+        return torch.autograd.grad((y, S), ins, (dy, dS))

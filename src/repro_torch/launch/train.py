@@ -4,8 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --steps 20 \
         --reduced --global-batch 8 --seq-len 128 --device cpu
 
-Builds the model on the card (``--device cpu`` for the CPU), trains on the
-synthetic packed-LM stream, saves the train state asynchronously every
+Trains every token-input arch: dense, MoE, the SSM (``--arch
+mamba2-370m``) and the hybrid (``--arch zamba2-1.2b``); an ``embeddings``
+input arch raises (ROADMAP A.7c). Builds the model on the card (``--device
+cpu`` for the CPU), trains on the synthetic packed-LM stream, saves the train state asynchronously every
 ``--ckpt-every`` steps and blocks on the last save; ``--resume`` restores
 the latest committed step and continues from it. The same arguments and
 printed lines as the JAX driver, except that ``--ckpt-dir`` defaults to
@@ -38,7 +40,9 @@ from repro_torch.training.train_step import (TrainStepConfig, init_state,
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-9b")
+    ap.add_argument("--arch", default="yi-9b",
+                    help="a token-input config: dense, MoE, SSM "
+                         "(mamba2-370m) or hybrid (zamba2-1.2b)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)

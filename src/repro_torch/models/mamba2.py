@@ -1,6 +1,7 @@
 """Mamba2 (SSD, state-space duality) block, ported from the JAX package's
-``repro.models.mamba2``: the prefill path on the chunked SSD op (the CUDA
-intra-chunk kernel on the card), the O(1)-state decode path, and the
+``repro.models.mamba2``: the training path (``mamba_block``) and the
+prefill path on the chunked SSD op (the CUDA intra-chunk kernels on the
+card, forward and backward), the O(1)-state decode path, and the
 sequential-scan oracle of the tests.
 
 Shapes follow the JAX package: d_inner = expand * d_model, SSM heads =
@@ -8,8 +9,9 @@ d_inner / head_dim, one B/C group shared by every head. Params keep its
 layouts and dtypes: ``A_log``, ``D`` and ``dt_bias`` are f32 in any model
 dtype, and ``dt`` is f32 from the projection on.
 
-Not ported yet: ``mamba_block`` (the training path) and ``ssd_fused_proxy``
-(a dry-run stand-in).
+Not ported: ``ssd_fused_proxy``, a dry-run lowering, which comes with the
+dry-run tools (ROADMAP A.8); ``mamba_block`` raises on a config that asks
+for it.
 """
 from __future__ import annotations
 
@@ -135,6 +137,32 @@ def _out(p, cfg, y, x, z):
     y = y.reshape(*y.shape[:-2], -1)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return y @ p["out_proj"]
+
+
+def mamba_block(p, cfg, h):
+    """Full-sequence Mamba2 block, the training path. h: (B, S, d) ->
+    (B, S, d), differentiable (on the card through the SSD op's forward and
+    backward kernels).
+
+    Every length runs the chunked SSD op, a tail short of a chunk padded
+    with dt = 0 inside it; the JAX package runs its sequential scan
+    instead when S is not a chunk multiple, with the same values and
+    gradients."""
+    if cfg.ssd_impl == "fused_proxy":
+        raise ValueError(f"{cfg.name}: ssd_impl 'fused_proxy' is a dry-run "
+                         f"lowering, not ported (ROADMAP A.8)")
+    s_cfg = cfg.ssm
+    nh, hd = s_cfg.num_heads(cfg.d_model), s_cfg.head_dim
+    b, s, _ = h.shape
+    z, x, B, C, dt = _proj(p, h)
+    x = causal_conv(x, p["conv_x"])
+    B = causal_conv(B, p["conv_B"])
+    C = causal_conv(C, p["conv_C"])
+    dt = F.softplus(dt + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = x.reshape(b, s, nh, hd)
+    y, _ = ssd_chunked(xh, dt, A, B, C, s_cfg.chunk_size)
+    return _out(p, cfg, y, xh, z)
 
 
 def _conv_state(v, width: int):

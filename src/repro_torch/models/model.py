@@ -37,14 +37,17 @@ Ported: every token-input config: dense and MoE transformers with global
 or sliding-window attention, QKV bias, QK norm, post norms and softcaps
 (``yi-9b``, ``qwen2-72b``, ``gemma2-27b``, ``gemma3-12b``,
 ``granite-moe-1b-a400m``, ``llama4``), pure SSM (``mamba2-370m``) and the
-hybrid (``zamba2-1.2b``). Training (``forward``) is ported for the
-transformers: each super-block runs under ``cfg.remat_policy`` (``"full"``
-recomputes it in the backward, ``"minimal"`` saves its matmul outputs,
-``"none"`` saves everything), attention through the flash op's forward and
-backward kernels, MoE through the grouped matmul's. The SSM and hybrid
-``forward`` and the ``embeddings`` input mode (``musicgen``, ``internvl2``)
-raise ``NotImplementedError`` (ROADMAP A.7b). ``model.kernel_ops`` lists
-the kernel modules the model's path launches.
+hybrid (``zamba2-1.2b``), served and trained. Training (``forward``) runs
+each transformer super-block, and each Mamba2 layer, under
+``cfg.remat_policy`` (``"full"`` recomputes it in the backward,
+``"minimal"`` saves its matmul outputs, ``"none"`` saves everything);
+attention through the flash op's forward and backward kernels, MoE through
+the grouped matmul's, Mamba2 through the SSD op's. The hybrid's shared
+attention+MLP block runs once after each segment, not remat'd, as in JAX.
+``split_blocks`` gives the per-layer views a train step differentiates. The
+``embeddings`` input mode (``musicgen``, ``internvl2``) raises
+``NotImplementedError`` (ROADMAP A.7c). ``model.kernel_ops`` lists the
+kernel modules the model's path launches.
 """
 from __future__ import annotations
 
@@ -97,7 +100,8 @@ def program(cfg: ModelConfig):
 
 
 def _unsupported(cfg: ModelConfig) -> list:
-    """Features of ``cfg`` outside the ported slice."""
+    """Features of ``cfg`` outside the ported slice (the ``embeddings``
+    input mode, ROADMAP A.7c)."""
     checks = {
         f"family {cfg.family!r}": cfg.family not in ("dense", "moe", "ssm",
                                                      "hybrid"),
@@ -300,23 +304,20 @@ def _layer(tree: dict, i: int) -> dict:
 
 
 def check_trainable(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` naming ROADMAP A.7b for a family the
-    port cannot train yet (SSM, hybrid: no ``forward``)."""
-    if cfg.family not in ("dense", "moe"):
+    """Raise ``NotImplementedError`` naming ROADMAP A.7c for what the port
+    cannot build or train yet (the ``embeddings`` input mode)."""
+    missing = _unsupported(cfg)
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported yet "
-            f"(ROADMAP A.7b: mamba_block, the SSD backward kernel)")
+            f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
+            f"serves and trains token inputs: dense, MoE, SSM and hybrid; "
+            f"ROADMAP A.7c)")
 
 
 def build_model(cfg: ModelConfig, device=None):
     """The model for ``cfg`` on ``device`` (default: the current CUDA
     device; raises when there is none)."""
-    missing = _unsupported(cfg)
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            f"serves token inputs: dense, MoE, SSM and hybrid; ROADMAP "
-            f"A.7b)")
+    check_trainable(cfg)
     device = resolve_device(device)
     if cfg.family == "ssm":
         return _build_ssm(cfg, device)
@@ -517,6 +518,25 @@ def _mamba_params(gen, cfg, dtype, n: int):
             "mamba": M.mamba_init(gen, cfg, dtype, n)}
 
 
+def _mamba_train_layer(cfg):
+    """One Mamba2 layer of the train path, ``(p, h) -> h + mamba(norm(h))``
+    for a layer's ``{"ln", "mamba"}`` params, under ``cfg.remat_policy``
+    (JAX remats its scan body, one layer)."""
+    def layer(p, h):
+        return h + M.mamba_block(p["mamba"], cfg,
+                                 L.rms_norm(h, p["ln"], cfg.norm_eps))
+    return _remat(layer, cfg.remat_policy)
+
+
+def _split_mamba(params, n: int):
+    """``params`` with the stacked ``"mamba"`` tree split into a list of its
+    ``n`` layers (views of the stacked tensors, no copies): ``forward``
+    takes either form, and a train step differentiates the split form's
+    leaves, so each layer's gradient is its own tensor rather than a
+    scatter into the whole stack."""
+    return {**params, "mamba": [_layer(params["mamba"], i) for i in range(n)]}
+
+
 def _check_prompt(inputs, max_seq: int):
     if inputs.shape[1] > max_seq:
         raise ValueError(f"prompt of {inputs.shape[1]} tokens exceeds "
@@ -563,10 +583,22 @@ def _build_ssm(cfg: ModelConfig, device: torch.device):
         return M.init_mamba_cache(cfg, batch, dtype, cache_device or device,
                                   n)
 
+    layer = _mamba_train_layer(cfg)
+
     def forward(params, inputs):
-        check_trainable(cfg)
+        """Train mode. inputs: (B, S) token ids. Returns (logits (B, S,
+        padded vocab) f32, a zero f32 aux), differentiable. Each layer runs
+        under ``cfg.remat_policy``; ``params`` may be stacked or
+        ``split_blocks``'s form."""
+        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        for i in range(n):
+            h = layer(_layer(params["mamba"], i), h)
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return (L.unembed_apply(params["embed"], cfg, h),
+                torch.zeros((), dtype=torch.float32, device=h.device))
 
     return SimpleNamespace(cfg=cfg, device=device, init=init, forward=forward,
+                           split_blocks=lambda p: _split_mamba(p, n),
                            prefill=prefill, decode=decode,
                            init_cache=init_cache, kernel_ops=(ssd_ops,))
 
@@ -649,10 +681,30 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device):
                 init_sub_cache(cfg, shared, n_apps, batch, max_seq, dtype,
                                dev))
 
+    layer = _mamba_train_layer(cfg)
+
     def forward(params, inputs):
-        check_trainable(cfg)
+        """Train mode, as JAX's: each segment's Mamba2 layers (each under
+        ``cfg.remat_policy``), then the shared block in ``train`` mode, not
+        remat'd (its gradient sums over its applications); the trailing
+        layers; the final norm. inputs: (B, S) token ids. Returns (logits
+        (B, S, padded vocab) f32, a zero f32 aux). ``params`` may be
+        stacked or ``split_blocks``'s form."""
+        positions = torch.arange(inputs.shape[1], device=inputs.device)[None]
+        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        for layers in segments:
+            for i in layers:
+                h = layer(_layer(params["mamba"], i), h)
+            h, _ = sub_apply(params["shared"], cfg, shared, h, positions,
+                             "train")
+        for i in trailing:
+            h = layer(_layer(params["mamba"], i), h)
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return (L.unembed_apply(params["embed"], cfg, h),
+                torch.zeros((), dtype=torch.float32, device=h.device))
 
     return SimpleNamespace(cfg=cfg, device=device, init=init, forward=forward,
+                           split_blocks=lambda p: _split_mamba(p, n),
                            prefill=prefill, decode=decode,
                            init_cache=init_cache,
                            kernel_ops=(ssd_ops, flash_ops))

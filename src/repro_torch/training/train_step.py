@@ -3,11 +3,14 @@ the JAX package's ``repro.training.train_step``.
 
 The state keeps JAX's tree, ``{"params", "opt": {"m", "v", "count"[,
 "m_scale", "v_scale"]}}``, so either package's ``CheckpointStore`` restores
-the other's train state. A step differentiates the params with each stacked
-block leaf split into its super-blocks (``model.split_blocks``: views of the
-stacked storage), so each super-block's gradient is its own tensor; the
-gradients are stacked back into the params' layout for the optimizer, which
-updates the state in place (JAX donates it).
+the other's train state. Every family trains: dense, MoE, pure SSM
+(``mamba2-370m``) and the hybrid (``zamba2-1.2b``); only the ``embeddings``
+input mode raises (ROADMAP A.7c). A step differentiates the params with
+each stacked leaf split into its layers (``model.split_blocks``: views of
+the stacked storage; the transformer's super-blocks, the Mamba2 layers), so
+each layer's gradient is its own tensor; the gradients are stacked back
+into the params' layout for the optimizer, which updates the state in place
+(JAX donates it).
 """
 from __future__ import annotations
 
@@ -84,9 +87,11 @@ def _grad_leaves(model, params):
 
 
 def _stacked(grads_split):
-    """Per-super-block gradients back in the params' layout: each split
-    block leaf stacked on the super-block axis, leaf by leaf, each
-    super-block's tensors dropped once their stack is made."""
+    """Per-layer gradients back in the params' layout: each split stacked
+    leaf (the transformer's ``"blocks"``, per sub a list of super-blocks;
+    the Mamba2 stack's ``"mamba"``, a list of layers) stacked on its layer
+    axis, leaf by leaf, each layer's tensors dropped once their stack is
+    made."""
     def stack(per_layer):
         if isinstance(per_layer[0], dict):
             return {k: stack([d.pop(k) for d in per_layer])
@@ -94,8 +99,12 @@ def _stacked(grads_split):
         out = torch.stack(per_layer)
         per_layer.clear()
         return out
-    return {**{k: v for k, v in grads_split.items() if k != "blocks"},
-            "blocks": [stack(layers) for layers in grads_split["blocks"]]}
+    out = dict(grads_split)
+    if "blocks" in out:
+        out["blocks"] = [stack(layers) for layers in out["blocks"]]
+    if "mamba" in out:
+        out["mamba"] = stack(out["mamba"])
+    return out
 
 
 def make_train_step(model, cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig,

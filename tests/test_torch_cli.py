@@ -215,14 +215,15 @@ def test_cli_trace_json(tmp_path, capsys, seeded_models):
 # -- what is not ported yet raises with its ROADMAP item; A.6 is ported ------
 
 def test_lm_trainer_fails_apply_naming_a7(tmp_path):
-    """The trainer is ported for transformers (A.7); an SSM arch's trainer
-    fails at apply naming A.7b, what is left of A.7."""
+    """The trainer is ported for every token-input family (A.7, A.7b); an
+    embeddings-input arch's trainer fails at apply naming A.7c, what is
+    left of A.7."""
     d = _init(tmp_path, services_=["volumes", "lm-trainer"])
     vre_json = d / "vre.json"
     conf = json.loads(vre_json.read_text())
-    conf["arch"] = "mamba2-370m"
+    conf["arch"] = "musicgen-medium"
     vre_json.write_text(json.dumps(conf))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.7b"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.7c"):
         cli.main(["apply", "--dir", str(d)])
 
 

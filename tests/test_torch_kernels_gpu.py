@@ -351,3 +351,99 @@ def test_flash_backward_runs_agree(b, s, h, kv, d):
     spread = float((first[0].float() - second[0].float()).abs().max())
     assert spread <= _bwd_tol(torch.bfloat16) * float(
         first[0].float().abs().max())
+
+
+# (b, s, nh, hd, ds, chunk) for the SSD backward: tests/test_kernels.py's
+# sweep, the tiling edges of SSD_CASES on the chunk grid (a chunk off the
+# 64-row tile, head dims 16 and 128, d_state 7, 16 and 64), and the training
+# microbatches of mamba2-370m and zamba2-1.2b
+SSD_BWD_CASES = [(2, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
+                 (2, 128, 4, 32, 16, 64), (2, 96, 4, 32, 16, 48),
+                 (1, 256, 4, 16, 128, 256), (1, 256, 4, 128, 128, 256),
+                 (1, 512, 32, 64, 64, 256), (1, 64, 2, 16, 7, 32),
+                 (4, 2048, 32, 64, 128, 256), (4, 2048, 64, 64, 64, 256)]
+# each gradient within the forward's tolerance, its atol taken relative to
+# the gradient's largest magnitude: f32 throughout, summation orders
+SSD_BWD_TOL = dict(atol_of_max=5e-4, rtol=5e-3)
+
+
+def _ssd_kernel_inputs(b, s, nh, hd, ds, ch, wide_decay, gen):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    nc = s // ch
+    dt = torch.nn.functional.softplus(rnd(b, s, nh))
+    A = -(torch.linspace(1.0, 16.0, nh, device="cuda") if wide_decay else
+          torch.exp(torch.linspace(0.0, 1.0, nh, device="cuda")))
+    a = (dt.reshape(b, nc, ch, nh) * A).permute(0, 3, 1, 2).contiguous()
+    xdt = (rnd(b, s, nh, hd).reshape(b, nc, ch, nh, hd) * 0.3
+           * dt.reshape(b, nc, ch, nh, 1)).permute(0, 3, 1, 2, 4).contiguous()
+    Bc, Cc = (rnd(b, nc, ch, ds) * 0.3 for _ in range(2))
+    return a, xdt, Bc, Cc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wide_decay", [False, True])
+@pytest.mark.parametrize("b,s,nh,hd,ds,ch", SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_plain_backward(b, s, nh, hd, ds, ch,
+                                                    wide_decay):
+    """The op's gradients on the card (the forward and backward kernels,
+    one launch each, through ``SSDIntraChunk``) against the plain backward
+    on the same inputs and output gradients; a second backward call gives
+    the same bits (the heads' sums run in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd import ops as ssd
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref_bwd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ins = [t.requires_grad_() for t in _ssd_kernel_inputs(
+        b, s, nh, hd, ds, ch, wide_decay, gen)]
+    dy = torch.randn(ins[1].shape, generator=gen, device="cuda")
+    dS = torch.randn((b, nh, s // ch, ds, hd), generator=gen, device="cuda")
+    before = (ssd.launches, ssd.bwd_launches)
+    y, S = ssd.ssd_intra_chunk(*ins)
+    assert y.grad_fn is not None and S.grad_fn is not None
+    grads = torch.autograd.grad((y, S), ins, (dy, dS))
+    torch.cuda.synchronize()
+    assert (ssd.launches - before[0], ssd.bwd_launches - before[1]) == (1, 1)
+    refs = ssd_intra_chunk_ref_bwd(*(t.detach() for t in ins), dy, dS)
+    for name, g, r in zip(("da", "dxdt", "dB", "dC"), grads, refs):
+        assert torch.isfinite(g).all(), name
+        top = float(r.abs().max())
+        torch.testing.assert_close(
+            g, r, atol=SSD_BWD_TOL["atol_of_max"] * top,
+            rtol=SSD_BWD_TOL["rtol"], msg=lambda m: f"{name}: {m}")
+    again = ssd.ssd_intra_chunk_bwd(*(t.detach() for t in ins), dy, dS)
+    assert all(torch.equal(g, h) for g, h in zip(grads, again))
+
+
+@pytest.mark.gpu
+def test_ssd_chunked_gradients_on_the_card_match_the_cpu():
+    """The chunked op's gradients for x, dt, A, B and C at a ragged length
+    on the card (the kernels) against the CPU (autograd through the plain
+    version), from the same inputs: the intra-chunk term's gradient is not
+    dropped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd import ops as ssd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    b, s, nh, hd, ds, ch = 2, 200, 4, 32, 16, 64
+    x = torch.randn((b, s, nh, hd), generator=gen) * 0.3
+    dt = torch.nn.functional.softplus(torch.randn((b, s, nh), generator=gen))
+    A = -torch.linspace(1.0, 16.0, nh)
+    B, C = (torch.randn((b, s, ds), generator=gen) * 0.3 for _ in range(2))
+    wy = torch.randn((b, s, nh, hd), generator=gen)
+    wst = torch.randn((b, nh, hd, ds), generator=gen)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        ins = [t.to(dev).requires_grad_() for t in (x, dt, A, B, C)]
+        y, st = ssd.ssd_chunked(*ins, ch)
+        loss = (y * wy.to(dev)).sum() + (st * wst.to(dev)).sum()
+        before = ssd.bwd_launches
+        grads[dev] = torch.autograd.grad(loss, ins)
+        assert ssd.bwd_launches == before + (dev == "cuda")
+    for name, g, r in zip(("x", "dt", "A", "B", "C"), grads["cuda"],
+                          grads["cpu"]):
+        torch.testing.assert_close(g.cpu(), r, atol=5e-4 * float(
+            r.abs().max()), rtol=5e-3, msg=lambda m: f"{name}: {m}")

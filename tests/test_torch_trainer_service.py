@@ -1,12 +1,13 @@
 """The ``lm-trainer`` service in a VRE on provider ``cpu`` (reduced
 widths, bf16 as the provider serves them), beside the JAX package's: the
 quickstart flow (``examples/quickstart.py``) and the crash-restart flow
-(``examples/elastic_restart.py``, on a transformer: SSM training is
-ROADMAP A.7b), with the port's trainer started from JAX's state."""
+(``examples/elastic_restart.py``, on granite-moe and on that example's
+mamba2-370m), with the port's trainer started from JAX's state."""
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+import torch  # noqa: E402
 
 import repro.core.services  # noqa: E402,F401
 import repro_torch.core.services  # noqa: E402,F401
@@ -15,7 +16,8 @@ from repro.core.vre import \
     VirtualResearchEnvironment as JaxVRE  # noqa: E402
 from repro_torch.core.vre import (VirtualResearchEnvironment,  # noqa: E402
                                   VREConfig)
-from repro_torch.models.params import train_state_from_numpy  # noqa: E402
+from repro_torch.models.params import (train_state_from_numpy,  # noqa: E402
+                                       train_state_to_numpy)
 
 # bf16 params and activations round at other places in XLA and in torch,
 # and every step rounds the params to bf16 again: five steps' losses
@@ -112,10 +114,45 @@ def test_microbatches_extra_matches_jax(tmp_path, microbatches):
         tv.destroy()
 
 
-def test_ssm_trainer_fails_at_apply_naming_a7b(tmp_path):
-    cfg = VREConfig(name="t", services=["volumes", "lm-trainer"],
-                    arch="mamba2-370m", provider="cpu", workdir=str(tmp_path))
-    vre = VirtualResearchEnvironment(cfg)
-    with pytest.raises(NotImplementedError, match=r"A\.7b"):
+def test_ssm_trainer_restart_flow_matches_jax(tmp_path):
+    """``examples/elastic_restart.py``'s scenario on its own arch: the
+    port's ``lm-trainer`` on mamba2-370m starts from JAX's state, trains 6,
+    saves, is destroyed, re-instantiates, restores and trains 6 more, with
+    JAX's losses."""
+    services = ["volumes", "data", "lm-trainer"]
+    extra = {"global_batch": 4, "seq_len": 32}
+    jv, tv = _pair(tmp_path, "mamba2-370m", services, extra)
+    losses = {}
+    for name, vre in (("jax", jv), ("port", tv)):
         vre.instantiate()
-    assert vre.services == {}
+        trainer = vre.service("lm-trainer")
+        if name == "port":
+            trainer.state = train_state_from_numpy(jax_state, "cpu")
+            # the bf16 model's f32 leaves (A_log, D, dt_bias) and their
+            # moments cross as f32, and every leaf crosses back bit for bit
+            mamba = trainer.state["params"]["mamba"]["mamba"]
+            assert mamba["w_x"].dtype == torch.bfloat16
+            for tree in (mamba, trainer.state["opt"]["m"]["mamba"]["mamba"],
+                         trainer.state["opt"]["v"]["mamba"]["mamba"]):
+                assert all(tree[k].dtype == torch.float32
+                           for k in ("A_log", "D", "dt_bias"))
+            for a, b in zip(jax.tree.leaves(train_state_to_numpy(
+                    trainer.state)), jax.tree.leaves(jax_state)):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+        else:
+            jax_state = jax.tree.map(np.asarray, trainer.state)
+        first = trainer.train_steps(vre.service("data"), 6)
+        vre.service("volumes").save(trainer.state, step=6, blocking=True)
+        vre.destroy()
+        vre2 = type(vre)(vre.config)
+        vre2.instantiate()
+        t2 = vre2.service("lm-trainer")
+        t2.state = vre2.service("volumes").restore(t2.state, step=6)
+        second = t2.train_steps(vre2.service("data"), 6)
+        assert t2.health() and t2.metrics()["step"] == 6
+        vre2.destroy()
+        assert np.isfinite(second[-1])
+        assert second[0] < first[0] + 1.0, "restore must continue"
+        losses[name] = first + second
+    np.testing.assert_allclose(losses["port"], losses["jax"], rtol=RTOL)

@@ -1,8 +1,8 @@
 """The port's training path against the JAX package's, float32 on the CPU:
 the loss, the microbatch pick, the gradients of the flash op's and the
 grouped matmul's plain paths, five train steps of reduced yi-9b,
-granite-moe and gemma2 from bridged params at 1 and 2 microbatches, the
-remat policies, and what is not ported (SSM and hybrid training)."""
+granite-moe and gemma2 from bridged params at 1 and 2 microbatches, and the
+remat policies. The SSM and hybrid are in test_torch_ssm_training.py."""
 import dataclasses
 
 import numpy as np
@@ -239,15 +239,3 @@ def test_train_state_crosses_to_numpy_and_back():
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="train state"):
         train_state_from_numpy({"params": back["params"]}, "cpu")
-
-
-@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
-def test_ssm_and_hybrid_training_raise_naming_a7b(arch):
-    tcfg = t_reduced(t_get_config(arch))
-    model = build_model(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"A\.7b"):
-        tts.make_train_step(model, tcfg, OptimizerConfig(),
-                            tts.TrainStepConfig())
-    with pytest.raises(NotImplementedError, match=r"A\.7b"):
-        model.forward(model.init(torch.Generator().manual_seed(0)),
-                      torch.ones((1, 4), dtype=torch.long))

@@ -130,12 +130,12 @@ def test_vre_services_work_end_to_end(tmp_path):
 
 
 def test_failed_build_releases_what_was_built(tmp_path):
-    # an SSM arch's trainer fails at build (training it is ROADMAP A.7b)
+    # an embeddings-input arch's trainer fails at build (ROADMAP A.7c)
     cfg = VREConfig(name="t", services=["volumes", "lm-trainer"],
-                    arch="mamba2-370m", provider="cpu",
+                    arch="musicgen-medium", provider="cpu",
                     workdir=str(tmp_path))
     vre = VirtualResearchEnvironment(cfg)
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(NotImplementedError, match=r"A\.7c"):
         vre.instantiate()
     assert vre.services == {} and vre.mesh is None
     assert vre.state != "RUNNING"
