@@ -101,6 +101,13 @@ __host__ __device__ inline int tile_pairs(int c) {
   return r * (r + 1) / 2;
 }
 
+// (row tile, key tile <= row tile) of causal pair p, row by row
+__device__ inline void pair_of(int p, int& rt, int& kt) {
+  rt = 0;
+  while (p > rt) p -= ++rt;
+  kt = p;
+}
+
 // parts of at most STRIP keys that cover keys [0, end)
 __host__ __device__ inline int key_parts(int end) {
   return (end + STRIP - 1) / STRIP;
@@ -307,6 +314,64 @@ __device__ __forceinline__ void product(float (&acc)[N / 2],
   fence_frags(fa);
 }
 
+// One 64 x 64 tile of C.B^T: causal (row tile, key tile) pair `unit` of
+// the chunks' pairs (tile_pairs(c) a chunk, row by row), reduced over
+// d_state in stages of KW columns through a ring of NST stages of STAGE
+// floats; written to CB (batch * nc, c, c).
+template <int STAGE>
+__device__ __forceinline__ void cb_tile(const float* __restrict__ Bm,
+                                        const float* __restrict__ Cm,
+                                        float* __restrict__ CB, int unit,
+                                        int c, int ds, int vec_bc,
+                                        uint32_t* sHi, uint32_t* sLo,
+                                        float* ring) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;  // the warp's first row in the tile
+  FragA fa[KW / 8];
+  const int pairs = tile_pairs(c);
+  const int bn = unit / pairs;
+  int r, jt;
+  pair_of(unit % pairs, r, jt);
+  const int r0 = r * BR;
+  const float* B_c = Bm + size_t(bn) * c * ds;
+  const float* C_c = Cm + size_t(bn) * c * ds;
+  float cb[BKT / 2];
+  zero(cb);
+  pipeline<NST>(
+      (ds + KW - 1) / KW,
+      [&](int st, int it) {
+        float* s = ring + st * STAGE;
+        stage_rows<BR, KW>(s, LDK, C_c, ds, c, r0, it * KW, vec_bc);
+        stage_rows<BKT, KW>(s + BR * LDK, LDK, B_c, ds, c, jt * BKT, it * KW,
+                            vec_bc);
+      },
+      [&](int st, int) {
+        const float* sC = ring + st * STAGE;
+        split_rows<BKT>(sC + BR * LDK, LDK, sHi, sLo);  // B: keys x k
+        fence_proxy_async();
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < KW / 8; ++kk) {  // A = C
+          const float* pc = sC + (wr + g) * LDK + 8 * kk + t;
+          fa[kk] = split_a(pc[0], pc[8 * LDK], pc[4], pc[8 * LDK + 4]);
+        }
+        product<BKT>(cb, fa, sHi, sLo);
+      });
+  float* out = CB + size_t(bn) * c * c;
+#pragma unroll
+  for (int nt = 0; nt < BKT / 8; ++nt) {
+    const int col = jt * BKT + nt * 8 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = r0 + wr + g + 8 * half;
+      if (i >= c) continue;
+      if (col < c) out[size_t(i) * c + col] = cb[4 * nt + 2 * half];
+      if (col + 1 < c) out[size_t(i) * c + col + 1] = cb[4 * nt + 2 * half + 1];
+    }
+  }
+}
+
 // The first kernel, three kinds of block:
 //   * S, for one (batch, chunk, head, 64 state rows): the cumsums of a
 //     (stored to acs_out for the second kernel by the first state tile),
@@ -411,48 +476,8 @@ ssd_first_kernel(const float* __restrict__ a, const float* __restrict__ xdt,
     return;
   }
 
-  // ---- one tile of C.B^T ----
-  const int pairs = tile_pairs(c);
-  const int bn = (blockIdx.x - n_s) / pairs;
-  int jt = (blockIdx.x - n_s) % pairs, r = 0;
-  while (jt > r) jt -= ++r;  // pairs (r, jt <= r), row by row
-  const int r0 = r * BR;
-  const float* B_c = Bm + size_t(bn) * c * ds;
-  const float* C_c = Cm + size_t(bn) * c * ds;
-  float cb[BKT / 2];
-  zero(cb);
-  pipeline<NST>(
-      (ds + KW - 1) / KW,
-      [&](int st, int it) {
-        float* s = ring + st * STAGE;
-        stage_rows<BR, KW>(s, LDK, C_c, ds, c, r0, it * KW, vec_bc);
-        stage_rows<BKT, KW>(s + BR * LDK, LDK, B_c, ds, c, jt * BKT, it * KW,
-                            vec_bc);
-      },
-      [&](int st, int) {
-        const float* sC = ring + st * STAGE;
-        split_rows<BKT>(sC + BR * LDK, LDK, sHi, sLo);  // B: keys x k
-        fence_proxy_async();
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < KW / 8; ++kk) {  // A = C
-          const float* pc = sC + (wr + g) * LDK + 8 * kk + t;
-          fa[kk] = split_a(pc[0], pc[8 * LDK], pc[4], pc[8 * LDK + 4]);
-        }
-        product<BKT>(cb, fa, sHi, sLo);
-      });
-  float* out = CB + size_t(bn) * c * c;
-#pragma unroll
-  for (int nt = 0; nt < BKT / 8; ++nt) {
-    const int col = jt * BKT + nt * 8 + 2 * t;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int i = r0 + wr + g + 8 * half;
-      if (i >= c) continue;
-      if (col < c) out[size_t(i) * c + col] = cb[4 * nt + 2 * half];
-      if (col + 1 < c) out[size_t(i) * c + col + 1] = cb[4 * nt + 2 * half + 1];
-    }
-  }
+  cb_tile<STAGE>(Bm, Cm, CB, blockIdx.x - n_s, c, ds, vec_bc, sHi, sLo,
+                 ring);
 }
 
 // The second kernel: y[rows] += (C.B^T o decay) . xdt over one part of the
@@ -630,470 +655,695 @@ cudaError_t launch(const float* a, const float* xdt, const float* B,
 // 2048 tokens, 32 heads, chunk 256, d_state 128, head dim 64) the least work
 // is ~18 GFLOP on the causal triangle with C.B^T once per (batch, chunk),
 // and the least traffic ~0.25 GB (a, xdt, B, C, dy, dS read once; da, dxdt,
-// dB, dC written once): ~0.076 ms of bytes, ~0.27 ms of f32 FMA on the CUDA
-// cores (67 TFLOP/s), ~0.11 ms in split TF32 on the tensor cores. This first
-// kernel is plain f32 FMA on the CUDA cores, one 64 x 64 tile of 4 x 4
-// outputs a thread; its redesign onto the tensor cores is later work. The
-// design:
-//   * four grids on the stream, one launch of the wrapper: (1) G = C.B^T once
-//     per (batch, chunk) for each causal 64 x 64 tile pair, into the
-//     workspace of the forward's C.B^T; (2) one block per (batch, chunk,
-//     head), which walks the key tiles and, for each, the row tiles below
-//     it: dxdt, the row and column sums of P, q and da all stay in the
-//     block, and dG_h goes to a workspace (b, nc, nh, c, c); (3) the heads'
-//     dG_h summed in head order into the first workspace, one block per
-//     tile pair; (4) dC and dB, one block per (batch, chunk, 64 rows, 64
-//     state columns), the head sum of xdt.dS^T reduced over (head, head dim)
-//     in the block. Every sum runs in a fixed order: no atomics, the same
-//     bits from run to run;
+// dB, dC written once): ~0.076 ms of bytes and, in split TF32 on the tensor
+// cores (three TF32 products for each f32 one), ~0.11 ms of operations.
+// Operations bound it, so every product runs on the tensor cores, each f32
+// product once, and the per-head intermediates (dM_h, P_h, dG_h) stay out
+// of device memory. The design:
+//   * four grids on the stream, one launch of the wrapper; each block is
+//     one warpgroup running wgmma.m64nNk8 in split TF32 with the forward's
+//     building blocks (cp.async rings, split_rows and split_cols, product).
+//     Several blocks share an SM and overlap one another's barriers,
+//     splits and waits: four of the per-head grid (at most 128 registers a
+//     thread, ~55 KB of shared memory at head dim 64 and chunk 256), three
+//     of the others:
+//     (1) prep: G = C.B^T once per (batch, chunk), one block per causal
+//         64 x 64 tile pair (the forward's cb_tile), into a (b, nc, c, c)
+//         workspace; and the cumsums of a, one block-wide scan per (batch,
+//         head, chunk);
+//     (2) the heads walked in order, two kinds of block in one grid. (2a)
+//         one block per (batch, chunk, tile pair): dM_h = dy_h.xdt_h^T on
+//         the tile, then dM_h o L_h added to an f32 register tile, so that
+//         the heads' dG is summed on chip in head order and written once
+//         (b, nc, c, c); the row and column sums of P_h = dM_h o L_h o G on
+//         the tile go to a small workspace (b, nc, nh, tile pairs, 2, 64).
+//         dM_h is computed here only: the per-head grid needs P's sums, not
+//         P. (2b) the head term sum_h diag(w_h).xdt_h.dS_h^T as one product
+//         of depth nh x hd, cut into n_parts parts of consecutive heads,
+//         one block per (batch, chunk, row tile, part, 64 state columns),
+//         into a (b, nc, n_parts, c, ds) workspace: zamba2's d_state 64
+//         would give only 128 blocks of full depth, fewer than the card's
+//         SMs. (2a)'s 320 blocks at chunk 256 are one partial wave; (2b)'s
+//         fill the rest of the card;
+//     (3) per head: one block per (batch, chunk, head), one two-stage
+//         cp.async pipeline over every step of every key tile, so that no
+//         key tile starts on an empty ring: diag(w).U = (w o B).dS over
+//         d_state, q from it, then M^T.dy over the row tiles from the key
+//         tile on, 32 rows a product. M = G o L is formed from (1)'s G,
+//         read from device memory ahead of the split, and the decays while
+//         A's fragments are split: it is never an accumulator, so nothing
+//         goes through shared memory for it. Writes dxdt, then da: (2a)'s
+//         sums in tile order, q, and a block-wide reverse scan;
+//     (4) dC = dG.B and dB = dG^T.C over the triangle, one block per
+//         (batch, chunk, row tile, 64 state columns, dC or dB); dB adds
+//         (2b)'s parts in part order;
+//   * wgmma takes TF32 B only K-major: xdt (for dM), dS (the head term) and
+//     B (for G) are K-major as stored; dS (for U), dy (for M^T.dy), B (for
+//     dC) and C (for dB) are transposed while their parts are written. An
+//     accumulator is never an A fragment: M is formed at A's places, dG^T
+//     is read transposed from its staged slab. Ragged edges (chunks and
+//     d_state off the tile, head dim 16 under the 32-wide slab) are
+//     zero-filled by the copies;
+//   * every sum runs in a fixed order and nothing is added by atomics: the
+//     same bits from run to run;
 //   * the decay is taken per element from differences of acs, never
 //     factorised, as in the forward.
 
 namespace bwd {
 
-constexpr int T = 64;           // rows and keys of a tile
-constexpr int NTB = 256;        // threads a block, 16 x 16, 4 x 4 outputs each
-constexpr int PT = T + 4;       // pitch of a 64-wide tile (16-byte rows)
-constexpr int KC = 32;          // depth of a staged slice of ds or hd
-constexpr int MAX_C = 1024;     // chunk rows the head kernel keeps sums of
+constexpr int T = 64;         // rows, keys and state columns of a tile
+constexpr int LDT = T + 8;    // pitch of a 64-wide tile
+constexpr int NSB = 3;        // stages of the slab rings
+constexpr int MAX_C = 1024;   // chunk rows the per-head grid keeps in smem
 
 __host__ __device__ inline int tiles(int n) { return (n + T - 1) / T; }
-__host__ __device__ inline int pairs(int c) {
-  const int r = tiles(c);
-  return r * (r + 1) / 2;
+
+// the sum of every thread's v, the same bits in every thread: a butterfly
+// in each warp, then the warps in order. tmp: 4 floats.
+__device__ __forceinline__ float block_sum(float v, float* tmp) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) tmp[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) s += tmp[w];
+  __syncthreads();  // tmp is read before it is written again
+  return s;
 }
 
-// (row tile, key tile) of causal pair p, row by row
-__device__ inline void pair_of(int p, int& rt, int& kt) {
-  rt = 0;
-  while (p > rt) {
-    p -= rt + 1;
-    ++rt;
+// out[i] = v[i] + v[i + 1] + ... + v[c - 1]: a block-wide scan of NT
+// values a pass from the chunk's end, in a fixed order. tmp: 4 floats.
+__device__ __forceinline__ void reverse_cumsum(const float* v, float* out,
+                                               float* tmp, int c) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float carry = 0.f;
+  for (int base = 0; base < c; base += NT) {
+    const int k = base + threadIdx.x, i = c - 1 - k;
+    float x = k < c ? v[i] : 0.f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, x, off);
+      if (lane >= off) x += u;
+    }
+    if (lane == 31) tmp[warp] = x;
+    __syncthreads();
+    float before = carry, total = carry;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) {
+      if (w < warp) before += tmp[w];
+      total += tmp[w];
+    }
+    if (k < c) out[i] = x + before;
+    carry = total;
+    __syncthreads();  // tmp is read before the next pass writes it
   }
-  kt = p;
 }
 
-__device__ inline float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// (1) G = C.B^T on each causal tile pair of each chunk (blocks [0, n_cb)),
+// then the cumsums of a, one block per (batch, head, chunk)
+__global__ void __launch_bounds__(NT)
+bwd_prep_kernel(const float* __restrict__ a, const float* __restrict__ B,
+                const float* __restrict__ C, float* __restrict__ cb,
+                float* __restrict__ acs, int n_cb, int c, int ds,
+                int vec_bc) {
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t* sHi = aligned_smem(smem_raw);
+  uint32_t* sLo = sHi + part_bytes(BKT) / 4;
+  float* ring = reinterpret_cast<float*>(sLo + part_bytes(BKT) / 4);
+  if (int(blockIdx.x) < n_cb) {
+    cb_tile<CB_STAGE>(B, C, cb, blockIdx.x, c, ds, vec_bc, sHi, sLo, ring);
+    return;
+  }
+  const size_t row = blockIdx.x - n_cb;
+  chunk_cumsum(a + row * c, acs + row * c, ring, c);
 }
 
-// (1) G = C.B^T on causal tile pair (rt, kt) of chunk bn, into cb (bn, c, c)
-__global__ void __launch_bounds__(NTB)
-bwd_cb_kernel(const float* __restrict__ B, const float* __restrict__ C,
-              float* __restrict__ cb, int c, int ds) {
-  __shared__ __align__(16) float Cs[KC * PT];
-  __shared__ __align__(16) float Bs[KC * PT];
+size_t prep_smem() {
+  return 1024 + 2 * size_t(part_bytes(BKT)) + sizeof(float) * NST * CB_STAGE;
+}
+
+// (2a)'s stage: dy and xdt slabs (T x KW each), then the cumsums of the
+// rows and keys; two stages, so that with G's tile three blocks fit on an
+// SM. (2b)'s stage: xdt and dS slabs (T x KW each), then the cumsums of the
+// rows and the chunk's last one
+constexpr int DG_STAGE = 2 * T * LDK + 2 * T;
+constexpr int DG_STAGES = 2;
+constexpr int HT_STAGE = 2 * T * LDK + T + 4;
+
+size_t dg_smem() {
+  const size_t dg = sizeof(float) * (4 * T + T * LDT + DG_STAGES * DG_STAGE);
+  const size_t ht = sizeof(float) * NSB * HT_STAGE;
+  return 1024 + 2 * size_t(part_bytes(T)) + (dg > ht ? dg : ht);
+}
+
+// (2a) for causal tile pair `pair` (rt, kt) of chunk bn, the heads in
+// order: dG = sum_h dM_h o L_h into dg (bn, c, c), and each head's row and
+// column sums of P_h = dM_h o L_h o G on the tile into sums
+template <int HD>
+__device__ __forceinline__ void dg_block(
+    const float* __restrict__ xdt, const float* __restrict__ dy,
+    const float* __restrict__ cb, const float* __restrict__ acs,
+    float* __restrict__ dg, float* __restrict__ sums, int nh, int nc, int c,
+    int vec, int vec_cb, int pair, int bn, unsigned char* smem_raw) {
+  constexpr int NSL = (HD + KW - 1) / KW;  // slabs of the head dim
+  constexpr int PW = part_bytes(T) / 4;
+  uint32_t* parts = aligned_smem(smem_raw);
+  float* colp = reinterpret_cast<float*>(parts + 2 * PW);  // 4 warps x T
+  float* sG = colp + 4 * T;                                // T x LDT
+  float* ring = sG + T * LDT;                  // DG_STAGES x DG_STAGE
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;
+  const int bi = bn / nc, n = bn % nc;
   int rt, kt;
-  pair_of(blockIdx.x, rt, kt);
-  const int bn = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const float* Cb = C + size_t(bn) * c * ds;
-  const float* Bb = B + size_t(bn) * c * ds;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < ds; k0 += KC) {
-    for (int e = tid; e < T * KC; e += NTB) {
-      const int r = e / KC, k = e % KC;
-      const bool kok = k0 + k < ds;
-      const int gi = rt * T + r, gj = kt * T + r;
-      Cs[k * PT + r] = kok && gi < c ? Cb[size_t(gi) * ds + k0 + k] : 0.f;
-      Bs[k * PT + r] = kok && gj < c ? Bb[size_t(gj) * ds + k0 + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < KC; ++k) {
-      const float4 cv = ld4(&Cs[k * PT + ty * 4]);
-      const float4 bv = ld4(&Bs[k * PT + tx * 4]);
-      const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+  pair_of(pair, rt, kt);
+  const int r0 = rt * T, k0 = kt * T;
+  const int npairs = tile_pairs(c);
+
+  // G's tile, in a group of copies older than every stage below
+  stage_rows<T, T>(sG, LDT, cb + size_t(bn) * c * c, c, c, r0, k0, vec_cb);
+  cp_async_commit();
+  float acc[T / 2], dgs[T / 2];
+  zero(dgs);
+  FragA fa[KW / 8];
+  pipeline<DG_STAGES>(
+      nh * NSL,
+      [&](int st, int it) {
+        const int sl = it % NSL;
+        const size_t bhn = (size_t(bi) * nh + it / NSL) * nc + n;
+        float* s = ring + st * DG_STAGE;
+        stage_rows<T, KW>(s, LDK, dy + bhn * c * HD, HD, c, r0, sl * KW, vec);
+        stage_rows<T, KW>(s + T * LDK, LDK, xdt + bhn * c * HD, HD, c, k0,
+                          sl * KW, vec);
+        if (sl == NSL - 1) {  // the cumsums of the rows, then of the keys
+          const int tid = threadIdx.x;
+          const int i = tid < T ? r0 + tid : k0 + tid - T;
+          const float* ac = acs + bhn * c;
+          cp_async4(s + 2 * T * LDK + threadIdx.x, i < c ? ac + i : ac,
+                    i < c);
+        }
+      },
+      [&](int st, int it) {
+        const int sl = it % NSL;
+        const float* s = ring + st * DG_STAGE;
+        split_rows<T>(s + T * LDK, LDK, parts, parts + PW);  // xdt: keys x k
+        fence_proxy_async();
+        __syncthreads();
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int kk = 0; kk < KW / 8; ++kk) {  // A = dy
+          const float* p = s + (wr + g) * LDK + 8 * kk + t;
+          fa[kk] = split_a(p[0], p[8 * LDK], p[4], p[8 * LDK + 4]);
+        }
+        if (sl == 0) zero(acc);
+        product<T>(acc, fa, parts, parts + PW);
+        if (sl < NSL - 1) return;
+        // acc holds dM_h on the tile: dG += dM_h o L_h, P_h = dM_h o L_h o G
+        const float* sa = s + 2 * T * LDK;  // acs of the rows, then the keys
+        float rowp[2] = {0.f, 0.f}, colv[T / 4];
+        zero(colv);
 #pragma unroll
-        for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(cr[r], br[s], acc[r][s]);
-    }
-    __syncthreads();
-  }
-  float* out = cb + size_t(bn) * c * c;
+        for (int half = 0; half < 2; ++half) {
+          const int il = wr + g + 8 * half, i = r0 + il;
+          const float ai = sa[il];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gi = rt * T + ty * 4 + r;
-    if (gi >= c) continue;
+          for (int nb = 0; nb < T / 8; ++nb)
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int gj = kt * T + tx * 4 + s;
-      if (gj < c) out[size_t(gi) * c + gj] = acc[r][s];
+            for (int e = 0; e < 2; ++e) {
+              const int jl = 8 * nb + 2 * t + e, q = 4 * nb + 2 * half + e;
+              const float l = k0 + jl <= i && i < c
+                                  ? exp2_ftz((ai - sa[T + jl]) * LOG2E)
+                                  : 0.f;
+              const float d = acc[q] * l;
+              dgs[q] += d;
+              const float pv = d * sG[il * LDT + jl];
+              rowp[half] += pv;
+              colv[2 * nb + e] += pv;
+            }
+        }
+        float* out = sums + ((size_t(bn) * nh + it / NSL) * npairs + pair) *
+                                2 * T;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // over the keys of a row
+          float v = rowp[half];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (t == 0) out[wr + g + 8 * half] = v;
+        }
+#pragma unroll
+        for (int k = 0; k < T / 4; ++k) {  // over the warp's rows of a key
+          colv[k] += __shfl_xor_sync(0xffffffffu, colv[k], 4);
+          colv[k] += __shfl_xor_sync(0xffffffffu, colv[k], 8);
+          colv[k] += __shfl_xor_sync(0xffffffffu, colv[k], 16);
+        }
+        if (g == 0)
+#pragma unroll
+          for (int nb = 0; nb < T / 8; ++nb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              colp[warp * T + 8 * nb + 2 * t + e] = colv[2 * nb + e];
+        __syncthreads();
+        if (threadIdx.x < T)  // the warps in order
+          out[T + threadIdx.x] = colp[threadIdx.x] + colp[T + threadIdx.x] +
+                                 colp[2 * T + threadIdx.x] +
+                                 colp[3 * T + threadIdx.x];
+      });
+  float* out = dg + size_t(bn) * c * c;
+#pragma unroll
+  for (int nb = 0; nb < T / 8; ++nb) {
+    const int col = k0 + nb * 8 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = r0 + wr + g + 8 * half;
+      if (i >= c) continue;
+      if (col < c) out[size_t(i) * c + col] = dgs[4 * nb + 2 * half];
+      if (col + 1 < c)
+        out[size_t(i) * c + col + 1] = dgs[4 * nb + 2 * half + 1];
     }
   }
 }
+
+// (2b) block `unit` of the head term's grid, (batch x chunk, row tile,
+// part, 64 state columns): part `part` of sum_h diag(w_h).xdt_h.dS_h^T,
+// heads [part * per, (part + 1) * per) with per = ceil(nh / n_parts), into
+// hparts (bn, n_parts, c, ds)
+template <int HD>
+__device__ __forceinline__ void hterm_block(
+    const float* __restrict__ xdt, const float* __restrict__ dS,
+    const float* __restrict__ acs, float* __restrict__ hparts, int nh, int nc,
+    int c, int ds, int n_parts, int vec, int unit, unsigned char* smem_raw) {
+  constexpr int NSL = (HD + KW - 1) / KW;
+  constexpr int PW = part_bytes(T) / 4;
+  uint32_t* parts = aligned_smem(smem_raw);
+  float* ring = reinterpret_cast<float*>(parts + 2 * PW);  // NSB x HT_STAGE
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;
+  const int s_tiles = tiles(ds), nx = s_tiles * n_parts;
+  const int bn = unit / (tiles(c) * nx), x = unit % nx;
+  const int s0 = x % s_tiles * T, part = x / s_tiles;
+  const int r0 = unit / nx % tiles(c) * T, bi = bn / nc, n = bn % nc;
+  const int per = (nh + n_parts - 1) / n_parts, h0 = part * per;
+  const int heads = max(0, min(nh, h0 + per) - h0);
+  float acc[T / 2];
+  zero(acc);
+  float w0 = 0.f, w1 = 0.f;
+  FragA fa[KW / 8];
+  pipeline<NSB>(
+      heads * NSL,
+      [&](int st, int it) {
+        const int sl = it % NSL;
+        const size_t bhn = (size_t(bi) * nh + h0 + it / NSL) * nc + n;
+        float* s = ring + st * HT_STAGE;
+        stage_rows<T, KW>(s, LDK, xdt + bhn * c * HD, HD, c, r0, sl * KW,
+                          vec);
+        stage_rows<T, KW>(s + T * LDK, LDK, dS + bhn * ds * HD, HD, ds, s0,
+                          sl * KW, vec);
+        const int tid = threadIdx.x;
+        if (sl == 0 && tid <= T) {
+          const int i = tid < T ? r0 + tid : c - 1;
+          const float* ac = acs + bhn * c;
+          cp_async4(s + 2 * T * LDK + tid, i < c ? ac + i : ac, i < c);
+        }
+      },
+      [&](int st, int it) {
+        const float* s = ring + st * HT_STAGE;
+        split_rows<T>(s + T * LDK, LDK, parts, parts + PW);  // dS: state x k
+        fence_proxy_async();
+        __syncthreads();
+        if (it % NSL == 0) {  // w of this head at the thread's two rows
+          const float* sa = s + 2 * T * LDK;
+          w0 = r0 + wr + g < c ? exp2_ftz((sa[T] - sa[wr + g]) * LOG2E) : 0.f;
+          w1 = r0 + wr + g + 8 < c
+                   ? exp2_ftz((sa[T] - sa[wr + g + 8]) * LOG2E)
+                   : 0.f;
+        }
+#pragma unroll
+        for (int kk = 0; kk < KW / 8; ++kk) {  // A = w o xdt
+          const float* p = s + (wr + g) * LDK + 8 * kk + t;
+          fa[kk] = split_a(w0 * p[0], w1 * p[8 * LDK], w0 * p[4],
+                           w1 * p[8 * LDK + 4]);
+        }
+        product<T>(acc, fa, parts, parts + PW);
+      });
+  float* out = hparts + (size_t(bn) * n_parts + part) * c * ds;
+#pragma unroll
+  for (int nb = 0; nb < T / 8; ++nb)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = r0 + wr + g + 8 * half, sc = s0 + 8 * nb + 2 * t + e;
+        if (j < c && sc < ds)
+          out[size_t(j) * ds + sc] = acc[4 * nb + 2 * half + e];
+      }
+}
+
+// (2) the two kinds of block that walk the heads, in one grid: blocks
+// [0, n_dg) are (2a)'s, one per (batch x chunk, tile pair); the rest are
+// (2b)'s. (2b) needs only the cumsums, so its blocks fill the SMs that
+// (2a)'s single wave leaves free.
+template <int HD>
+__global__ void __launch_bounds__(NT, 3)
+bwd_dg_kernel(const float* __restrict__ xdt, const float* __restrict__ dy,
+              const float* __restrict__ dS, const float* __restrict__ cb,
+              const float* __restrict__ acs, float* __restrict__ dg,
+              float* __restrict__ sums, float* __restrict__ hparts, int nh,
+              int nc, int c, int ds, int n_parts, int n_dg, int vec,
+              int vec_cb) {
+  extern __shared__ unsigned char smem_raw[];
+  const int npairs = tile_pairs(c);
+  if (int(blockIdx.x) < n_dg)
+    dg_block<HD>(xdt, dy, cb, acs, dg, sums, nh, nc, c, vec, vec_cb,
+                 blockIdx.x % npairs, blockIdx.x / npairs, smem_raw);
+  else
+    hterm_block<HD>(xdt, dS, acs, hparts, nh, nc, c, ds, n_parts, vec,
+                    blockIdx.x - n_dg, smem_raw);
+}
+
+// a stage of the per-head grid's ring: B (T x KW) and dS (KW x HD) for U,
+// or dy (T x HD) for M^T.dy; two stages, so that four blocks fit on an SM
+constexpr int HEAD_STAGES = 2;
 
 template <int HD>
-__host__ __device__ constexpr int head_smem_floats() {
-  // XkT, DyT (HD x PT), Dy (64 x HD+4), Ms (64 x PT), Bs (KC x PT), dSs
-  // (KC x HD+4), column partials (16 x 64)
-  return 2 * HD * PT + T * (HD + 4) + T * PT + KC * PT + KC * (HD + 4) +
-         16 * T;
+__host__ __device__ constexpr int head_stage() {
+  return T * LDK + KW * (HD + 8) > T * (HD + 8) ? T * LDK + KW * (HD + 8)
+                                                : T * (HD + 8);
 }
 
 template <int HD>
 size_t head_smem(int c) {
-  return sizeof(float) * (head_smem_floats<HD>() + 5 * round4(c));
+  return 1024 + 2 * size_t(part_bytes(HD)) +
+         sizeof(float) * (2 * round4(c) + 8 + HEAD_STAGES * head_stage<HD>());
 }
 
-// CP of the head dim a thread holds: a 64 x HD tile is 16 x 16 threads of
-// 4 rows x CP columns
-template <int CP>
-__device__ inline void ld_cols(const float* p, float (&v)[CP]) {
-  if constexpr (CP % 4 == 0) {
-#pragma unroll
-    for (int s = 0; s < CP; s += 4) {
-      const float4 x = ld4(p + s);
-      v[s] = x.x;
-      v[s + 1] = x.y;
-      v[s + 2] = x.z;
-      v[s + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int s = 0; s < CP; ++s) v[s] = p[s];
-  }
-}
-
-// half-warp sum: the 16 threads of one ty (lanes tx of one half of a warp)
-__device__ inline float sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// (2) one block per (head, batch x chunk): dxdt, da and dG_h
+// (3) one block per (head, batch x chunk): dxdt, and da from (2)'s sums
 template <int HD>
-__global__ void __launch_bounds__(NTB)
-bwd_head_kernel(const float* __restrict__ a, const float* __restrict__ xdt,
-                const float* __restrict__ B, const float* __restrict__ dy,
-                const float* __restrict__ dS, const float* __restrict__ cb,
-                float* __restrict__ da, float* __restrict__ dxdt,
-                float* __restrict__ dg, float* __restrict__ acs_out, int nh,
-                int nc, int c, int ds) {
-  constexpr int CP = HD / 16;
-  constexpr int PY = HD + 4;
-  extern __shared__ __align__(16) float sm[];
-  float* XkT = sm;                  // xdt of the key tile, (HD x PT)
-  float* DyT = XkT + HD * PT;       // dy of the row tile, (HD x PT)
-  float* Dy = DyT + HD * PT;        // the same, (64 x PY)
-  float* Ms = Dy + T * PY;          // G, then M, of the tile, (64 x PT)
-  float* Bs = Ms + T * PT;          // B of the key tile, (KC x PT)
-  float* dSs = Bs + KC * PT;        // dS, (KC x PY)
-  float* colp = dSs + KC * PY;      // column partials of P, (16 x 64)
-  const int cp4 = round4(c);
-  float* acs = colp + 16 * T;
-  float* w = acs + cp4;
-  float* rsum = w + cp4;
-  float* csum = rsum + cp4;
-  float* qv = csum + cp4;
-
-  const int h = blockIdx.x, bn = blockIdx.y;
-  const int bi = bn / nc, n = bn % nc;
+__global__ void __launch_bounds__(NT, 4)
+bwd_head_kernel(const float* __restrict__ xdt, const float* __restrict__ B,
+                const float* __restrict__ dy, const float* __restrict__ dS,
+                const float* __restrict__ cb, const float* __restrict__ acs,
+                const float* __restrict__ sums, float* __restrict__ da,
+                float* __restrict__ dxdt, int nh, int nc, int c, int ds,
+                int vec_bc, int vec) {
+  constexpr int LDX = HD + 8;
+  constexpr int PW = part_bytes(HD) / 4;
+  constexpr int STAGE = head_stage<HD>();
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t* parts = aligned_smem(smem_raw);  // high, low
+  float* sAcs = reinterpret_cast<float*>(parts + 2 * PW);  // c
+  float* sQ = sAcs + round4(c);                            // c: q, then dacs
+  float* sTmp = sQ + round4(c);                            // 8
+  float* ring = sTmp + 8;                        // HEAD_STAGES x STAGE
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;
+  const int h = blockIdx.x, bn = blockIdx.y, bi = bn / nc, n = bn % nc;
   const size_t bhn = (size_t(bi) * nh + h) * nc + n;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const float* x_b = xdt + bhn * c * HD;
-  const float* dy_b = dy + bhn * c * HD;
-  const float* dS_b = dS + bhn * ds * HD;
-  const float* B_b = B + size_t(bn) * c * ds;
-  const float* cb_b = cb + size_t(bn) * c * c;
-  float* dg_b = dg + (size_t(bn) * nh + h) * c * c;
-
-  if (tid == 0) {               // the cumsum in order, as one thread
-    float run = 0.f;
-    for (int i = 0; i < c; ++i) {
-      run += a[bhn * c + i];
-      acs[i] = run;
-    }
-  }
+  const float* x_c = xdt + bhn * c * HD;
+  const float* dy_c = dy + bhn * c * HD;
+  const float* dS_c = dS + bhn * ds * HD;
+  const float* B_c = B + size_t(bn) * c * ds;
+  const float* cb_c = cb + size_t(bn) * c * c;
+  for (int i = threadIdx.x; i < c; i += NT) sAcs[i] = acs[bhn * c + i];
   __syncthreads();
-  for (int i = tid; i < c; i += NTB) {
-    w[i] = expf(acs[c - 1] - acs[i]);
-    rsum[i] = csum[i] = 0.f;
-    acs_out[bhn * c + i] = acs[i];
-  }
-  __syncthreads();
-
+  const float end = sAcs[c - 1];
   const int nt = tiles(c);
-  for (int kt = 0; kt < nt; ++kt) {
-    // xdt of the key tile, transposed; U = B.dS for its rows
-    for (int e = tid; e < T * HD; e += NTB) {
-      const int j = e / HD, p = e % HD, gj = kt * T + j;
-      XkT[p * PT + j] = gj < c ? x_b[size_t(gj) * HD + p] : 0.f;
-    }
-    float u[4][CP] = {};
-    for (int k0 = 0; k0 < ds; k0 += KC) {
-      for (int e = tid; e < T * KC; e += NTB) {
-        const int j = e / KC, k = e % KC, gj = kt * T + j;
-        Bs[k * PT + j] = gj < c && k0 + k < ds ?
-            B_b[size_t(gj) * ds + k0 + k] : 0.f;
-      }
-      for (int e = tid; e < KC * HD; e += NTB) {
-        const int k = e / HD, p = e % HD;
-        dSs[k * PY + p] = k0 + k < ds ? dS_b[size_t(k0 + k) * HD + p] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < KC; ++k) {
-        const float4 bv = ld4(&Bs[k * PT + ty * 4]);
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-        float dv[CP];
-        ld_cols<CP>(&dSs[k * PY + tx * CP], dv);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < CP; ++s) u[r][s] = fmaf(br[r], dv[s], u[r][s]);
-      }
-      __syncthreads();
-    }
+  float acc[HD / 2];
+  FragA fa[KW / 8];
 
-    float acc[4][CP] = {};      // M^T.dy for the key tile's rows
-    for (int rt = kt; rt < nt; ++rt) {
-      for (int e = tid; e < T * HD; e += NTB) {
-        const int i = e / HD, p = e % HD, gi = rt * T + i;
-        const float v = gi < c ? dy_b[size_t(gi) * HD + p] : 0.f;
-        Dy[i * PY + p] = v;
-        DyT[p * PT + i] = v;
-      }
-      for (int e = tid; e < T * T; e += NTB) {
-        const int i = e / T, j = e % T, gi = rt * T + i, gj = kt * T + j;
-        Ms[i * PT + j] = gi < c && gj < c ? cb_b[size_t(gi) * c + gj] : 0.f;
-      }
-      __syncthreads();
-      // dM = dy.xdt^T on the tile
-      float dm[4][4] = {};
-#pragma unroll 4
-      for (int p = 0; p < HD; ++p) {
-        const float4 yv = ld4(&DyT[p * PT + ty * 4]);
-        const float4 xv = ld4(&XkT[p * PT + tx * 4]);
-        const float yr[4] = {yv.x, yv.y, yv.z, yv.w};
-        const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) dm[r][s] = fmaf(yr[r], xr[s], dm[r][s]);
-      }
-      // L, M, P and dG_h; the row sums of P across the 16 threads of a row
-      float colv[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = ty * 4 + r, gi = rt * T + i;
-        float prow = 0.f;
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int j = tx * 4 + s, gj = kt * T + j;
-          const bool on = gi < c && gj <= gi;
-          const float l = on ? expf(acs[gi] - acs[gj]) : 0.f;
-          const float m = Ms[i * PT + j] * l;
-          const float pv = dm[r][s] * m;
-          Ms[i * PT + j] = m;   // each thread rewrites only what it read
-          prow += pv;
-          colv[s] += pv;
-          if (gi < c && gj < c) dg_b[size_t(gi) * c + gj] = dm[r][s] * l;
-        }
-        prow = sum16(prow);
-        if (tx == 0 && gi < c) rsum[gi] += prow;
-      }
-#pragma unroll
-      for (int s = 0; s < 4; ++s) colp[ty * T + tx * 4 + s] = colv[s];
-      __syncthreads();
-      if (tid < T && kt * T + tid < c) {
-        float cs = 0.f;
-        for (int t = 0; t < 16; ++t) cs += colp[t * T + tid];
-        csum[kt * T + tid] += cs;
-      }
-      // dxdt += M^T.dy
-#pragma unroll 4
-      for (int i = 0; i < T; ++i) {
-        const float4 mv = ld4(&Ms[i * PT + ty * 4]);
-        const float mr[4] = {mv.x, mv.y, mv.z, mv.w};
-        float yv[CP];
-        ld_cols<CP>(&Dy[i * PY + tx * CP], yv);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < CP; ++s)
-            acc[r][s] = fmaf(mr[r], yv[s], acc[r][s]);
-      }
-      __syncthreads();
-    }
-    // dxdt = M^T.dy + w U; q_j = w_j (U_j . xdt_j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = ty * 4 + r, gj = kt * T + j;
-      const float wj = gj < c ? w[gj] : 0.f;
-      float qp = 0.f;
-#pragma unroll
-      for (int s = 0; s < CP; ++s) {
-        const int p = tx * CP + s;
-        qp = fmaf(u[r][s], XkT[p * PT + j], qp);
-        if (gj < c)
-          dxdt[(bhn * c + gj) * HD + p] = fmaf(wj, u[r][s], acc[r][s]);
-      }
-      qp = sum16(qp);
-      if (tx == 0 && gj < c) qv[gj] = wj * qp;
-    }
-    __syncthreads();
-  }
-  // dacs, then da = its reverse cumsum, in order by one thread
-  if (tid == 0) {
-    float qsum = 0.f;
-    for (int i = 0; i < c; ++i) qsum += qv[i];
-    float run = qsum;
-    for (int i = c - 1; i >= 0; --i) {
-      run += rsum[i] - csum[i] - qv[i];
-      da[bhn * c + i] = run;
-    }
-  }
-}
-
-// (3) dG = sum_h dG_h on causal tile pair (rt, kt), in head order, into cb
-__global__ void __launch_bounds__(NTB)
-bwd_dg_sum_kernel(const float* __restrict__ dg, float* __restrict__ cb,
-                  int nh, int c) {
-  int rt, kt;
-  pair_of(blockIdx.x, rt, kt);
-  const int bn = blockIdx.y;
-  const int tid = threadIdx.x;
-  const size_t cc = size_t(c) * c;
-  for (int e = tid; e < T * T; e += NTB) {
-    const int gi = rt * T + e / T, gj = kt * T + e % T;
-    if (gi >= c || gj >= c) continue;
-    const size_t o = size_t(gi) * c + gj;
-    const float* src = dg + size_t(bn) * nh * cc + o;
-    float s = 0.f;
-    for (int h = 0; h < nh; ++h) s += src[h * cc];
-    cb[size_t(bn) * cc + o] = s;
-  }
-}
-
-// (4) dC and dB for rows [64 rt, 64 rt + 64) and state columns
-// [64 st, 64 st + 64) of chunk bn
-template <int HD>
-__global__ void __launch_bounds__(NTB)
-bwd_dbc_kernel(const float* __restrict__ B, const float* __restrict__ C,
-               const float* __restrict__ xdt, const float* __restrict__ dS,
-               const float* __restrict__ dgs, const float* __restrict__ acs,
-               float* __restrict__ dB, float* __restrict__ dC, int nh, int nc,
-               int c, int ds) {
-  __shared__ __align__(16) float Gs[T * PT];
-  __shared__ __align__(16) float Vs[T * PT];
-  __shared__ float wv[T];
-  const int st = blockIdx.x, rt = blockIdx.y, bn = blockIdx.z;
-  const int bi = bn / nc, n = bn % nc;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int s0 = st * T;
-  const float* dg_b = dgs + size_t(bn) * c * c;
-  const float* B_b = B + size_t(bn) * c * ds;
-  const float* C_b = C + size_t(bn) * c * ds;
-  const int nt = tiles(c);
-  float dc[4][4] = {}, db[4][4] = {};
-
-  auto inner = [&](float (&out)[4][4], int depth) {
-#pragma unroll 4
-    for (int k = 0; k < depth; ++k) {
-      const float4 gv = ld4(&Gs[k * PT + ty * 4]);
-      const float4 vv = ld4(&Vs[k * PT + tx * 4]);
-      const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
-      const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) out[r][s] = fmaf(gr[r], vr[s], out[r][s]);
-    }
+  // one pipeline over every key tile's steps, so that the next key tile's
+  // copies run under this one's last products: for key tile kt, first nu
+  // steps of diag(w).U = (w o B).dS over d_state, KW state columns a step;
+  // then one step for each row tile from kt on, dxdt += M^T.dy
+  const int nu = (ds + KW - 1) / KW;
+  const auto locate = [&](int it, int& kt, int& k) {  // step it of tile kt
+    for (kt = 0; it >= nu + nt - kt; ++kt) it -= nu + nt - kt;
+    k = it;
   };
+  pipeline<HEAD_STAGES>(
+      nt * nu + tile_pairs(c),
+      [&](int st, int it) {
+        int kt, k;
+        locate(it, kt, k);
+        float* s = ring + st * STAGE;
+        if (k < nu) {
+          stage_rows<T, KW>(s, LDK, B_c, ds, c, kt * T, k * KW, vec_bc);
+          stage_rows<KW, HD>(s + T * LDK, LDX, dS_c, HD, ds, k * KW, 0, vec);
+        } else {
+          stage_rows<T, HD>(s, LDX, dy_c, HD, c, (kt + k - nu) * T, 0, vec);
+        }
+      },
+      [&](int st, int it) {
+        int kt, k;
+        locate(it, kt, k);
+        const float* s = ring + st * STAGE;
+        const int j0 = kt * T + wr + g, j1 = j0 + 8;  // this thread's keys
+        const float aj0 = sAcs[min(j0, c - 1)], aj1 = sAcs[min(j1, c - 1)];
+        if (k < nu) {
+          const float w0 = j0 < c ? exp2_ftz((end - aj0) * LOG2E) : 0.f;
+          const float w1 = j1 < c ? exp2_ftz((end - aj1) * LOG2E) : 0.f;
+          split_cols<HD>(s + T * LDK, LDX, parts, parts + PW);  // dS^T
+          fence_proxy_async();
+          __syncthreads();
+#pragma unroll
+          for (int kk = 0; kk < KW / 8; ++kk) {  // A = w o B
+            const float* p = s + (wr + g) * LDK + 8 * kk + t;
+            fa[kk] = split_a(w0 * p[0], w1 * p[8 * LDK], w0 * p[4],
+                             w1 * p[8 * LDK + 4]);
+          }
+          if (k == 0) zero(acc);
+          product<HD>(acc, fa, parts, parts + PW);
+          if (k < nu - 1) return;
+          // q_j = w_j (U_j . xdt_j): acc holds diag(w).U
+          float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+          for (int nb = 0; nb < HD / 8; ++nb) {
+            const int col = 8 * nb + 2 * t;
+            if (j0 < c) {
+              const float2 x = *reinterpret_cast<const float2*>(
+                  x_c + size_t(j0) * HD + col);
+              q0 = fmaf(acc[4 * nb], x.x, q0);
+              q0 = fmaf(acc[4 * nb + 1], x.y, q0);
+            }
+            if (j1 < c) {
+              const float2 x = *reinterpret_cast<const float2*>(
+                  x_c + size_t(j1) * HD + col);
+              q1 = fmaf(acc[4 * nb + 2], x.x, q1);
+              q1 = fmaf(acc[4 * nb + 3], x.y, q1);
+            }
+          }
+          q0 += __shfl_xor_sync(0xffffffffu, q0, 1);
+          q0 += __shfl_xor_sync(0xffffffffu, q0, 2);
+          q1 += __shfl_xor_sync(0xffffffffu, q1, 1);
+          q1 += __shfl_xor_sync(0xffffffffu, q1, 2);
+          if (t == 0 && j0 < c) sQ[j0] = q0;
+          if (t == 0 && j1 < c) sQ[j1] = q1;
+          return;
+        }
+        // dxdt += M^T.dy for row tile r0, 32 rows a product: M = G o L
+        // formed where A's fragments are split, G read from (1)'s workspace
+        // before dy's parts are written, to hide its latency; dy transposed
+        // while its parts are written
+        const int r0 = (kt + k - nu) * T;
+#pragma unroll
+        for (int sl = 0; sl < 2; ++sl) {
+          float gm[KW / 8][4];  // G[i][j] at A's places of M^T[j][i]
+#pragma unroll
+          for (int kk = 0; kk < KW / 8; ++kk)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int i = r0 + sl * KW + 8 * kk + t + 4 * (q >> 1);
+              const int j = q & 1 ? j1 : j0;
+              gm[kk][q] = i < c && j < c ? cb_c[size_t(i) * c + j] : 0.f;
+            }
+          if (sl) __syncthreads();  // the last product's parts are read
+          split_cols<HD>(s + sl * KW * LDX, LDX, parts, parts + PW);
+          fence_proxy_async();
+          __syncthreads();
+#pragma unroll
+          for (int kk = 0; kk < KW / 8; ++kk) {  // A = M^T, 0 above i = j
+            const int i0 = r0 + sl * KW + 8 * kk + t, i1 = i0 + 4;
+            const float ai0 = sAcs[min(i0, c - 1)];
+            const float ai1 = sAcs[min(i1, c - 1)];
+            const auto m = [&](int i, float ai, int j, float aj, float gv) {
+              return j <= i && i < c ? gv * exp2_ftz((ai - aj) * LOG2E) : 0.f;
+            };
+            fa[kk] = split_a(m(i0, ai0, j0, aj0, gm[kk][0]),
+                             m(i0, ai0, j1, aj1, gm[kk][1]),
+                             m(i1, ai1, j0, aj0, gm[kk][2]),
+                             m(i1, ai1, j1, aj1, gm[kk][3]));
+          }
+          product<HD>(acc, fa, parts, parts + PW);
+        }
+        if (r0 + T < c) return;
+#pragma unroll
+        for (int nb = 0; nb < HD / 8; ++nb) {  // the key tile's last step
+          const int col = 8 * nb + 2 * t;
+          if (j0 < c)
+            *reinterpret_cast<float2*>(dxdt + (bhn * c + j0) * HD + col) =
+                make_float2(acc[4 * nb], acc[4 * nb + 1]);
+          if (j1 < c)
+            *reinterpret_cast<float2*>(dxdt + (bhn * c + j1) * HD + col) =
+                make_float2(acc[4 * nb + 2], acc[4 * nb + 3]);
+        }
+      });
+  __syncthreads();  // every q stored
+  // dacs_i = rowsum_i(P) - colsum_i(P) - q_i, and + sum_j q_j at the end;
+  // P's sums from (2), tile by tile in order; then da = its reverse cumsum
+  float qp = 0.f;
+  for (int i = threadIdx.x; i < c; i += NT) qp += sQ[i];
+  const float qsum = block_sum(qp, sTmp);
+  const float* ps = sums + (size_t(bn) * nh + h) * tile_pairs(c) * 2 * T;
+  for (int i = threadIdx.x; i < c; i += NT) {
+    const int ti = i / T, il = i % T;
+    float rs = 0.f, cs = 0.f;
+    for (int k = 0; k <= ti; ++k)  // row i against key tiles 0 .. ti
+      rs += ps[(ti * (ti + 1) / 2 + k) * 2 * T + il];
+    for (int r = ti; r < nt; ++r)  // key i against row tiles ti .. nt - 1
+      cs += ps[(r * (r + 1) / 2 + ti) * 2 * T + T + il];
+    sQ[i] = rs - cs - sQ[i] + (i == c - 1 ? qsum : 0.f);
+  }
+  __syncthreads();
+  reverse_cumsum(sQ, da + bhn * c, sTmp, c);
+}
 
-  // dC = dG.B over the keys up to this row tile
-  for (int kt = 0; kt <= rt; ++kt) {
-    for (int e = tid; e < T * T; e += NTB) {
-      const int i = e / T, k = e % T, gi = rt * T + i, gk = kt * T + k;
-      Gs[k * PT + i] = gi < c && gk < c ? dg_b[size_t(gi) * c + gk] : 0.f;
-      const int kk = e / T, s = e % T, gkk = kt * T + kk;
-      Vs[kk * PT + s] = gkk < c && s0 + s < ds ?
-          B_b[size_t(gkk) * ds + s0 + s] : 0.f;
-    }
-    __syncthreads();
-    inner(dc, T);
-    __syncthreads();
+// a dG slab (T x KW for dC, KW x T for dB), then B or C (KW x T)
+constexpr int DBC_STAGE = T * LDK + KW * LDT;
+static_assert(T * LDK == KW * LDT, "dC's and dB's dG slabs take one place");
+
+size_t dbc_smem() {
+  return 1024 + 2 * size_t(part_bytes(T)) + sizeof(float) * NSB * DBC_STAGE;
+}
+
+// (4) dC = dG.B (blockIdx.x < state tiles) or dB = dG^T.C + the head term's
+// parts in order, for row tile blockIdx.y and 64 state columns of chunk bn
+__global__ void __launch_bounds__(NT)
+bwd_dbc_kernel(const float* __restrict__ B, const float* __restrict__ C,
+               const float* __restrict__ dg, const float* __restrict__ hparts,
+               float* __restrict__ dB, float* __restrict__ dC, int c, int ds,
+               int n_parts, int vec_bc, int vec_cb) {
+  constexpr int PW = part_bytes(T) / 4;
+  extern __shared__ unsigned char smem_raw[];
+  uint32_t* parts = aligned_smem(smem_raw);
+  float* ring = reinterpret_cast<float*>(parts + 2 * PW);  // NSB x DBC_STAGE
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;
+  const int s_tiles = tiles(ds);
+  const int s0 = blockIdx.x % s_tiles * T;
+  const bool is_db = int(blockIdx.x) >= s_tiles;
+  const int r0 = blockIdx.y * T, bn = blockIdx.z;
+  const float* dg_c = dg + size_t(bn) * c * c;
+  const float* V = (is_db ? C : B) + size_t(bn) * c * ds;
+  // the depth: dC's keys [0, min(r0 + T, c)), dB's rows [r0, c)
+  const int k_lo = is_db ? r0 : 0, k_hi = is_db ? c : min(r0 + T, c);
+  float acc[T / 2];
+  zero(acc);
+  FragA fa[KW / 8];
+  pipeline<NSB>(
+      (k_hi - k_lo + KW - 1) / KW,
+      [&](int st, int ks) {
+        float* s = ring + st * DBC_STAGE;
+        const int k0 = k_lo + ks * KW;
+        if (is_db)  // dG rows k0 .., keys of this tile
+          stage_rows<KW, T>(s, LDT, dg_c, c, c, k0, r0, vec_cb);
+        else        // dG rows of this tile, keys k0 ..
+          stage_rows<T, KW>(s, LDK, dg_c, c, c, r0, k0, vec_cb);
+        stage_rows<KW, T>(s + T * LDK, LDT, V, ds, c, k0, s0, vec_bc);
+      },
+      [&](int st, int) {
+        const float* s = ring + st * DBC_STAGE;
+        split_cols<T>(s + T * LDK, LDT, parts, parts + PW);  // B^T or C^T
+        fence_proxy_async();
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < KW / 8; ++kk) {
+          if (is_db) {  // A = dG^T, read across the staged rows
+            const float* p = s + (8 * kk + t) * LDT + wr + g;
+            fa[kk] = split_a(p[0], p[8], p[4 * LDT], p[4 * LDT + 8]);
+          } else {      // A = dG
+            const float* p = s + (wr + g) * LDK + 8 * kk + t;
+            fa[kk] = split_a(p[0], p[8 * LDK], p[4], p[8 * LDK + 4]);
+          }
+        }
+        product<T>(acc, fa, parts, parts + PW);
+      });
+  if (is_db) {  // + the head term's parts, in part order
+    const float* hp = hparts + size_t(bn) * n_parts * c * ds;
+    for (int p = 0; p < n_parts; ++p)
+#pragma unroll
+      for (int nb = 0; nb < T / 8; ++nb)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = r0 + wr + g + 8 * half, sc = s0 + 8 * nb + 2 * t + e;
+            if (j < c && sc < ds)
+              acc[4 * nb + 2 * half + e] +=
+                  hp[(size_t(p) * c + j) * ds + sc];
+          }
   }
-  // dB = dG^T.C over the rows from this key tile on
-  for (int r2 = rt; r2 < nt; ++r2) {
-    for (int e = tid; e < T * T; e += NTB) {
-      const int i = e / T, j = e % T, gi = r2 * T + i, gj = rt * T + j;
-      Gs[i * PT + j] = gi < c && gj < c ? dg_b[size_t(gi) * c + gj] : 0.f;
-      Vs[i * PT + j] = gi < c && s0 + j < ds ?
-          C_b[size_t(gi) * ds + s0 + j] : 0.f;
-    }
-    __syncthreads();
-    inner(db, T);
-    __syncthreads();
-  }
-  // dB += sum_h diag(w_h).xdt_h.dS_h^T, reduced over (head, head dim)
-  for (int h = 0; h < nh; ++h) {
-    const size_t bhn = (size_t(bi) * nh + h) * nc + n;
-    if (tid < T) {
-      const int gj = rt * T + tid;
-      wv[tid] = gj < c ? expf(acs[bhn * c + c - 1] - acs[bhn * c + gj]) : 0.f;
-    }
-    __syncthreads();
-    const float* x_b = xdt + bhn * c * HD;
-    const float* dS_b = dS + bhn * ds * HD;
-    for (int p0 = 0; p0 < HD; p0 += KC) {
-      constexpr int KD = HD < KC ? HD : KC;
-      for (int e = tid; e < T * KD; e += NTB) {
-        const int j = e / KD, p = e % KD, gj = rt * T + j;
-        Gs[p * PT + j] = gj < c ? wv[j] * x_b[size_t(gj) * HD + p0 + p] : 0.f;
-        const int s = j;
-        Vs[p * PT + s] = s0 + s < ds ? dS_b[size_t(s0 + s) * HD + p0 + p]
-                                     : 0.f;
+  float* out = (is_db ? dB : dC) + size_t(bn) * c * ds;
+#pragma unroll
+  for (int nb = 0; nb < T / 8; ++nb)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = r0 + wr + g + 8 * half, sc = s0 + 8 * nb + 2 * t + e;
+        if (i < c && sc < ds)
+          out[size_t(i) * ds + sc] = acc[4 * nb + 2 * half + e];
       }
-      __syncthreads();
-      inner(db, KD);
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gi = rt * T + ty * 4 + r;
-    if (gi >= c) continue;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int gs = s0 + tx * 4 + s;
-      if (gs >= ds) continue;
-      dC[(size_t(bn) * c + gi) * ds + gs] = dc[r][s];
-      dB[(size_t(bn) * c + gi) * ds + gs] = db[r][s];
-    }
-  }
+}
+
+// raises a kernel's dynamic shared memory to smem the first time a call
+// needs more than `done`
+template <class Kernel>
+cudaError_t fit_smem(Kernel kernel, size_t smem, size_t& done) {
+  if (smem <= done) return cudaSuccess;
+  const cudaError_t e = set_smem(kernel, smem);
+  if (e == cudaSuccess) done = smem;
+  return e;
 }
 
 template <int HD>
 cudaError_t launch_bwd(const float* a, const float* xdt, const float* B,
                        const float* C, const float* dy, const float* dS,
                        float* da, float* dxdt, float* dB, float* dC, float* cb,
-                       float* acs, float* dg, int b, int nh, int nc, int c,
-                       int ds, cudaStream_t stream) {
-  static size_t head_set = 0;
-  const size_t smem = head_smem<HD>(c);
+                       float* dg, float* acs, float* sums, float* hparts,
+                       int b, int nh, int nc, int c, int ds, int n_parts,
+                       cudaStream_t stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (!aligned(xdt) || !aligned(dxdt)) return cudaErrorMisalignedAddress;
+  const int vec_bc = ds % 4 == 0 && aligned(B) && aligned(C);
+  const int vec = aligned(dy) && aligned(dS);
+  const int vec_cb = c % 4 == 0 && aligned(cb) && aligned(dg);
+  static size_t prep_set = 0, dg_set = 0, head_set = 0, dbc_set = 0;
   cudaError_t e;
-  if (smem > head_set) {
-    e = cudaFuncSetAttribute(bwd_head_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem));
-    if (e != cudaSuccess) return e;
-    head_set = smem;
-  }
-  const int n_bc = b * nc;
-  bwd_cb_kernel<<<dim3(pairs(c), n_bc), NTB, 0, stream>>>(B, C, cb, c, ds);
+  if ((e = fit_smem(bwd_prep_kernel, prep_smem(), prep_set)) != cudaSuccess ||
+      (e = fit_smem(bwd_dg_kernel<HD>, dg_smem(), dg_set)) != cudaSuccess ||
+      (e = fit_smem(bwd_head_kernel<HD>, head_smem<HD>(c), head_set)) !=
+          cudaSuccess ||
+      (e = fit_smem(bwd_dbc_kernel, dbc_smem(), dbc_set)) != cudaSuccess)
+    return e;
+  const int n_bc = b * nc, n_cb = n_bc * tile_pairs(c);
+  bwd_prep_kernel<<<n_cb + b * nh * nc, NT, prep_smem(), stream>>>(
+      a, B, C, cb, acs, n_cb, c, ds, vec_bc);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_head_kernel<HD><<<dim3(nh, n_bc), NTB, smem, stream>>>(
-      a, xdt, B, dy, dS, cb, da, dxdt, dg, acs, nh, nc, c, ds);
+  const int n_ht = n_bc * tiles(c) * tiles(ds) * n_parts;
+  bwd_dg_kernel<HD><<<n_cb + n_ht, NT, dg_smem(), stream>>>(
+      xdt, dy, dS, cb, acs, dg, sums, hparts, nh, nc, c, ds, n_parts, n_cb,
+      vec, vec_cb);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_dg_sum_kernel<<<dim3(pairs(c), n_bc), NTB, 0, stream>>>(dg, cb, nh, c);
+  bwd_head_kernel<HD><<<dim3(nh, n_bc), NT, head_smem<HD>(c), stream>>>(
+      xdt, B, dy, dS, cb, acs, sums, da, dxdt, nh, nc, c, ds, vec_bc, vec);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_dbc_kernel<HD><<<dim3(tiles(ds), tiles(c), n_bc), NTB, 0, stream>>>(
-      B, C, xdt, dS, cb, acs, dB, dC, nh, nc, c, ds);
+  bwd_dbc_kernel<<<dim3(2 * tiles(ds), tiles(c), n_bc), NT, dbc_smem(),
+                   stream>>>(B, C, dg, hparts, dB, dC, c, ds, n_parts, vec_bc,
+                             vec_cb);
   return cudaGetLastError();
 }
 
@@ -1134,18 +1384,25 @@ extern "C" int ssd_intra_chunk_fwd(const void* a, const void* xdt,
 
 // The backward. a, xdt, B, C as the forward's; dy: (b, nh, nc, c, hd), dS:
 // (b, nh, nc, ds, hd). Writes da (b, nh, nc, c), dxdt (b, nh, nc, c, hd),
-// dB and dC (b, nc, c, ds); workspace cb (b, nc, c, c), acs (b, nh, nc, c)
-// and dg (b, nc, nh, c, c). All float32, contiguous; c at most 1024.
-// Launches the four kernels on the stream and returns the cudaError_t of
-// the launches.
+// dB and dC (b, nc, c, ds); workspace: cb and dg (b, nc, c, c), acs (b, nh,
+// nc, c), sums (b, nc, nh, causal 64 x 64 tile pairs, 2, 64) and hparts (b,
+// nc, n_parts, c, ds). All float32, contiguous; c at most 1024, n_parts
+// from 1 to nh. The caller allocates hparts and so chooses its part count
+// (the wrapper's HEADS_PER_PART heads a part); taking it here keeps the
+// workspace's shape and the grid that fills it from disagreeing. Launches
+// the four kernels on the stream and returns the cudaError_t of the
+// launches.
 extern "C" int ssd_intra_chunk_bwd(const void* a, const void* xdt,
                                    const void* B, const void* C,
                                    const void* dy, const void* dS, void* da,
                                    void* dxdt, void* dB, void* dC, void* cb,
-                                   void* acs, void* dg, int b, int nh, int nc,
-                                   int c, int hd, int ds, void* stream) {
+                                   void* dg, void* acs, void* sums,
+                                   void* hparts, int b, int nh, int nc, int c,
+                                   int hd, int ds, int n_parts,
+                                   void* stream) {
   if (b <= 0 || nh <= 0 || nc <= 0 || c <= 0 || ds <= 0 ||
-      c > bwd::MAX_C || b * nc > 65535 || nh > 65535)
+      c > bwd::MAX_C || b * nc > 65535 || nh > 65535 || n_parts < 1 ||
+      n_parts > nh)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* f[6] = {static_cast<const float*>(a),
@@ -1154,15 +1411,16 @@ extern "C" int ssd_intra_chunk_bwd(const void* a, const void* xdt,
                        static_cast<const float*>(C),
                        static_cast<const float*>(dy),
                        static_cast<const float*>(dS)};
-  float* o[7] = {static_cast<float*>(da), static_cast<float*>(dxdt),
-                 static_cast<float*>(dB), static_cast<float*>(dC),
-                 static_cast<float*>(cb), static_cast<float*>(acs),
-                 static_cast<float*>(dg)};
+  float* o[9] = {static_cast<float*>(da),   static_cast<float*>(dxdt),
+                 static_cast<float*>(dB),   static_cast<float*>(dC),
+                 static_cast<float*>(cb),   static_cast<float*>(dg),
+                 static_cast<float*>(acs),  static_cast<float*>(sums),
+                 static_cast<float*>(hparts)};
 #define SSD_BWD(HD)                                                          \
   case HD:                                                                   \
     return int(bwd::launch_bwd<HD>(f[0], f[1], f[2], f[3], f[4], f[5], o[0], \
-                                   o[1], o[2], o[3], o[4], o[5], o[6], b, nh, \
-                                   nc, c, ds, st));
+                                   o[1], o[2], o[3], o[4], o[5], o[6], o[7], \
+                                   o[8], b, nh, nc, c, ds, n_parts, st));
   switch (hd) {
     SSD_BWD(16)
     SSD_BWD(32)

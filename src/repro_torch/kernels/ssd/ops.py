@@ -8,15 +8,16 @@ tensor cores: C·Bᵀ once per (batch, chunk) and the state product in a
 first grid, y in a second, one head a block) or raise. With grad enabled
 and an input that requires grad, a CUDA call goes through
 ``SSDIntraChunk``, whose backward launches the backward kernels
-(``ssd_intra_chunk_bwd``: f32 on the CUDA cores, the heads' share of dB
-and dC summed in a fixed order), so a CUDA result never lacks the
-gradient of the intra-chunk term.
+(``ssd_intra_chunk_bwd``: four grids in split TF32 on the tensor cores, the
+heads' dG summed on chip and every sum in a fixed order), so a CUDA result
+never lacks the gradient of the intra-chunk term.
 ``ssd_chunked`` is the counterpart of ``ssd_chunked_pallas``: the kernel for
 the intra-chunk dual form, the short inter-chunk recurrence in torch.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
@@ -35,7 +36,11 @@ KEY_PART = 128      # keys a block of y reduces over; y adds up the parts
 # show which calls went through the kernels
 launches = 0
 bwd_launches = 0
-MAX_BWD_CHUNK = 1024    # chunk rows the backward's head kernel keeps sums of
+MAX_BWD_CHUNK = 1024    # chunk rows the backward's per-head grid keeps
+# heads in a part of the backward's head term: the wrapper sizes that
+# workspace, so it passes the kernel the part count rather than the kernel
+# fixing it
+HEADS_PER_PART = 8
 _lib = None
 
 
@@ -52,6 +57,25 @@ def y_blocks(b: int, nh: int, nc: int, c: int) -> int:
     return b * nc * nh * _y_units(c)
 
 
+def bwd_workspace(b: int, nh: int, nc: int, c: int, ds: int) -> dict:
+    """Shapes of the backward's workspaces: C·Bᵀ and the heads' summed dG
+    (b, nc, c, c) each, the cumsums (b, nh, nc, c), each head's row and
+    column sums of P on each causal (row tile, key tile) pair (b, nc, nh,
+    pairs, 2, 64), and the head term's parts of ``HEADS_PER_PART`` heads
+    (b, nc, parts, c, ds)."""
+    tiles = -(-c // TILE)
+    parts = -(-nh // HEADS_PER_PART)
+    return {"cb": (b, nc, c, c), "dg": (b, nc, c, c), "acs": (b, nh, nc, c),
+            "sums": (b, nc, nh, tiles * (tiles + 1) // 2, 2, TILE),
+            "hparts": (b, nc, parts, c, ds)}
+
+
+def bwd_workspace_bytes(b: int, nh: int, nc: int, c: int, ds: int) -> int:
+    """Bytes the backward's wrapper allocates besides its outputs."""
+    return 4 * sum(math.prod(s) for s in
+                   bwd_workspace(b, nh, nc, c, ds).values())
+
+
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library, with its C
     signature declared."""
@@ -65,10 +89,9 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.ssd_intra_chunk_bwd
-    # a, xdt, B, C, dy, dS, da, dxdt, dB, dC, workspaces for C·Bᵀ (then the
-    # heads' sum of dG), the cumsums and each head's dG; b, nh, nc, c, hd,
-    # ds; stream
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + \
+    # a, xdt, B, C, dy, dS, da, dxdt, dB, dC, the workspaces of
+    # bwd_workspace in its order; b, nh, nc, c, hd, ds, parts; stream
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _lib = lib
@@ -133,8 +156,7 @@ def ssd_intra_chunk_bwd(a, xdt, B, C, dy, dS):
     gradients ``dy`` (b, nh, nc, c, hd) and ``dS`` (b, nh, nc, ds, hd), f32.
     CUDA tensors only; head dims ``HEAD_DIMS``, chunks up to
     ``MAX_BWD_CHUNK``. The kernels allocate nothing: the wrapper gives them
-    C·Bᵀ's (b, nc, c, c) workspace (which then holds the heads' sum of dG),
-    the cumsums' (b, nh, nc, c) and each head's dG (b, nc, nh, c, c)."""
+    the workspaces of ``bwd_workspace``."""
     global bwd_launches
     _check(a, xdt, B, C)
     if a.device.type != "cuda":
@@ -155,16 +177,14 @@ def ssd_intra_chunk_bwd(a, xdt, B, C, dy, dS):
     lib = load_library()
     da, dxdt = torch.empty_like(a), torch.empty_like(xdt)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
-    f32 = dict(dtype=torch.float32, device=a.device)
-    cb = torch.empty((b, nc, c, c), **f32)
-    acs = torch.empty((b, nh, nc, c), **f32)
-    dg = torch.empty((b, nc, nh, c, c), **f32)
+    ws = [torch.empty(shape, dtype=torch.float32, device=a.device)
+          for shape in bwd_workspace(b, nh, nc, c, ds).values()]
     with torch.cuda.device(a.device):
         err = lib.ssd_intra_chunk_bwd(
             a.data_ptr(), xdt.data_ptr(), B.data_ptr(), C.data_ptr(),
             dy.data_ptr(), dS.data_ptr(), da.data_ptr(), dxdt.data_ptr(),
-            dB.data_ptr(), dC.data_ptr(), cb.data_ptr(), acs.data_ptr(),
-            dg.data_ptr(), b, nh, nc, c, hd, ds,
+            dB.data_ptr(), dC.data_ptr(), *(w.data_ptr() for w in ws),
+            b, nh, nc, c, hd, ds, ws[-1].shape[2],
             torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_intra_chunk backward launch failed with "

@@ -417,6 +417,57 @@ def test_ssd_backward_kernel_matches_plain_backward(b, s, nh, hd, ds, ch,
     assert all(torch.equal(g, h) for g, h in zip(grads, again))
 
 
+def _ssd_bwd_args(case, gen):
+    """The backward's inputs at ``case`` with mamba2's decay range, and
+    output gradients."""
+    b, s, nh, hd, ds, ch = case
+    a, xdt, Bc, Cc = _ssd_kernel_inputs(b, s, nh, hd, ds, ch, True, gen)
+    dy = torch.randn(xdt.shape, generator=gen, device="cuda")
+    dS = torch.randn((b, nh, s // ch, ds, hd), generator=gen, device="cuda")
+    return a, xdt, Bc.contiguous(), Cc.contiguous(), dy, dS
+
+
+# the backward's four grids, by kernel name
+SSD_BWD_GRIDS = ("bwd_prep_kernel", "bwd_dg_kernel", "bwd_head_kernel",
+                 "bwd_dbc_kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,nh,hd,ds,ch", [(1, 512, 32, 64, 64, 256),
+                                             (4, 2048, 64, 64, 64, 256)])
+def test_ssd_backward_gives_the_same_bits_run_to_run(b, s, nh, hd, ds, ch):
+    """Two backward calls on the same inputs give the same bits, at
+    zamba2's d_state and at its training microbatch: every sum of the four
+    grids runs in a fixed order, none by atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd import ops as ssd
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    args = _ssd_bwd_args((b, s, nh, hd, ds, ch), gen)
+    one = ssd.ssd_intra_chunk_bwd(*args)
+    two = ssd.ssd_intra_chunk_bwd(*args)
+    for name, g, h in zip(("da", "dxdt", "dB", "dC"), one, two):
+        assert torch.equal(g, h), name
+
+
+@pytest.mark.gpu
+def test_ssd_backward_launches_only_its_four_grids():
+    """One profiled backward call at mamba2's training microbatch: its four
+    grids, each once, and no other device work (the wrapper only
+    allocates)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.profiling import device_kernels
+    from repro_torch.kernels.ssd import ops as ssd
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    args = _ssd_bwd_args((4, 2048, 32, 64, 128, 256), gen)
+    grids = device_kernels(lambda: ssd.ssd_intra_chunk_bwd(*args))
+    roles = [[g for g in SSD_BWD_GRIDS if g in n] for n in grids]
+    assert all(len(r) == 1 for r in roles), grids
+    assert sorted(r[0] for r in roles) == sorted(SSD_BWD_GRIDS), grids
+    assert all(calls == 1 for _, calls in grids.values()), grids
+
+
 @pytest.mark.gpu
 def test_ssd_chunked_gradients_on_the_card_match_the_cpu():
     """The chunked op's gradients for x, dt, A, B and C at a ragged length

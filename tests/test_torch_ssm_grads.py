@@ -21,7 +21,8 @@ from repro.models import mamba2 as jax_m  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs import reduced as t_reduced  # noqa: E402
 from repro_torch.kernels.ssd import ops  # noqa: E402
-from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref_bwd  # noqa: E402
+from repro_torch.kernels.ssd.ref import (  # noqa: E402
+    ssd_intra_chunk_closed_bwd, ssd_intra_chunk_ref_bwd)
 from repro_torch.models import mamba2 as m  # noqa: E402
 
 # (s, nh, hd, ds, chunk): tests/test_torch_ssd.py's sweep and its lengths
@@ -150,6 +151,44 @@ def test_intra_chunk_plain_backward_matches_jax_vjp(s, nh, hd, ds, ch, wide):
     want = _jax_grads(_jnp_intra, (a, xdt, B, C), (dy, dS))
     for name, g, w in zip(("da", "dxdt", "dB", "dC"), got, want):
         assert g.shape == np.asarray(w).shape
+        _close_of_max(name, g.numpy(), w, 1e-5, 1e-4)
+
+
+# (b, s, nh, hd, ds, chunk): the small cases of the card's SSD backward
+# tests (tests/test_torch_kernels_gpu.py), a chunk off the 64-row tile and
+# d_state 7 among them
+CLOSED_CASES = [(2, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 64),
+                (2, 96, 4, 32, 16, 48), (1, 64, 2, 16, 7, 32)]
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("b,s,nh,hd,ds,ch", CLOSED_CASES)
+def test_closed_form_backward_matches_autograd_and_jax_vjp(b, s, nh, hd, ds,
+                                                           ch, wide):
+    """The closed-form backward (the kernels' formulas in their order)
+    against autograd through the plain version and ``jax.vjp`` of the jnp
+    dual form; ``wide`` takes mamba2's decay range, A = -linspace(1, 16),
+    where the cumulative log decay reaches the hundreds within a chunk."""
+    rng = np.random.default_rng(5)
+    nc = s // ch
+    dt = np.log1p(np.exp(rng.standard_normal((b, nc, ch, nh))))
+    A = -np.linspace(1.0, 16.0, nh) if wide else \
+        -np.exp(np.linspace(0.0, 1.0, nh))
+    a = (dt * A).transpose(0, 3, 1, 2).astype(np.float32)
+    assert not wide or np.cumsum(a, axis=-1).min() < -100
+    xdt = rng.standard_normal((b, nh, nc, ch, hd), np.float32) * 0.3
+    B = rng.standard_normal((b, nc, ch, ds), np.float32) * 0.3
+    C = rng.standard_normal((b, nc, ch, ds), np.float32) * 0.3
+    dy = rng.standard_normal((b, nh, nc, ch, hd), np.float32)
+    dS = rng.standard_normal((b, nh, nc, ds, hd), np.float32)
+    ins = tuple(map(torch.from_numpy, (a, xdt, B, C, dy, dS)))
+    got = ssd_intra_chunk_closed_bwd(*ins)
+    autograd = ssd_intra_chunk_ref_bwd(*ins)
+    jax_vjp = _jax_grads(_jnp_intra, (a, xdt, B, C), (dy, dS))
+    for name, g, r, w in zip(("da", "dxdt", "dB", "dC"), got, autograd,
+                             jax_vjp):
+        assert g.shape == r.shape and torch.isfinite(g).all(), name
+        _close_of_max(name, g.numpy(), r.numpy(), 1e-5, 1e-4)
         _close_of_max(name, g.numpy(), w, 1e-5, 1e-4)
 
 

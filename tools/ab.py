@@ -43,6 +43,23 @@ def module(name: str, path: Path):
     return mod
 
 
+def load_other(root: Path, names) -> dict:
+    """The other checkout's ``kernels/<name>/ops.py`` for each of ``names``,
+    each bound to that checkout's ``_build`` module (its sources, its shared
+    headers, its build directory)."""
+    import repro_torch.kernels._build  # noqa: F401 (this side's, to restore)
+    pkg = sys.modules["repro_torch.kernels"]
+    kdir = root / "src" / "repro_torch" / "kernels"
+    build = module("other_build", kdir / "_build.py")
+    saved = pkg._build
+    pkg._build = sys.modules["repro_torch.kernels._build"] = build
+    try:
+        return {name: module(f"other_{name}_ops", kdir / name / "ops.py")
+                for name in names}
+    finally:
+        pkg._build = sys.modules["repro_torch.kernels._build"] = saved
+
+
 def parse_args(doc: str, rounds: int, **counts: int):
     """The tools' command line (``--other DIR``, ``--rounds N``, and an
     integer option for each of ``counts`` with its default), or None where
@@ -51,7 +68,8 @@ def parse_args(doc: str, rounds: int, **counts: int):
     ap.add_argument("--other", type=Path, required=True,
                     help="root of the other checkout")
     for name, default in dict(rounds=rounds, **counts).items():
-        ap.add_argument(f"--{name}", type=int, default=default)
+        ap.add_argument(f"--{name.replace('_', '-')}", type=int,
+                        default=default)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)

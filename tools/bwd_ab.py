@@ -35,29 +35,10 @@ import json
 import statistics
 import sys
 import time
-from pathlib import Path
-
 import torch
 
 import ab  # puts the repo root and src/ on sys.path
 import chip_smoke as cs  # the measurement helpers
-
-
-def load_other(root: Path) -> dict:
-    """The other checkout's kernel wrappers, each bound to that checkout's
-    ``_build`` module (its sources, its shared headers, its build
-    directory)."""
-    import repro_torch.kernels._build  # noqa: F401 (this side's, to restore)
-    pkg = sys.modules["repro_torch.kernels"]
-    kdir = root / "src" / "repro_torch" / "kernels"
-    build = ab.module("other_build", kdir / "_build.py")
-    saved = pkg._build
-    pkg._build = sys.modules["repro_torch.kernels._build"] = build
-    try:
-        return {name: ab.module(f"other_{name}_ops", kdir / name / "ops.py")
-                for name in ("flash_attention", "grouped_matmul")}
-    finally:
-        pkg._build = sys.modules["repro_torch.kernels._build"] = saved
 
 
 def train_cases() -> list:
@@ -133,7 +114,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.grouped_matmul import ops as gmm_ops
 
-    other = load_other(args.other)
+    other = ab.load_other(args.other, ("flash_attention", "grouped_matmul"))
     sides = {"this": {"flash_attention": fa_ops, "grouped_matmul": gmm_ops},
              "other": other}
     out = {"other": str(args.other), "rounds": args.rounds}
