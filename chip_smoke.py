@@ -35,9 +35,20 @@ params); ``python -m repro_torch.launch.train`` for mamba2-370m at full
 width and depth (8 x 2048 in 2 microbatches, 10 steps saved every 5,
 resumed for 5, the restored state equal leaf for leaf) with one profiled
 step; zamba2-1.2b at full width and depth on one fixed 4 x 2048 batch (10
-steps) with one profiled step; each with exact forward and backward launch
-counts; full-width (depth 2, float32) engine tokens against a reference for
-yi-9b and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
+steps) with one profiled step; then the ``embeddings`` input mode
+(musicgen-medium and internvl2-26b, fed (B, S, d) embeddings): the flash
+kernels forward and backward against their plain versions and timed at
+their shapes (musicgen's 24 heads of 64, internvl2's 48/8 heads of 128),
+musicgen-medium at 2 layers in f32 on the card against the CPU (logits,
+prefill + decode against the forward, 3 steps), ``python -m
+repro_torch.launch.train --arch musicgen-medium`` at full width and depth
+(8 x 2048 in 2 microbatches, 10 steps saved every 5, resumed for 5, the
+restored state equal leaf for leaf) with one profiled step,
+internvl2-26b at full width and depth (prefill + decode against its
+forward), internvl2-26b at full width cut to 4 layers (3 steps) and a
+VRE's ``data`` and ``lm-trainer`` on musicgen-medium (3 steps); each with
+exact forward and backward launch counts; full-width (depth 2, float32)
+engine tokens against a reference for yi-9b and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
 same engine on the CPU), and for yi-9b with chunked prefill, the prefix
 cache, speculative decoding (n-gram and model drafts, and a prompt that runs
 into max_seq) and speculation with chunking; then yi-9b, granite-moe-1b-a400m
@@ -232,6 +243,36 @@ SSD_BWD_TOL = dict(atol_of_max=5e-4, rtol=5e-3)
 MAMBA2_TRAIN = ["--arch", "mamba2-370m", "--global-batch", "8",
                 "--seq-len", "2048", "--microbatches", "2"]
 ZAMBA2_TRAIN = dict(batch=4, seq=2048, steps=10)
+
+# the embeddings input mode: the flash shapes of musicgen-medium's training
+# microbatch (MHA, 24 heads of 64: a head count off the powers of two, GQA
+# ratio 1) and of internvl2-26b's training batch and forward (48 q over 8
+# kv heads of 128), each held against the plain versions before a model
+# phase runs it; musicgen trained through launch/train.py at full width and
+# depth; internvl2 at full width and depth for prefill + decode against its
+# forward, and cut to 4 of 48 layers for training (all 48 need ~309 GB of
+# train state)
+MUSICGEN_TRAIN_ATTN = (4, 2048, 24, 24, 64, 0, 0.0)
+INTERNVL2_TRAIN_ATTN = (2, 2048, 48, 8, 128, 0, 0.0)
+INTERNVL2_FORWARD_ATTN = (2, 1024, 48, 8, 128, 0, 0.0)
+EMBEDDINGS_ATTN = [MUSICGEN_TRAIN_ATTN, INTERNVL2_TRAIN_ATTN,
+                   INTERNVL2_FORWARD_ATTN]
+MUSICGEN_TRAIN = ["--arch", "musicgen-medium", "--global-batch", "8",
+                  "--seq-len", "2048", "--microbatches", "2"]
+INTERNVL2_FULL = dict(batch=2, seq=1024)
+INTERNVL2_TRAIN = dict(layers=4, batch=2, seq=2048, steps=3)
+# prefill(S-1) + decode(1) against forward(S), the largest difference
+# relative to the largest logit: JAX's bound for its reduced 2-layer models
+# (tests/test_decode_consistency.py), and the bounds of internvl2_full. Its
+# full-depth bf16 model is held to 5e-2: the decode step's scores are
+# rounded to bf16 (JAX's decode attention, which the port mirrors) and the
+# flash forward's are not, and bf16 rounding grows with depth (on the CPU,
+# a 1024-wide copy of internvl2's heads gives 1.3e-2 at 2 layers and
+# 1.6-1.8e-2 at 24; an H100 gave 2.12e-2 at 48); the same check in f32 at
+# full width cut to 2 layers is held to 1e-4 (1.2e-6 on the CPU copy)
+DECODE_REL = 2e-2
+DECODE_REL_BF16_DEPTH = 5e-2
+DECODE_REL_F32 = 1e-4
 
 SERVE = dict(replicas=1, slots=4, max_seq=2048)
 LOAD = dict(requests=8, rate_rps=4.0, max_new_tokens=32, lo=256, hi=1025)
@@ -581,6 +622,163 @@ def model_flops(cfg, params, tokens: int, seq: int) -> float:
     return 6.0 * w * tokens + attn * tokens / seq
 
 
+def reset_launches(ops: dict):
+    """Every kernel's launch counts, forward and backward, set to 0."""
+    for op in ops.values():
+        op.launches = op.bwd_launches = 0
+    gmm = ops["grouped_matmul"]
+    gmm.launches_by_variant.update(dict.fromkeys(gmm.launches_by_variant, 0))
+
+
+def read_launches(ops: dict) -> dict:
+    """Every kernel's launch counts since the last ``reset_launches``."""
+    return {**{name: op.launches for name, op in ops.items()},
+            **{f"{name}_bwd": op.bwd_launches for name, op in ops.items()},
+            "grouped_matmul_by_variant": dict(
+                ops["grouped_matmul"].launches_by_variant)}
+
+
+def release(label):
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "released", "after": label,
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+
+
+def check_losses(label, losses, norms=None):
+    bad = [x for x in losses + (norms or []) if not np.isfinite(x)]
+    if bad or not losses[-1] < losses[0]:
+        fail(f"{label}: losses {losses}, grad norms {norms}: not finite "
+             f"or not falling")
+
+
+def launch_train_resumed(smi: str, ops: dict, phase: str, argv: list,
+                         want: dict, want_variants: dict = None,
+                         top: int = 12) -> dict:
+    """``python -m repro_torch.launch.train`` with ``argv`` for 10 steps
+    saved every 5 (checkpoints in a temp dir, deleted after), then a new run
+    resumed from step 10 for 5, then one step of the same shape under the
+    profiler after a warm one. Gates: finite and falling losses, the
+    restored state equal to the saved one leaf for leaf, the resumed run
+    restoring step 10, and exact launch counts, ``want`` (and the grouped
+    matmul's ``want_variants``) in the first run, half of each in the
+    resumed one. Emits ``phase``'s lines; returns the first run's counts."""
+    import shutil
+
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.core.monitoring import Monitor
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMData,
+                                           device_batch)
+    from repro_torch.launch import train as train_driver
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import OptimizerConfig, leaves
+    from repro_torch.training.train_step import (TrainStepConfig, init_state,
+                                                 make_train_step)
+    t0 = time.perf_counter()
+    ckpt = Path(tempfile.mkdtemp(prefix=f"{phase}_"))
+    try:
+        args = train_driver.parse_args(argv + [
+            "--steps", "10", "--ckpt-every", "5", "--ckpt-dir", str(ckpt)])
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(ops)
+        t1 = time.perf_counter()
+        out = io.StringIO()
+        mon = Monitor(name="train")
+        with contextlib.redirect_stdout(out):
+            losses1, state1 = train_driver.run(args, monitor=mon)
+        run1_s = time.perf_counter() - t1
+        got = read_launches(ops)
+        peak1 = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = [1e3 * e["seconds"] for e in mon.events("train")
+                   if e["event"] == "step.done"]
+        cfg = get_config(args.arch)
+        tokens = args.global_batch * args.seq_len
+        median_ms = float(np.median(step_ms[2:]))
+        line = {"phase": phase, "layers": cfg.num_layers,
+                "params": sum(t.numel() for t in leaves(state1["params"])),
+                "d_model": cfg.d_model, "dtype": cfg.dtype,
+                "input_mode": cfg.input_mode, "moments": "float32",
+                "remat_policy": cfg.remat_policy,
+                "argv": argv + ["--steps", "10", "--ckpt-every", "5"]}
+        if "blocks" in state1["params"]:      # a transformer
+            flops = model_flops(cfg, state1["params"], tokens, args.seq_len)
+            line.update(model_flops_per_step=flops,
+                        model_flops_share_of_bf16_peak=flops
+                        / (median_ms * 1e-3) / H100_BF16_FLOPS)
+        store = CheckpointStore(str(ckpt))
+        saved = store.latest_step()
+        restored = store.restore(state1, step=saved)
+        mismatched = [i for i, (a, b) in enumerate(zip(
+            leaves(restored), leaves(state1))) if not torch.equal(a, b)]
+        n_leaves = len(leaves(state1))
+        del restored, state1
+        store.gc(keep_last=1)
+        release(f"{phase} run 1")
+        out2 = io.StringIO()
+        reset_launches(ops)
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out2):
+            losses2 = train_driver.main(argv + [
+                "--steps", "5", "--ckpt-every", "5", "--resume",
+                "--ckpt-dir", str(ckpt)])
+        run2_s = time.perf_counter() - t1
+        got2 = read_launches(ops)
+        want2 = {k: v // 2 for k, v in want.items()}
+        variants2 = {k: v // 2 for k, v in (want_variants or {}).items()}
+        emit({**line, "losses": losses1, "resumed_losses": losses2,
+              "printed": out.getvalue().splitlines(),
+              "printed_resume": out2.getvalue().splitlines(),
+              "step_ms": step_ms, "step_ms_median_3_10": median_ms,
+              "tokens_per_s": tokens / median_ms * 1e3,
+              "run_seconds": run1_s, "resume_run_seconds": run2_s,
+              "tokens_per_s_with_saves": 10 * tokens / run1_s,
+              "saved_step": saved, "leaves": n_leaves,
+              "restored_leaves_unequal": mismatched,
+              "launches": got, "expected_launches": want,
+              "expected_by_variant": want_variants,
+              "resume_launches": got2, "expected_resume_launches": want2,
+              "peak_memory_gb": peak1, "card": smi,
+              "seconds": time.perf_counter() - t0})
+        check_losses(phase, losses1)
+        if not all(np.isfinite(losses2)) or \
+                "[resume] restored step 10" not in out2.getvalue():
+            fail(f"{phase}: the resumed run {losses2} did not restore step "
+                 f"10")
+        if saved != 10 or mismatched:
+            fail(f"{phase}: step {saved} restored with leaves {mismatched} "
+                 f"unequal")
+        if {k: got[k] for k in want} != want or \
+                {k: got2[k] for k in want2} != want2 or (want_variants and (
+                    got["grouped_matmul_by_variant"] != want_variants or
+                    got2["grouped_matmul_by_variant"] != variants2)):
+            fail(f"{phase}: launches {got} then {got2}, expected {want} "
+                 f"and {want_variants}, then half of each")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    release(phase)
+    model = build_model(cfg, device="cuda")
+    opt_cfg = OptimizerConfig(warmup_steps=5, total_steps=10)
+    holder = [init_state(model, opt_cfg,
+                         torch.Generator(device="cuda").manual_seed(0))]
+    step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig(
+        microbatches=args.microbatches))
+    batch = device_batch(SyntheticLMData(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+        global_batch=args.global_batch,
+        embeddings_dim=cfg.d_model if cfg.input_mode == "embeddings"
+        else 0)).batch(0), "cuda")
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], batch)
+    one_step()
+    emit({"phase": f"{phase}_profile", **step_profile(one_step, top=top),
+          "card": smi})
+    del model, holder, step_fn, batch
+    release(f"{phase}_profile")
+    return got
+
+
 def training_phases(smi: str, ops: dict) -> dict:
     """The training path on the card: yi-9b at full width (16 layers) on
     one fixed batch; yi-9b at depth 2 in float32 on the card against the
@@ -592,47 +790,15 @@ def training_phases(smi: str, ops: dict) -> dict:
     import shutil
 
     import repro_torch.core.services  # noqa: F401 (registers the services)
-    from repro_torch.checkpoint.store import CheckpointStore
     from repro_torch.configs import get_config
-    from repro_torch.core.monitoring import Monitor
     from repro_torch.core.vre import VirtualResearchEnvironment, VREConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLMData
-    from repro_torch.launch import train as train_driver
     from repro_torch.models.model import build_model
     from repro_torch.models.params import to_device
     from repro_torch.optim.adamw import OptimizerConfig, leaves
     from repro_torch.training.train_step import (TrainStepConfig, init_state,
                                                  make_train_step)
-    fa_ops, gmm_ops = ops["flash_attention"], ops["grouped_matmul"]
-    ssd_ops = ops["ssd"]
     counts = {}
-
-    def reset():
-        for op in ops.values():
-            op.launches = 0
-        fa_ops.bwd_launches = gmm_ops.bwd_launches = ssd_ops.bwd_launches = 0
-        gmm_ops.launches_by_variant.update(
-            dict.fromkeys(gmm_ops.launches_by_variant, 0))
-
-    def read():
-        return {**{name: op.launches for name, op in ops.items()},
-                "flash_attention_bwd": fa_ops.bwd_launches,
-                "grouped_matmul_bwd": gmm_ops.bwd_launches,
-                "ssd_bwd": ssd_ops.bwd_launches,
-                "grouped_matmul_by_variant": dict(
-                    gmm_ops.launches_by_variant)}
-
-    def release(label):
-        gc.collect()
-        torch.cuda.empty_cache()
-        emit({"phase": "released", "after": label,
-              "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
-
-    def check_losses(label, losses, norms=None):
-        bad = [x for x in losses + (norms or []) if not np.isfinite(x)]
-        if bad or not losses[-1] < losses[0]:
-            fail(f"{label}: losses {losses}, grad norms {norms}: not finite "
-                 f"or not falling")
 
     # -- train_yi9b: full width, 16 of 48 layers, bf16, f32 moments -------
     t0 = time.perf_counter()
@@ -653,14 +819,14 @@ def training_phases(smi: str, ops: dict) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     losses, norms, step_ms = [], [], []
-    reset()
+    reset_launches(ops)
     for _ in range(YI_TRAIN["steps"]):
         t1 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))     # waits for the step
         step_ms.append((time.perf_counter() - t1) * 1e3)
         norms.append(float(metrics["grad_norm"]))
-    counts["train_yi9b"] = got = read()
+    counts["train_yi9b"] = got = read_launches(ops)
     steps, layers = YI_TRAIN["steps"], YI_TRAIN["layers"]
     want = {"flash_attention": 2 * layers * steps,
             "flash_attention_bwd": layers * steps, "grouped_matmul": 0,
@@ -709,14 +875,14 @@ def training_phases(smi: str, ops: dict) -> dict:
     for label, model, st in (("cuda", card_model, card_state),
                              ("cpu", cpu_model, cpu_state)):
         step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
-        reset()
+        reset_launches(ops)
         ls = []
         for i in range(3):
             b = {k: torch.as_tensor(v).to(model.device)
                  for k, v in data.batch(i).items()}
             st, m = step_fn(st, b)
             ls.append(float(m["loss"]))
-        runs[label] = (ls, st, read())
+        runs[label] = (ls, st, read_launches(ops))
     (cl, cst, ccounts), (hl, hst, _) = runs["cuda"], runs["cpu"]
     # f32 on both: summation orders (the kernels', the CPU's); params to
     # tests/test_training.py's accumulation tolerance
@@ -740,108 +906,20 @@ def training_phases(smi: str, ops: dict) -> dict:
     release("train_parity_f32")
 
     # -- train_granite: launch/train.py, full width and depth, resumed ----
-    t0 = time.perf_counter()
-    ckpt = Path(tempfile.mkdtemp(prefix="train_granite_"))
-    try:
-        args = train_driver.parse_args(GRANITE_TRAIN + [
-            "--steps", "10", "--ckpt-every", "5", "--ckpt-dir", str(ckpt)])
-        torch.cuda.reset_peak_memory_stats()
-        reset()
-        t1 = time.perf_counter()
-        out = io.StringIO()
-        mon = Monitor(name="train")
-        with contextlib.redirect_stdout(out):
-            losses1, state1 = train_driver.run(args, monitor=mon)
-        run1_s = time.perf_counter() - t1
-        counts["train_granite"] = got = read()
-        peak1 = torch.cuda.max_memory_allocated() / 1e9
-        step_ms = [1e3 * e["seconds"] for e in mon.events("train")
-                   if e["event"] == "step.done"]
-        cfg = get_config("granite-moe-1b-a400m")
-        tokens = 8 * 2048
-        median_ms = float(np.median(step_ms[2:]))
-        flops = model_flops(cfg, state1["params"], tokens, 2048)
-        layers, steps, mbs = cfg.num_layers, 10, 2
-        # every layer MoE: 3 expert products a forward, run twice under
-        # remat, and dx, dw for each in the backward; flash likewise
-        want = {"flash_attention": 2 * layers * mbs * steps,
-                "flash_attention_bwd": layers * mbs * steps,
-                "grouped_matmul": 6 * layers * mbs * steps,
-                "grouped_matmul_bwd": 6 * layers * mbs * steps, "ssd": 0}
-        # capacity 2560: the tile kernel for the forward, its dx and dw
-        # variants for the backward
-        want_variants = {"tile": 6 * layers * mbs * steps, "stream": 0,
-                         "dx": 3 * layers * mbs * steps,
-                         "dw": 3 * layers * mbs * steps, "f32": 0}
-        store = CheckpointStore(str(ckpt))
-        saved = store.latest_step()
-        restored = store.restore(state1, step=saved)
-        mismatched = [i for i, (a, b) in enumerate(zip(
-            leaves(restored), leaves(state1))) if not torch.equal(a, b)]
-        n_leaves = len(leaves(state1))
-        del restored, state1
-        store.gc(keep_last=1)
-        release("train_granite run 1")
-        out2 = io.StringIO()
-        t1 = time.perf_counter()
-        with contextlib.redirect_stdout(out2):
-            losses2 = train_driver.main(GRANITE_TRAIN + [
-                "--steps", "5", "--ckpt-every", "5", "--resume",
-                "--ckpt-dir", str(ckpt)])
-        run2_s = time.perf_counter() - t1
-        emit({"phase": "train_granite", "layers": layers,
-              "argv": GRANITE_TRAIN + ["--steps", "10", "--ckpt-every", "5"],
-              "losses": losses1, "resumed_losses": losses2,
-              "printed": out.getvalue().splitlines(),
-              "printed_resume": out2.getvalue().splitlines(),
-              "step_ms": step_ms, "step_ms_median_3_10": median_ms,
-              "tokens_per_s": tokens / median_ms * 1e3,
-              "model_flops_per_step": flops,
-              "model_flops_share_of_bf16_peak": flops / (median_ms * 1e-3)
-              / H100_BF16_FLOPS,
-              "run_seconds": run1_s, "resume_run_seconds": run2_s,
-              "tokens_per_s_with_saves": 10 * tokens / run1_s,
-              "saved_step": saved, "leaves": n_leaves,
-              "restored_leaves_unequal": mismatched,
-              "launches": got, "expected_launches": want,
-              "expected_by_variant": want_variants,
-              "peak_memory_gb": peak1, "card": smi,
-              "seconds": time.perf_counter() - t0})
-        check_losses("train_granite", losses1)
-        if not all(np.isfinite(losses2)) or \
-                "[resume] restored step 10" not in out2.getvalue():
-            fail(f"train_granite: the resumed run {losses2} did not restore "
-                 f"step 10")
-        if saved != 10 or mismatched:
-            fail(f"train_granite: step {saved} restored with leaves "
-                 f"{mismatched} unequal")
-        if {k: got[k] for k in want} != want or \
-                got["grouped_matmul_by_variant"] != want_variants:
-            fail(f"train_granite: launches {got}, expected {want} and "
-                 f"{want_variants}")
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
-    release("train_granite")
-    # one step of train_granite's shape (8 x 2048 in 2 microbatches) under
-    # the profiler, after a warm one
-    cfg = get_config("granite-moe-1b-a400m")
-    model = build_model(cfg, device="cuda")
-    opt_cfg = OptimizerConfig(warmup_steps=5, total_steps=10)
-    holder = [init_state(model, opt_cfg,
-                         torch.Generator(device="cuda").manual_seed(0))]
-    step_fn = make_train_step(model, cfg, opt_cfg,
-                              TrainStepConfig(microbatches=2))
-    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
-                                      seq_len=2048, global_batch=8))
-    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0).items()}
-
-    def one_step():
-        holder[0], _ = step_fn(holder[0], batch)
-    one_step()
-    emit({"phase": "train_granite_profile", **step_profile(one_step),
-          "card": smi})
-    del model, holder, step_fn, batch
-    release("train_granite_profile")
+    layers, steps, mbs = get_config("granite-moe-1b-a400m").num_layers, 10, 2
+    # every layer MoE: 3 expert products a forward, run twice under remat,
+    # and dx, dw for each in the backward; flash likewise; capacity 2560:
+    # the tile kernel for the forward, its dx and dw variants for the
+    # backward
+    counts["train_granite"] = launch_train_resumed(
+        smi, ops, "train_granite", GRANITE_TRAIN,
+        {"flash_attention": 2 * layers * mbs * steps,
+         "flash_attention_bwd": layers * mbs * steps,
+         "grouped_matmul": 6 * layers * mbs * steps,
+         "grouped_matmul_bwd": 6 * layers * mbs * steps, "ssd": 0},
+        {"tile": 6 * layers * mbs * steps, "stream": 0,
+         "dx": 3 * layers * mbs * steps, "dw": 3 * layers * mbs * steps,
+         "f32": 0})
 
     # -- vre_train: lm-trainer across a destroy and re-instantiation ------
     t0 = time.perf_counter()
@@ -855,7 +933,7 @@ def training_phases(smi: str, ops: dict) -> dict:
         vre = VirtualResearchEnvironment(vcfg)
         vre.instantiate()
         trainer = vre.service("lm-trainer")
-        reset()
+        reset_launches(ops)
         losses1 = trainer.train_steps(vre.service("data"), 5)
         vre.service("volumes").save(trainer.state, step=5, blocking=True)
         device1 = str(leaves(trainer.state)[0].device)
@@ -868,7 +946,7 @@ def training_phases(smi: str, ops: dict) -> dict:
         t2 = vre2.service("lm-trainer")
         t2.state = vre2.service("volumes").restore(t2.state, step=5)
         losses2 = t2.train_steps(vre2.service("data"), 5)
-        counts["vre_train"] = got = read()
+        counts["vre_train"] = got = read_launches(ops)
         healthy = t2.health()
         del t2
         vre2.destroy()
@@ -923,7 +1001,7 @@ def training_phases(smi: str, ops: dict) -> dict:
         for label, model, st in (("cuda", card_model, card_state),
                                  ("cpu", cpu_model, cpu_state)):
             step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
-            reset()
+            reset_launches(ops)
             ls, ns = [], []
             for i in range(3):
                 b = {k: torch.as_tensor(v).to(model.device)
@@ -931,7 +1009,7 @@ def training_phases(smi: str, ops: dict) -> dict:
                 st, m = step_fn(st, b)
                 ls.append(float(m["loss"]))
                 ns.append(float(m["grad_norm"]))
-            runs[label] = (ls, ns, st, read())
+            runs[label] = (ls, ns, st, read_launches(ops))
         (cl, cn, cst, ccounts), (hl, hn, hst, _) = runs["cuda"], runs["cpu"]
         # f32 on both: summation orders (the kernels', the CPU's); params
         # to tests/test_training.py's accumulation tolerance
@@ -966,105 +1044,14 @@ def training_phases(smi: str, ops: dict) -> dict:
         release(f"train_parity_ssm_f32 {arch}")
 
     # -- train_mamba2: launch/train.py, full width and depth, resumed -----
-    t0 = time.perf_counter()
-    ckpt = Path(tempfile.mkdtemp(prefix="train_mamba2_"))
-    try:
-        args = train_driver.parse_args(MAMBA2_TRAIN + [
-            "--steps", "10", "--ckpt-every", "5", "--ckpt-dir", str(ckpt)])
-        torch.cuda.reset_peak_memory_stats()
-        reset()
-        t1 = time.perf_counter()
-        out = io.StringIO()
-        mon = Monitor(name="train")
-        with contextlib.redirect_stdout(out):
-            losses1, state1 = train_driver.run(args, monitor=mon)
-        run1_s = time.perf_counter() - t1
-        counts["train_mamba2"] = got = read()
-        peak1 = torch.cuda.max_memory_allocated() / 1e9
-        step_ms = [1e3 * e["seconds"] for e in mon.events("train")
-                   if e["event"] == "step.done"]
-        cfg = get_config("mamba2-370m")
-        tokens = 8 * 2048
-        median_ms = float(np.median(step_ms[2:]))
-        layers, steps, mbs = cfg.num_layers, 10, 2
-        n_params = sum(t.numel() for t in leaves(state1["params"]))
-        # remat "full": each layer's SSD forward twice a microbatch, its
-        # backward once
-        want = {"ssd": 2 * layers * mbs * steps,
-                "ssd_bwd": layers * mbs * steps, "flash_attention": 0,
-                "flash_attention_bwd": 0, "grouped_matmul": 0,
-                "grouped_matmul_bwd": 0}
-        store = CheckpointStore(str(ckpt))
-        saved = store.latest_step()
-        restored = store.restore(state1, step=saved)
-        mismatched = [i for i, (a, b) in enumerate(zip(
-            leaves(restored), leaves(state1))) if not torch.equal(a, b)]
-        n_leaves = len(leaves(state1))
-        del restored, state1
-        store.gc(keep_last=1)
-        release("train_mamba2 run 1")
-        out2 = io.StringIO()
-        reset()
-        t1 = time.perf_counter()
-        with contextlib.redirect_stdout(out2):
-            losses2 = train_driver.main(MAMBA2_TRAIN + [
-                "--steps", "5", "--ckpt-every", "5", "--resume",
-                "--ckpt-dir", str(ckpt)])
-        run2_s = time.perf_counter() - t1
-        got2 = read()
-        want2 = {k: v // 2 for k, v in want.items()}
-        emit({"phase": "train_mamba2", "layers": layers, "params": n_params,
-              "d_model": cfg.d_model, "dtype": cfg.dtype,
-              "moments": "float32", "remat_policy": cfg.remat_policy,
-              "argv": MAMBA2_TRAIN + ["--steps", "10", "--ckpt-every", "5"],
-              "losses": losses1, "resumed_losses": losses2,
-              "printed": out.getvalue().splitlines(),
-              "printed_resume": out2.getvalue().splitlines(),
-              "step_ms": step_ms, "step_ms_median_3_10": median_ms,
-              "tokens_per_s": tokens / median_ms * 1e3,
-              "run_seconds": run1_s, "resume_run_seconds": run2_s,
-              "tokens_per_s_with_saves": 10 * tokens / run1_s,
-              "saved_step": saved, "leaves": n_leaves,
-              "restored_leaves_unequal": mismatched,
-              "launches": got, "expected_launches": want,
-              "resume_launches": got2, "expected_resume_launches": want2,
-              "peak_memory_gb": peak1, "card": smi,
-              "seconds": time.perf_counter() - t0})
-        check_losses("train_mamba2", losses1)
-        if not all(np.isfinite(losses2)) or \
-                "[resume] restored step 10" not in out2.getvalue():
-            fail(f"train_mamba2: the resumed run {losses2} did not restore "
-                 f"step 10")
-        if saved != 10 or mismatched:
-            fail(f"train_mamba2: step {saved} restored with leaves "
-                 f"{mismatched} unequal")
-        if {k: got[k] for k in want} != want or \
-                {k: got2[k] for k in want2} != want2:
-            fail(f"train_mamba2: launches {got} then {got2}, expected {want} "
-                 f"then {want2}")
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
-    release("train_mamba2")
-    # one step of train_mamba2's shape (8 x 2048 in 2 microbatches) under
-    # the profiler, after a warm one
-    cfg = get_config("mamba2-370m")
-    model = build_model(cfg, device="cuda")
-    opt_cfg = OptimizerConfig(warmup_steps=5, total_steps=10)
-    holder = [init_state(model, opt_cfg,
-                         torch.Generator(device="cuda").manual_seed(0))]
-    step_fn = make_train_step(model, cfg, opt_cfg,
-                              TrainStepConfig(microbatches=2))
-    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
-                                      seq_len=2048, global_batch=8))
-    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0).items()}
-
-    def one_step():
-        holder[0], _ = step_fn(holder[0], batch)
-    one_step()
-    emit({"phase": "train_mamba2_profile", **step_profile(one_step, top=16),
-          "card": smi})
-    del model, holder, step_fn, batch
-    release("train_mamba2_profile")
+    # remat "full": each layer's SSD forward twice a microbatch, its
+    # backward once
+    layers, steps, mbs = get_config("mamba2-370m").num_layers, 10, 2
+    counts["train_mamba2"] = launch_train_resumed(
+        smi, ops, "train_mamba2", MAMBA2_TRAIN,
+        {"ssd": 2 * layers * mbs * steps, "ssd_bwd": layers * mbs * steps,
+         "flash_attention": 0, "flash_attention_bwd": 0,
+         "grouped_matmul": 0, "grouped_matmul_bwd": 0}, top=16)
 
     # -- train_zamba2: full width and depth, one fixed 4 x 2048 batch -----
     t0 = time.perf_counter()
@@ -1083,14 +1070,14 @@ def training_phases(smi: str, ops: dict) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     losses, norms, step_ms = [], [], []
-    reset()
+    reset_launches(ops)
     for _ in range(ZAMBA2_TRAIN["steps"]):
         t1 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))     # waits for the step
         step_ms.append((time.perf_counter() - t1) * 1e3)
         norms.append(float(metrics["grad_norm"]))
-    counts["train_zamba2"] = got = read()
+    counts["train_zamba2"] = got = read_launches(ops)
     steps, layers = ZAMBA2_TRAIN["steps"], cfg.num_layers
     apps = layers // cfg.shared_attn_every
     # Mamba2 layers remat'd (SSD forward twice), the shared block not
@@ -1123,6 +1110,338 @@ def training_phases(smi: str, ops: dict) -> dict:
           "card": smi})
     del model, state, holder, step_fn, batch, metrics
     release("train_zamba2")
+    return counts
+
+
+def embeddings_phases(smi: str, ops: dict) -> dict:
+    """The ``embeddings`` input mode on the card, the stub front ends'
+    (B, S, d) float embeddings in place of token ids: musicgen-medium at
+    full width cut to 2 layers in float32, the card against the CPU from
+    the same params (forward logits, prefill(S-1) + decode(1) against
+    forward(S), 3 train steps); ``python -m repro_torch.launch.train --arch
+    musicgen-medium`` at full width and depth (8 x 2048 in 2 microbatches,
+    10 steps saved every 5, resumed for 5) with one profiled step;
+    internvl2-26b at full width and depth in bf16, prefill + decode against
+    its forward; internvl2-26b cut to 4 layers, 3 train steps; and a VRE's
+    ``data`` and ``lm-trainer`` on musicgen-medium. Each run's launch counts
+    are set to 0 just before it and read just after; returns them by run."""
+    import shutil
+
+    import repro_torch.core.services  # noqa: F401 (registers the services)
+    from repro_torch.configs import get_config
+    from repro_torch.core.vre import VirtualResearchEnvironment, VREConfig
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMData,
+                                           device_batch)
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import to_device
+    from repro_torch.optim.adamw import OptimizerConfig, leaves
+    from repro_torch.training.train_step import (TrainStepConfig, init_state,
+                                                 make_train_step)
+    counts = {}
+
+    def rel(a, b) -> float:
+        """Largest difference relative to the largest magnitude of ``b``."""
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    def embedding_data(cfg, seq, batch):
+        return SyntheticLMData(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+            embeddings_dim=cfg.d_model))
+
+    # -- embeddings_parity_f32: musicgen, depth 2, the card against the CPU
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("musicgen-medium"), num_layers=2,
+                              dtype="float32")
+    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=10)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_state = init_state(cpu_model, opt_cfg,
+                           torch.Generator().manual_seed(0))
+    card_model = build_model(cfg, device="cuda")
+    card_state = to_device(cpu_state, "cuda")     # the same params
+    data = embedding_data(cfg, 128, 2)
+    x = torch.as_tensor(data.batch(100)["inputs"])
+    s = x.shape[1]
+    runs = {}
+    for label, model, st in (("cuda", card_model, card_state),
+                             ("cpu", cpu_model, cpu_state)):
+        reset_launches(ops)
+        xd = x.to(model.device)
+        with torch.no_grad():
+            full, _ = model.forward(st["params"], xd)
+            _, caches = model.prefill(st["params"], xd[:, :-1], s)
+            last, _ = model.decode(st["params"], caches, xd[:, -1:],
+                                   torch.full((x.shape[0],), s - 1))
+        calls = read_launches(ops)
+        step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
+        reset_launches(ops)
+        ls, ns = [], []
+        for i in range(3):
+            st, m = step_fn(st, device_batch(data.batch(i), model.device))
+            ls.append(float(m["loss"]))
+            ns.append(float(m["grad_norm"]))
+        runs[label] = dict(full=full.cpu(), last=last[:, 0].cpu(), losses=ls,
+                           norms=ns, state=st, calls=calls,
+                           train=read_launches(ops))
+        del full, caches, last
+    card, host = runs["cuda"], runs["cpu"]
+    # f32 on both: summation orders; train_parity_f32's tolerances, the
+    # logits' relative to their largest magnitude at the loss's 1e-4
+    logits_rel = rel(card["full"], host["full"])
+    decode_rel = rel(card["last"], card["full"][:, -1])
+    decode_rel_cpu = rel(host["last"], host["full"][:, -1])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                       host["losses"]))
+    norm_rel = max(abs(a - b) / abs(b) for a, b in zip(card["norms"],
+                                                       host["norms"]))
+    # the first moments (each gradient element's weighted sum over the
+    # steps) within 1e-3 of their leaf's largest, the grad norms' tolerance
+    # (f32 sums over 256 tokens in the kernels' and the CPU's orders: 1.9e-4
+    # on an H100); the params at train_parity_f32's tolerance but for at
+    # most 1e-6 of their elements: Adam divides by sqrt(v) + eps, so an
+    # element whose gradient lies near 0 in a step moves by up to twice that
+    # step's lr on rounding alone (on an H100, 14 of 78.7 M elements past
+    # it, each with its first moments equal within 1e-3). Each leaf past
+    # it: the count, the first such element and both runs' moments there
+    worst, m_rels, n_elems = 0.0, {}, 0
+    over = {}
+    for i, (a, b, ma, mb) in enumerate(zip(
+            leaves(card["state"]["params"]), leaves(host["state"]["params"]),
+            leaves(card["state"]["opt"]["m"]),
+            leaves(host["state"]["opt"]["m"]))):
+        diff = (a.cpu() - b).abs()
+        worst = max(worst, float(diff.max()))
+        m_rels[i] = rel(ma.cpu(), mb)
+        n_elems += b.numel()
+        bad = diff > 5e-5 + 5e-4 * b.abs()
+        if bad.any():
+            at = tuple(bad.nonzero()[0].tolist())
+            over[i] = {"count": int(bad.sum()), "max_diff": float(
+                diff.max()), "at": list(at), "cuda": float(a[at]),
+                "cpu": float(b[at]), "m_cuda": float(ma[at]),
+                "m_cpu": float(mb[at])}
+    n_over = sum(o["count"] for o in over.values())
+    m_rel = max(m_rels.values())
+    ok = (logits_rel <= 1e-4 and decode_rel <= 1e-4 and loss_rel <= 1e-4
+          and norm_rel <= 1e-3 and m_rel <= 1e-3
+          and n_over <= 1e-6 * n_elems)
+    # forward and prefill: one flash forward a layer each; training: two a
+    # layer a step under remat "full", one backward
+    want_calls = {"flash_attention": 2 * 2, "flash_attention_bwd": 0}
+    want_train = {"flash_attention": 2 * 2 * 3, "flash_attention_bwd": 2 * 3}
+    emit({"phase": "embeddings_parity_f32", "arch": cfg.name, "layers": 2,
+          "d_model": cfg.d_model, "batch": x.shape[0], "seq": s,
+          "input_scale": 0.02, "logits_max_rel_diff": logits_rel,
+          "decode_vs_forward_rel_cuda": decode_rel,
+          "decode_vs_forward_rel_cpu": decode_rel_cpu, "logits_rtol": 1e-4,
+          "losses_cuda": card["losses"], "losses_cpu": host["losses"],
+          "loss_max_rel_diff": loss_rel, "loss_rtol": 1e-4,
+          "grad_norms_cuda": card["norms"], "grad_norms_cpu": host["norms"],
+          "grad_norm_max_rel_diff": norm_rel, "grad_norm_rtol": 1e-3,
+          "first_moments_max_diff_of_max": m_rel,
+          "first_moments_diff_of_max_by_leaf": m_rels,
+          "first_moments_tol_of_max": 1e-3, "params_max_abs_diff": worst,
+          "params_tol": {"atol": 5e-5, "rtol": 5e-4},
+          "params_over_tol": n_over, "params": n_elems,
+          "params_over_tol_allowed": 1e-6 * n_elems,
+          "params_over_tol_by_leaf": over,
+          "launches_cuda": {"forward_prefill_decode": card["calls"],
+                            "train": card["train"]},
+          "expected_launches": {"forward_prefill_decode": want_calls,
+                                "train": want_train},
+          "ok": ok, "card": smi, "seconds": time.perf_counter() - t0})
+    if not ok or {k: card["calls"][k] for k in want_calls} != want_calls or \
+            {k: card["train"][k] for k in want_train} != want_train:
+        fail(f"embeddings_parity_f32: card and CPU disagree (logits "
+             f"{logits_rel}, decode {decode_rel}, losses {loss_rel}, grad "
+             f"norms {norm_rel}, first moments {m_rel}, params {n_over} "
+             f"past the tolerance) or launches "
+             f"{card['calls']}, {card['train']}")
+    counts["embeddings_parity_f32"] = card["train"]
+    del cpu_model, cpu_state, card_model, card_state, runs, card, host, st
+    release("embeddings_parity_f32")
+
+    # -- train_musicgen: launch/train.py, full width and depth, resumed ---
+    # remat "full": each layer's flash forward twice a microbatch, its
+    # backward once
+    layers, steps, mbs = get_config("musicgen-medium").num_layers, 10, 2
+    counts["train_musicgen"] = launch_train_resumed(
+        smi, ops, "train_musicgen", MUSICGEN_TRAIN,
+        {"flash_attention": 2 * layers * mbs * steps,
+         "flash_attention_bwd": layers * mbs * steps, "grouped_matmul": 0,
+         "grouped_matmul_bwd": 0, "ssd": 0, "ssd_bwd": 0})
+
+    # -- internvl2_full: full width and depth, prefill + decode against
+    # the forward; first the same in f32 at 2 layers
+    def decode_check(cfg):
+        """(model, params, inputs, decode rel, prefill rel, launches):
+        prefill(S-1) + decode(1) against forward(S) on the data pipeline's
+        embeddings (f32, scale 0.02)."""
+        model = build_model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        b, s = INTERNVL2_FULL["batch"], INTERNVL2_FULL["seq"]
+        x = randn((b, s, cfg.d_model), torch.float32,
+                  torch.Generator(device="cuda").manual_seed(1), 0.02)
+        reset_launches(ops)
+        with torch.no_grad():
+            full, _ = model.forward(params, x)
+            ref = full[:, -2:].clone()
+            del full
+            first, caches = model.prefill(params, x[:, :-1], s)
+            dec, _ = model.decode(params, caches, x[:, -1:],
+                                  torch.full((b,), s - 1))
+        torch.cuda.synchronize()
+        return (model, params, x, rel(dec[:, 0], ref[:, 1]),
+                rel(first[:, 0], ref[:, 0]), read_launches(ops))
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(get_config("internvl2-26b"), num_layers=2,
+                                dtype="float32")
+    model, params, x, decode_rel_f32, prefill_rel_f32, got32 = \
+        decode_check(cfg32)
+    del model, params, x
+    release("internvl2_full f32")
+    cfg = get_config("internvl2-26b")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    model, params, x, decode_rel, prefill_rel, got = decode_check(cfg)
+    init_s = time.perf_counter() - t1
+    n_params = sum(t.numel() for t in leaves(params))
+    b, s = x.shape[:2]
+    counts["internvl2_full"] = got
+    # one flash forward a layer in the forward and in the prefill
+    want = {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": 0}
+    want32 = {"flash_attention": 2 * cfg32.num_layers,
+              "flash_attention_bwd": 0}
+
+    def prefill():
+        with torch.no_grad():
+            return model.prefill(params, x[:, :-1], s)
+    prefill_host_ms = host_ms(prefill, iters=2)
+    prefill_busy_ms = device_busy_ms(prefill)
+    emit({"phase": "internvl2_full", "layers": cfg.num_layers,
+          "params": n_params, "d_model": cfg.d_model,
+          "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+          "vocab": [cfg.vocab_size, cfg.padded_vocab], "dtype": cfg.dtype,
+          "batch": b, "seq": s, "input_scale": 0.02,
+          "decode_vs_forward_rel": decode_rel,
+          "prefill_last_vs_forward_rel": prefill_rel,
+          "rel_bound": DECODE_REL_BF16_DEPTH,
+          "jax_reduced_model_bound": DECODE_REL,
+          "f32_2_layers": {"decode_vs_forward_rel": decode_rel_f32,
+                           "prefill_last_vs_forward_rel": prefill_rel_f32,
+                           "rel_bound": DECODE_REL_F32, "launches": got32},
+          "launches": got, "expected_launches": want,
+          "prefill_host_ms": prefill_host_ms,
+          "prefill_device_busy_ms": prefill_busy_ms,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "init_and_checks_seconds": init_s, "card": smi,
+          "seconds": time.perf_counter() - t0})
+    if not (decode_rel < DECODE_REL_BF16_DEPTH
+            and prefill_rel < DECODE_REL_BF16_DEPTH
+            and decode_rel_f32 < DECODE_REL_F32
+            and prefill_rel_f32 < DECODE_REL_F32):
+        fail(f"internvl2_full: prefill + decode against the forward: "
+             f"{prefill_rel}, {decode_rel} in bf16 (bound "
+             f"{DECODE_REL_BF16_DEPTH}); {prefill_rel_f32}, {decode_rel_f32} "
+             f"in f32 (bound {DECODE_REL_F32})")
+    if {k: got[k] for k in want} != want or \
+            {k: got32[k] for k in want32} != want32:
+        fail(f"internvl2_full: launches {got} and {got32}, expected {want} "
+             f"and {want32}")
+    del model, params, x
+    release("internvl2_full")
+
+    # -- train_internvl2: full width, 4 of 48 layers, one fixed batch -----
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("internvl2-26b"),
+                              num_layers=INTERNVL2_TRAIN["layers"])
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda")
+    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
+    state = init_state(model, opt_cfg,
+                       torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
+    batch = device_batch(embedding_data(cfg, INTERNVL2_TRAIN["seq"],
+                                        INTERNVL2_TRAIN["batch"]).batch(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, norms, step_ms = [], [], []
+    reset_launches(ops)
+    for _ in range(INTERNVL2_TRAIN["steps"]):
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))     # waits for the step
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        norms.append(float(metrics["grad_norm"]))
+    counts["train_internvl2"] = got = read_launches(ops)
+    steps, layers = INTERNVL2_TRAIN["steps"], cfg.num_layers
+    want = {"flash_attention": 2 * layers * steps,
+            "flash_attention_bwd": layers * steps, "grouped_matmul": 0,
+            "grouped_matmul_bwd": 0, "ssd": 0, "ssd_bwd": 0}
+    tokens = INTERNVL2_TRAIN["batch"] * INTERNVL2_TRAIN["seq"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    capacity = torch.cuda.get_device_properties(0).total_memory / 1e9
+    emit({"phase": "train_internvl2", "layers": layers,
+          "depth_cut": f"{layers} of {get_config('internvl2-26b').num_layers}"
+                       f" layers", "params": n_params,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "moments": "float32",
+          "remat_policy": cfg.remat_policy, "batch": INTERNVL2_TRAIN["batch"],
+          "seq": INTERNVL2_TRAIN["seq"], "losses": losses,
+          "grad_norms": norms, "step_ms": step_ms,
+          "tokens_per_s_last_step": tokens / step_ms[-1] * 1e3,
+          "launches": got, "expected_launches": want,
+          "peak_memory_gb": peak, "card_memory_gb": capacity,
+          "init_seconds": init_s, "card": smi,
+          "seconds": time.perf_counter() - t0})
+    if not all(np.isfinite(losses + norms)):
+        fail(f"train_internvl2: losses {losses}, grad norms {norms} not "
+             f"finite")
+    if {k: got[k] for k in want} != want:
+        fail(f"train_internvl2: launches {got}, expected {want}")
+    del model, state, step_fn, batch, metrics
+    release("train_internvl2")
+
+    # -- vre_train_musicgen: a VRE's data and lm-trainer ------------------
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="vre_train_musicgen_")
+    try:
+        vre = VirtualResearchEnvironment(VREConfig(
+            name="train_musicgen", mesh_shape=(1, 1),
+            services=["volumes", "data", "lm-trainer"],
+            arch="musicgen-medium", provider="h100", workdir=workdir,
+            extra={"global_batch": 8, "seq_len": 512}))
+        vre.instantiate()
+        trainer, data = vre.service("lm-trainer"), vre.service("data")
+        shape = list(next(iter(data))["inputs"].shape)
+        reset_launches(ops)
+        losses = trainer.train_steps(data, 3)
+        counts["vre_train_musicgen"] = got = read_launches(ops)
+        device = str(leaves(trainer.state)[0].device)
+        healthy = trainer.health()
+        del trainer, data
+        vre.destroy()
+        del vre
+        layers = get_config("musicgen-medium").num_layers
+        want = {"flash_attention": 2 * layers * 3,
+                "flash_attention_bwd": layers * 3, "grouped_matmul": 0,
+                "ssd": 0}
+        emit({"phase": "vre_train_musicgen", "arch": "musicgen-medium",
+              "provider": "h100", "batch_inputs_shape": shape,
+              "state_device": device, "losses": losses, "healthy": healthy,
+              "launches": got, "expected_launches": want, "card": smi,
+              "seconds": time.perf_counter() - t0})
+        if not (all(np.isfinite(losses)) and healthy
+                and device.startswith("cuda") and shape == [8, 512, 1536]):
+            fail(f"vre_train_musicgen: losses {losses}, state on {device}, "
+                 f"batches {shape}")
+        if {k: got[k] for k in want} != want:
+            fail(f"vre_train_musicgen: launches {got}, expected {want}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    release("vre_train_musicgen")
     return counts
 
 
@@ -1431,6 +1750,13 @@ def main():
             if case == FLASH_BWD[0] and dtype == torch.bfloat16:
                 kernels["flash_attention_bwd"].update(max_abs_err=err,
                                                       tol_of_max=tol)
+    # the embeddings input mode's shapes, forward and backward, before any
+    # model phase runs them
+    embeddings_errs = {}
+    for case in EMBEDDINGS_ATTN:
+        for dtype in (torch.float32, torch.bfloat16):
+            embeddings_errs[(case, dtype)] = (check_flash(case, dtype),
+                                              check_flash_bwd(case, dtype))
     for case in GMM_BWD:
         for dtype in (torch.float32, torch.bfloat16):
             err, tol = check_gmm_bwd(case, dtype)
@@ -1721,6 +2047,30 @@ def main():
     kernels["flash_attention_bwd"]["by_shape"] = [
         dict(time_flash_bwd(case), shape=case) for case in (
             GRANITE_TRAIN_ATTN, GEMMA3_TRAIN_ATTN, GEMMA3_UNWINDOWED_ATTN)]
+    # flash_embeddings_shapes: the embeddings input mode's shapes, the
+    # kernels' errors (section 3) and times beside their bounds, the plain
+    # versions and SDPA's forward and backward
+    by_shape = []
+    for case in EMBEDDINGS_ATTN:
+        fwd, bwd = time_flash(case), time_flash_bwd(case)
+        kernels["flash_attention"].setdefault("by_embeddings_shape", []) \
+            .append(dict(fwd, shape=case))
+        kernels["flash_attention_bwd"]["by_shape"].append(dict(bwd,
+                                                              shape=case))
+        line = {"shape": dict(zip("B S H KV D".split(), case[:5]))}
+        for dtype in (torch.float32, torch.bfloat16):
+            (ferr, ftol), (berr, btol) = embeddings_errs[(case, dtype)]
+            line[str(dtype).removeprefix("torch.")] = {
+                "fwd_max_abs_err": ferr, "fwd_tol": ftol,
+                "bwd_max_abs_err": berr, "bwd_tol_of_max": btol}
+        for name, t in (("fwd", fwd), ("bwd", bwd)):
+            line[name] = {k: t[k] for k in ("kernel_ms", "bound_ms",
+                                            "bound_by", "share_of_bound",
+                                            "plain_ms", "library_ms")}
+        by_shape.append(line)
+    emit({"phase": "flash_embeddings_shapes", "dtype_timed": "bfloat16",
+          "library": "scaled_dot_product_attention (causal, enable_gqa)",
+          "shapes": by_shape, "card": smi})
     timings["grouped_matmul_bwd"] = time_gmm_bwd(GMM_BWD[0])
     kernels["grouped_matmul_bwd"]["by_shape"] = [
         dict(time_gmm_bwd(GMM_BWD[1]), shape=GMM_BWD[1])]
@@ -1871,6 +2221,7 @@ def main():
 
     # -- 4b. training on the card -----------------------------------------
     train_counts = training_phases(smi, ops)
+    train_counts.update(embeddings_phases(smi, ops))
 
     # -- 5. full width, depth 2, float32: engine tokens == a reference -----
     def faults(monitor) -> list:
@@ -2954,12 +3305,6 @@ def main():
     # the sliding-window and hybrid families at full width, bf16, each
     # freed before the next (no two fit the card together): flash attention
     # in every prefill of every run, SSD in every zamba2 prefill
-    def release(label):
-        gc.collect()
-        torch.cuda.empty_cache()
-        emit({"phase": "released", "after": label,
-              "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
-
     gemma2 = get_config("gemma2-27b")
     rs, cfg, counts[gemma2.name] = serve(
         gemma2, lambda p, s, d: {"flash_attention": gemma2.num_layers * p,

@@ -10,10 +10,13 @@ A port of the JAX package's ``repro.core.services``. Provider ``"cpu"``
 serves and trains the reduced config of the VRE's arch, the card
 (``"h100"``) its full widths. ``lm-server`` has the JAX service's
 autoscaler (with SLO targets), ``rebalance``, ``replicas: "auto"`` and a
-fleet's shared prefix cache. ``lm-trainer`` trains every token-input
-arch (dense, MoE, the SSM ``mamba2-370m`` and the hybrid ``zamba2-1.2b``)
-with its state on the card of the VRE's first share; an ``embeddings``
-input arch (musicgen, internvl2) fails at build (ROADMAP A.7c).
+fleet's shared prefix cache. ``lm-trainer`` trains every arch (dense,
+MoE, the SSM ``mamba2-370m``, the hybrid ``zamba2-1.2b`` and the
+``embeddings`` input archs ``musicgen-medium`` and ``internvl2-26b``, on
+the ``data`` service's (B, S, d) embedding batches) with its state on the
+card of the VRE's first share. ``lm-server`` builds for an ``embeddings``
+arch, but its engines refuse every request (token prompts only, as in
+JAX, whose engine fails at the first prefill).
 """
 from __future__ import annotations
 

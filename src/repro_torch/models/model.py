@@ -33,21 +33,25 @@ updates (never clamped onto a real position): the write index is worked out
 on the host from the positions, so pass them as CPU tensors to keep the
 host from waiting on the device.
 
-Ported: every token-input config: dense and MoE transformers with global
-or sliding-window attention, QKV bias, QK norm, post norms and softcaps
+Ported: every config: dense and MoE transformers with global or
+sliding-window attention, QKV bias, QK norm, post norms and softcaps
 (``yi-9b``, ``qwen2-72b``, ``gemma2-27b``, ``gemma3-12b``,
 ``granite-moe-1b-a400m``, ``llama4``), pure SSM (``mamba2-370m``) and the
-hybrid (``zamba2-1.2b``), served and trained. Training (``forward``) runs
-each transformer super-block, and each Mamba2 layer, under
-``cfg.remat_policy`` (``"full"`` recomputes it in the backward,
-``"minimal"`` saves its matmul outputs, ``"none"`` saves everything);
-attention through the flash op's forward and backward kernels, MoE through
-the grouped matmul's, Mamba2 through the SSD op's. The hybrid's shared
-attention+MLP block runs once after each segment, not remat'd, as in JAX.
-``split_blocks`` gives the per-layer views a train step differentiates. The
-``embeddings`` input mode (``musicgen``, ``internvl2``) raises
-``NotImplementedError`` (ROADMAP A.7c). ``model.kernel_ops`` lists the
-kernel modules the model's path launches.
+hybrid (``zamba2-1.2b``), served and trained; and the ``embeddings`` input
+mode (``musicgen-medium``, ``internvl2-26b``), built, prefilled, decoded
+and trained: a stub front end's (B, S, d) float embeddings take the place
+of the token ids and enter the stack as they are, cast to the model's
+dtype, with no sqrt(d) scale (JAX's ``_embed_inputs``); the tied table
+still gives the logits. The serving engine stays token-only, as JAX's.
+Training (``forward``) runs each transformer super-block, and each Mamba2
+layer, under ``cfg.remat_policy`` (``"full"`` recomputes it in the
+backward, ``"minimal"`` saves its matmul outputs, ``"none"`` saves
+everything); attention through the flash op's forward and backward
+kernels, MoE through the grouped matmul's, Mamba2 through the SSD op's.
+The hybrid's shared attention+MLP block runs once after each segment, not
+remat'd, as in JAX.
+``split_blocks`` gives the per-layer views a train step differentiates.
+``model.kernel_ops`` lists the kernel modules the model's path launches.
 """
 from __future__ import annotations
 
@@ -97,17 +101,6 @@ def program(cfg: ModelConfig):
         assert cfg.num_layers % n == 0
         return cfg.num_layers // n, subs
     return cfg.num_layers, [Sub(0, theta_g, "dense")]
-
-
-def _unsupported(cfg: ModelConfig) -> list:
-    """Features of ``cfg`` outside the ported slice (the ``embeddings``
-    input mode, ROADMAP A.7c)."""
-    checks = {
-        f"family {cfg.family!r}": cfg.family not in ("dense", "moe", "ssm",
-                                                     "hybrid"),
-        f"input_mode {cfg.input_mode!r}": cfg.input_mode != "tokens",
-    }
-    return [name for name, bad in checks.items() if bad]
 
 
 # ---------------------------------------------------------------------------
@@ -303,27 +296,29 @@ def _layer(tree: dict, i: int) -> dict:
             for k, x in tree.items()}
 
 
-def check_trainable(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` naming ROADMAP A.7c for what the port
-    cannot build or train yet (the ``embeddings`` input mode)."""
-    missing = _unsupported(cfg)
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            f"serves and trains token inputs: dense, MoE, SSM and hybrid; "
-            f"ROADMAP A.7c)")
+def _embed_inputs(cfg: ModelConfig, embed_params, inputs):
+    """The stack's input: token ids (B, S) looked up in the table and
+    scaled by sqrt(d); in the ``embeddings`` input mode the (B, S, d)
+    embeddings themselves, on the model's device in its dtype, unscaled
+    (JAX: ``inputs.astype(dtype)``)."""
+    if cfg.input_mode == "embeddings":
+        return inputs.to(device=embed_params["tok"].device,
+                         dtype=_dtype(cfg))
+    return L.embed_apply(embed_params, inputs, cfg.d_model)
 
 
 def build_model(cfg: ModelConfig, device=None):
     """The model for ``cfg`` on ``device`` (default: the current CUDA
     device; raises when there is none)."""
-    check_trainable(cfg)
-    device = resolve_device(device)
-    if cfg.family == "ssm":
-        return _build_ssm(cfg, device)
-    if cfg.family == "hybrid":
-        return _build_hybrid(cfg, device)
-    return _build_transformer(cfg, device)
+    if cfg.family in ("dense", "moe"):
+        builder = _build_transformer
+    elif cfg.family == "ssm":
+        builder = _build_ssm
+    elif cfg.family == "hybrid":
+        builder = _build_hybrid
+    else:
+        raise ValueError(cfg.family)
+    return builder(cfg, resolve_device(device))
 
 
 def _build_transformer(cfg: ModelConfig, device: torch.device):
@@ -370,14 +365,14 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
         return h, aux
 
     def forward(params, inputs):
-        """Train mode. inputs: (B, S) token ids at positions 0..S-1.
-        Returns (logits (B, S, padded vocab) f32, aux): aux the summed MoE
-        load-balance terms (f32 scalar; 0 for a dense model), both
-        differentiable. Each super-block runs under ``cfg.remat_policy``.
-        ``params`` may be stacked or ``split_blocks``'s form."""
-        s = inputs.shape[1]
-        positions = torch.arange(s, device=inputs.device)[None, :]
-        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        """Train mode. inputs: (B, S) token ids, or (B, S, d) embeddings,
+        at positions 0..S-1. Returns (logits (B, S, padded vocab) f32,
+        aux): aux the summed MoE load-balance terms (f32 scalar; 0 for a
+        dense model), both differentiable. Each super-block runs under
+        ``cfg.remat_policy``. ``params`` may be stacked or
+        ``split_blocks``'s form."""
+        h = _embed_inputs(cfg, params["embed"], inputs)
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         block = _remat(_train_block, cfg.remat_policy)
         for i in range(n_super):
@@ -400,44 +395,45 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
         return max_seq, out
 
     def prefill(params, inputs, max_seq: int):
-        """inputs: (B, S) token ids. Returns (logits of the last position,
-        caches of length ``max_seq``, or of the window where rolling)."""
+        """inputs: (B, S) token ids or (B, S, d) embeddings. Returns
+        (logits of the last position, caches of length ``max_seq``, or of
+        the window where rolling)."""
         _check_prompt(inputs, max_seq)
-        s = inputs.shape[1]
-        positions = torch.arange(s, device=inputs.device)[None, :]
-        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        h = _embed_inputs(cfg, params["embed"], inputs)
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
         h, per_layer = _run(params, h, positions, "prefill", max_seq=max_seq)
         caches = [{"k": torch.stack([c["k"] for c in cs]),
                    "v": torch.stack([c["v"] for c in cs])} for cs in per_layer]
         return L.unembed_apply(params["embed"], cfg, h[:, -1:]), caches
 
     def decode(params, caches, inputs, pos):
-        """inputs: (B, 1) token ids at positions ``pos`` (B,). Writes their
-        K/V into ``caches`` in place (a row past the end writes nothing and
-        attends over the whole cache, as in JAX); returns (logits,
-        caches)."""
-        max_seq, writes = _writes(caches, pos, 1, device=inputs.device)
-        pos = pos.to(inputs.device)
-        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        """inputs: (B, 1) token ids or (B, 1, d) embeddings at positions
+        ``pos`` (B,). Writes their K/V into ``caches`` in place (a row past
+        the end writes nothing and attends over the whole cache, as in
+        JAX); returns (logits, caches)."""
+        h = _embed_inputs(cfg, params["embed"], inputs)
+        max_seq, writes = _writes(caches, pos, 1, device=h.device)
+        pos = pos.to(h.device)
         h, _ = _run(params, h, pos[:, None], "decode", caches=caches,
                     pos=pos, max_seq=max_seq, writes=writes)
         return L.unembed_apply(params["embed"], cfg, h), caches
 
     def prefill_chunk(params, caches, inputs, pos0, rows=None,
                       logits: bool = True):
-        """Chunk-wise prefill: run ``inputs`` (B, C), one chunk of a longer
-        prompt starting at absolute positions ``pos0`` (B,), against the
-        full-length ``caches``, writing the chunk's K/V in place at (cache
-        row, position); positions past the end are dropped. ``rows`` (B,)
-        names the cache row of each input row (default: row b is cache row
-        b), so an engine runs a few slots' chunks on its own cache with no
-        copy of it. Earlier chunks (and any prefix-cache restore) must
-        already occupy positions [0, pos0). Exact only for all-global
-        (padding-safe) models; the serving engine gates on that, and a
-        rolling cache raises ``ValueError``. Returns (logits of every
-        position, or None when ``logits`` is false, caches)."""
-        c = inputs.shape[1]
-        dev = inputs.device
+        """Chunk-wise prefill: run ``inputs`` (B, C) token ids or (B, C, d)
+        embeddings, one chunk of a longer prompt starting at absolute
+        positions ``pos0`` (B,), against the full-length ``caches``,
+        writing the chunk's K/V in place at (cache row, position);
+        positions past the end are dropped. ``rows`` (B,) names the cache
+        row of each input row (default: row b is cache row b), so an engine
+        runs a few slots' chunks on its own cache with no copy of it.
+        Earlier chunks (and any prefix-cache restore) must already occupy
+        positions [0, pos0). Exact only for all-global (padding-safe)
+        models; the serving engine gates on that, and a rolling cache
+        raises ``ValueError``. Returns (logits of every position, or None
+        when ``logits`` is false, caches)."""
+        h = _embed_inputs(cfg, params["embed"], inputs)
+        c, dev = h.shape[1], h.device
         max_seq, writes = _writes(caches, pos0, c, rows, dev)
         rolling = [j for j, s in enumerate(subs) if _rolling(s, max_seq)]
         if rolling:
@@ -445,7 +441,6 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
                              f"caches; subs {rolling} are rolling at "
                              f"max_seq={max_seq}")
         positions = pos0.to(dev)[:, None] + torch.arange(c, device=dev)
-        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
         h, _ = _run(params, h, positions, "chunk", caches=caches,
                     writes=writes, rows=None if rows is None else rows.to(dev))
         if not logits:
@@ -453,14 +448,14 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
         return L.unembed_apply(params["embed"], cfg, h), caches
 
     def decode_verify(params, caches, candidate_tokens, pos):
-        """Speculative-decode verify: score ``candidate_tokens`` (B, K+1),
-        the last emitted token followed by K draft proposals, in one batched
-        call, returning logits for every candidate position. Rides the chunk
-        machinery: candidate K/V is written at absolute positions
-        ``pos..pos+K`` and chunk attention masks ``kpos <= qpos``, so
-        positions past the accepted prefix hold stale K/V that later steps
-        never attend and overwrite in place: rejection is a per-slot
-        position rollback, not a cache rollback."""
+        """Speculative-decode verify: score ``candidate_tokens`` (B, K+1)
+        (or (B, K+1, d) embeddings), the last emitted token followed by K
+        draft proposals, in one batched call, returning logits for every
+        candidate position. Rides the chunk machinery: candidate K/V is
+        written at absolute positions ``pos..pos+K`` and chunk attention
+        masks ``kpos <= qpos``, so positions past the accepted prefix hold
+        stale K/V that later steps never attend and overwrite in place:
+        rejection is a per-slot position rollback, not a cache rollback."""
         return prefill_chunk(params, caches, candidate_tokens, pos)
 
     def init_cache(batch: int, max_seq: int, cache_device=None):
@@ -559,20 +554,20 @@ def _build_ssm(cfg: ModelConfig, device: torch.device):
                 "final_norm": L.zeros(gen, (cfg.d_model,), dtype)}
 
     def prefill(params, inputs, max_seq: int):
-        """inputs: (B, S) token ids. Returns (logits of the last position,
-        caches)."""
+        """inputs: (B, S) token ids or (B, S, d) embeddings. Returns
+        (logits of the last position, caches)."""
         _check_prompt(inputs, max_seq)
-        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        h = _embed_inputs(cfg, params["embed"], inputs)
         h, per_layer = _mamba_prefill(cfg, params["mamba"], h, range(n))
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
         return (L.unembed_apply(params["embed"], cfg, h[:, -1:]),
                 _stack_mamba(per_layer))
 
     def decode(params, caches, inputs, pos):
-        """inputs: (B, 1) token ids (``pos`` is unused: the state carries
-        the position). Writes the new states into ``caches`` in place;
-        returns (logits, caches)."""
-        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        """inputs: (B, 1) token ids or (B, 1, d) embeddings (``pos`` is
+        unused: the state carries the position). Writes the new states into
+        ``caches`` in place; returns (logits, caches)."""
+        h = _embed_inputs(cfg, params["embed"], inputs)
         h = _mamba_decode(cfg, params["mamba"], caches, h, range(n))
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
         return L.unembed_apply(params["embed"], cfg, h), caches
@@ -586,11 +581,11 @@ def _build_ssm(cfg: ModelConfig, device: torch.device):
     layer = _mamba_train_layer(cfg)
 
     def forward(params, inputs):
-        """Train mode. inputs: (B, S) token ids. Returns (logits (B, S,
-        padded vocab) f32, a zero f32 aux), differentiable. Each layer runs
-        under ``cfg.remat_policy``; ``params`` may be stacked or
-        ``split_blocks``'s form."""
-        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        """Train mode. inputs: (B, S) token ids or (B, S, d) embeddings.
+        Returns (logits (B, S, padded vocab) f32, a zero f32 aux),
+        differentiable. Each layer runs under ``cfg.remat_policy``;
+        ``params`` may be stacked or ``split_blocks``'s form."""
+        h = _embed_inputs(cfg, params["embed"], inputs)
         for i in range(n):
             h = layer(_layer(params["mamba"], i), h)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -635,11 +630,11 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device):
                 "final_norm": L.zeros(gen, (cfg.d_model,), dtype)}
 
     def prefill(params, inputs, max_seq: int):
-        """inputs: (B, S) token ids. Returns (logits of the last position,
-        caches)."""
+        """inputs: (B, S) token ids or (B, S, d) embeddings. Returns
+        (logits of the last position, caches)."""
         _check_prompt(inputs, max_seq)
-        positions = torch.arange(inputs.shape[1], device=inputs.device)[None]
-        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        h = _embed_inputs(cfg, params["embed"], inputs)
+        positions = torch.arange(h.shape[1], device=h.device)[None]
         m_caches, s_caches = [], []
         for layers in segments:
             h, cs = _mamba_prefill(cfg, params["mamba"], h, layers)
@@ -656,14 +651,14 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device):
         return L.unembed_apply(params["embed"], cfg, h[:, -1:]), caches
 
     def decode(params, caches, inputs, pos):
-        """inputs: (B, 1) token ids at positions ``pos`` (B,). Writes the
-        new states and K/V into ``caches`` in place; returns (logits,
-        caches)."""
+        """inputs: (B, 1) token ids or (B, 1, d) embeddings at positions
+        ``pos`` (B,). Writes the new states and K/V into ``caches`` in
+        place; returns (logits, caches)."""
         m_caches, s_caches = caches
         max_seq = s_caches["k"].shape[2]
-        write = _write_index(pos, 1, max_seq, device=inputs.device)
-        pos = pos.to(inputs.device)
-        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        h = _embed_inputs(cfg, params["embed"], inputs)
+        write = _write_index(pos, 1, max_seq, device=h.device)
+        pos = pos.to(h.device)
         for a, layers in enumerate(segments):
             h = _mamba_decode(cfg, params["mamba"], m_caches, h, layers)
             h, _ = sub_apply(params["shared"], cfg, shared, h, pos[:, None],
@@ -687,11 +682,11 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device):
         """Train mode, as JAX's: each segment's Mamba2 layers (each under
         ``cfg.remat_policy``), then the shared block in ``train`` mode, not
         remat'd (its gradient sums over its applications); the trailing
-        layers; the final norm. inputs: (B, S) token ids. Returns (logits
-        (B, S, padded vocab) f32, a zero f32 aux). ``params`` may be
-        stacked or ``split_blocks``'s form."""
-        positions = torch.arange(inputs.shape[1], device=inputs.device)[None]
-        h = L.embed_apply(params["embed"], inputs, cfg.d_model)
+        layers; the final norm. inputs: (B, S) token ids or (B, S, d)
+        embeddings. Returns (logits (B, S, padded vocab) f32, a zero f32
+        aux). ``params`` may be stacked or ``split_blocks``'s form."""
+        h = _embed_inputs(cfg, params["embed"], inputs)
+        positions = torch.arange(h.shape[1], device=h.device)[None]
         for layers in segments:
             for i in layers:
                 h = layer(_layer(params["mamba"], i), h)

@@ -31,6 +31,11 @@ Rolling caches (a sliding-window sub whose window is shorter than
 ``max_seq``) and the hybrid's (Mamba state, shared-block K/V) pair scatter
 into slots leaf by leaf like any other cache; both models prefill in exact
 per-length groups and decline chunking and speculation, as in JAX.
+
+Prompts are token ids: a model of the ``embeddings`` input mode
+(``musicgen-medium``, ``internvl2-26b``) is refused at ``submit_request``
+with a ``ValueError`` naming its input mode (JAX's engine takes token
+prompts only too, and fails at that model's first prefill).
 """
 from __future__ import annotations
 
@@ -213,6 +218,12 @@ class ServingEngine:
 
     # -- request API ------------------------------------------------------
     def submit_request(self, tokens, max_new_tokens=16, eos_id=-1) -> Request:
+        if self.cfg.input_mode != "tokens":
+            # the engine serves token prompts only, as JAX's does (its
+            # engine fails at the first prefill of such a model)
+            raise ValueError(f"{self.cfg.name}: input_mode "
+                             f"{self.cfg.input_mode!r} is not served: the "
+                             f"engine takes token prompts only")
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim != 1 or not len(tokens):
             raise ValueError(f"prompt must be a non-empty 1-D token array, "

@@ -3,14 +3,16 @@ the JAX package's ``repro.training.train_step``.
 
 The state keeps JAX's tree, ``{"params", "opt": {"m", "v", "count"[,
 "m_scale", "v_scale"]}}``, so either package's ``CheckpointStore`` restores
-the other's train state. Every family trains: dense, MoE, pure SSM
-(``mamba2-370m``) and the hybrid (``zamba2-1.2b``); only the ``embeddings``
-input mode raises (ROADMAP A.7c). A step differentiates the params with
-each stacked leaf split into its layers (``model.split_blocks``: views of
-the stacked storage; the transformer's super-blocks, the Mamba2 layers), so
-each layer's gradient is its own tensor; the gradients are stacked back
-into the params' layout for the optimizer, which updates the state in place
-(JAX donates it).
+the other's train state. Every config trains: dense, MoE, pure SSM
+(``mamba2-370m``), the hybrid (``zamba2-1.2b``) and the ``embeddings``
+input mode (``musicgen-medium``, ``internvl2-26b``: a batch's inputs are
+(B, S, d) float embeddings, which carry no gradient; the tied table gets
+its gradient through the unembedding alone). A step differentiates the
+params with each stacked leaf split into its layers
+(``model.split_blocks``: views of the stacked storage; the transformer's
+super-blocks, the Mamba2 layers), so each layer's gradient is its own
+tensor; the gradients are stacked back into the params' layout for the
+optimizer, which updates the state in place (JAX donates it).
 """
 from __future__ import annotations
 
@@ -19,7 +21,6 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.model import check_trainable
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_map
 
@@ -112,13 +113,13 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig,
     """Returns train_step(state, batch) -> (state, metrics).
 
     state = {"params": ..., "opt": ...}, updated in place; batch =
-    {"inputs": (B, S), "labels": (B, S)} on the model's device. B must be
+    {"inputs": (B, S) token ids or (B, S, d) embeddings, "labels": (B, S)}
+    on the model's device. B must be
     divisible by ``ts.microbatches``; with more than one, the gradients
     are summed in ``grad_accum_dtype``, each divided by the count, as JAX
     sums them. metrics: ``loss``, ``aux_loss``, ``grad_norm``, ``lr`` as
     0-dim tensors on the device. Padded-head archs get their padded q-head
     slices grad-masked (``model.grad_masks``; none on one card)."""
-    check_trainable(cfg)
     loss_fn = make_loss_fn(model, cfg, ts)
     adt = getattr(torch, opt_cfg.grad_accum_dtype)
 

@@ -2,8 +2,8 @@
 ``repro.cli``: the lifecycle commands and their JSON, the malformed serving
 knobs of ``tests/test_cli_validation.py``, ``serve --record`` with the JAX
 CLI's tokens per prompt (both packages' served-model caches hold one float32
-reduced model), ``trace --json``, the training service raising with its
-ROADMAP item, the autoscaler's SLO config and ``rebalance``/``resize`` as
+reduced model), ``trace --json``, the training service applied for an
+``embeddings``-input arch as JAX's, the autoscaler's SLO config and ``rebalance``/``resize`` as
 JAX's, and the driver's shared-prefix prompts and merged Poisson schedule
 equal to JAX's."""
 import dataclasses
@@ -212,19 +212,30 @@ def test_cli_trace_json(tmp_path, capsys, seeded_models):
         cli.main(["trace", "--records", str(tmp_path / "empty.jsonl")])
 
 
-# -- what is not ported yet raises with its ROADMAP item; A.6 is ported ------
+# -- the trainer for an embeddings-input arch; the elastic path (A.6) --------
 
-def test_lm_trainer_fails_apply_naming_a7(tmp_path):
-    """The trainer is ported for every token-input family (A.7, A.7b); an
-    embeddings-input arch's trainer fails at apply naming A.7c, what is
-    left of A.7."""
-    d = _init(tmp_path, services_=["volumes", "lm-trainer"])
-    vre_json = d / "vre.json"
-    conf = json.loads(vre_json.read_text())
-    conf["arch"] = "musicgen-medium"
-    vre_json.write_text(json.dumps(conf))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.7c"):
-        cli.main(["apply", "--dir", str(d)])
+def test_lm_trainer_applies_for_an_embeddings_arch(tmp_path, capsys):
+    """``cli apply`` of a VRE with ``data`` and ``lm-trainer`` at
+    ``arch="musicgen-medium"`` (the ``embeddings`` input mode) runs in both
+    packages, every service healthy, with the JAX CLI's keys."""
+    docs = {}
+    for name, main in (("jax", jax_cli.main), ("port", cli.main)):
+        d = _init(tmp_path, name=name, main=main,
+                  services_=["volumes", "data", "lm-trainer"],
+                  extra={"global_batch": 2, "seq_len": 16})
+        conf = json.loads((d / "vre.json").read_text())
+        conf["arch"] = "musicgen-medium"
+        (d / "vre.json").write_text(json.dumps(conf))
+        capsys.readouterr()
+        main(["apply", "--dir", str(d)])
+        out = capsys.readouterr().out
+        assert "RUNNING (3 services" in out
+        main(["status", "--dir", str(d)])
+        docs[name] = json.loads(capsys.readouterr().out)["status"]
+    for status in docs.values():
+        assert set(status["services"]) == {"volumes", "data", "lm-trainer"}
+        assert all(s["healthy"] for s in status["services"].values())
+    assert docs["port"].keys() == docs["jax"].keys()
 
 
 def test_autoscale_fails_naming_a6(tmp_path):

@@ -30,6 +30,12 @@ CASES = [
     (1, 1900, 16, 8, 256, 0, 0.0),
     (4, 1024, 64, 8, 128, 0, 0.0),
     (1, 1024, 32, 32, 64, 0, 0.0),
+    # the embeddings input mode: musicgen-medium's training microbatch (MHA,
+    # 24 heads of 64) and internvl2-26b's training batch and forward (48 q
+    # over 8 kv heads of 128)
+    (4, 2048, 24, 24, 64, 0, 0.0),
+    (2, 2048, 48, 8, 128, 0, 0.0),
+    (2, 1024, 48, 8, 128, 0, 0.0),
 ]
 
 
@@ -227,6 +233,10 @@ BWD_CASES = [
     (1, 1000, 16, 2, 128, 300, 0.0),
     (1, 1000, 8, 4, 64, 200, 50.0),
     (1, 1000, 16, 2, 128, 0, 50.0),
+    # the embeddings input mode's training shapes: musicgen-medium's MHA
+    # (GQA ratio 1, 24 heads of 64) and internvl2-26b's 48/8 heads of 128
+    (4, 2048, 24, 24, 64, 0, 0.0),
+    (2, 2048, 48, 8, 128, 0, 0.0),
 ]
 
 
@@ -329,7 +339,8 @@ def test_grouped_matmul_backward_matches_plain_backward(e, c, d, f, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,h,kv,d", [(2, 1024, 8, 2, 128),
-                                        (2, 1000, 16, 8, 64)])
+                                        (2, 1000, 16, 8, 64),
+                                        (4, 2048, 24, 24, 64)])
 def test_flash_backward_runs_agree(b, s, h, kv, d):
     """Two bf16 backward calls on the same inputs: dK and dV (summed in
     registers) are equal bit for bit; dQ (summed by f32 atomics, in an order

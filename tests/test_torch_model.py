@@ -228,9 +228,17 @@ def test_greedy_tokens_match_jax():
 
 
 def test_unported_configs_raise():
-    # the embeddings input mode (a stub front end feeding the model) belongs
-    # to the training slice
+    """Every config of the repo builds, the ``embeddings`` input mode's
+    (musicgen, internvl2) among them; a family neither package has raises
+    ``ValueError`` naming it, as JAX's ``build_model`` does."""
     for arch in ("musicgen-medium", "internvl2-26b"):
-        with pytest.raises(NotImplementedError,
-                           match="input_mode 'embeddings' not ported"):
-            build_model(t_reduced(t_get_config(arch)), device="cpu")
+        model = build_model(t_reduced(t_get_config(arch)), device="cpu")
+        assert model.cfg.input_mode == "embeddings"
+    cfg = dataclasses.replace(reduced(get_config("yi-9b")), family="rnn")
+    with pytest.raises(ValueError, match="rnn") as jax_exc:
+        jax_build(cfg)
+    tcfg = dataclasses.replace(t_reduced(t_get_config("yi-9b")),
+                               family="rnn")
+    with pytest.raises(ValueError, match="rnn") as exc:
+        build_model(tcfg, device="cpu")
+    assert str(exc.value) == str(jax_exc.value)

@@ -166,3 +166,18 @@ def test_device_kernels_profiles_one_call_after_a_warm_one():
     calls = []
     assert device_kernels(lambda: calls.append(torch.ones(4) + 1)) == {}
     assert len(calls) == 2
+
+
+@pytest.mark.parametrize("guard_s", [None, 0.01])
+def test_recorded_call_keeps_its_guard_from_the_step_edges(guard_s):
+    """The recorded call starts no sooner than the guard after its step
+    opens, and the step closes no sooner than the guard after it ends, so a
+    device record a little off the host's clock stays in the window."""
+    from repro_torch.kernels.profiling import HOST_GUARD_S, recorded_events
+    guard_us = (HOST_GUARD_S if guard_s is None else guard_s) * 1e6
+    events = recorded_events(lambda: torch.ones(4) + 1, guard_s)
+    step = next(e for e in events if e.name.startswith("ProfilerStep"))
+    ops = [e for e in events if e.name == "aten::add"]
+    assert len(ops) == 1
+    assert ops[0].time_range.start - step.time_range.start >= guard_us
+    assert step.time_range.end - ops[0].time_range.end >= guard_us

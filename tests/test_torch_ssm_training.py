@@ -3,8 +3,9 @@ float32 on the CPU, reduced mamba2-370m (2 layers) and zamba2-1.2b (14
 layers: two segments of 6, each followed by the shared block, and 2
 trailing): ``forward``'s logits and the loss gradients of every param,
 five train steps from bridged params (losses, grad norms, lr, params),
-per-layer gradients from ``split_blocks``, the remat policies, and
-``launch/train.py`` saving and resuming."""
+per-layer gradients from ``split_blocks``, the remat policies, the SSM's
+train steps in the ``embeddings`` input mode, and ``launch/train.py``
+saving and resuming."""
 import dataclasses
 
 import numpy as np
@@ -204,13 +205,36 @@ def test_remat_policies_give_the_same_gradients(policy):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
 
 
-def test_embeddings_input_mode_still_raises_naming_a7c():
-    cfg = t_reduced(t_get_config("musicgen-medium"))
-    with pytest.raises(NotImplementedError, match=r"A\.7c"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"A\.7c"):
-        tts.make_train_step(None, cfg, OptimizerConfig(),
-                            tts.TrainStepConfig())
+def test_embeddings_input_mode_trains_the_ssm():
+    """The SSM stack switched to the ``embeddings`` input mode (JAX's
+    ``_embed_inputs`` serves every builder), each layer remat'd: three
+    train steps on (B, S, d) embedding batches from bridged params give
+    JAX's losses, grad norms and params, and every leaf, the first layer's
+    among them, a non-zero gradient."""
+    jcfg, tcfg = _cfgs("mamba2-370m", input_mode="embeddings",
+                       remat_policy="full")
+    jmodel = jax_build(jcfg)
+    jstate, _ = jts.init_state(jmodel, JaxOpt(**OPT), jax.random.PRNGKey(0))
+    jstep = jax.jit(jts.make_train_step(jmodel, jcfg, JaxOpt(**OPT),
+                                        jts.TrainStepConfig()))
+    tstate = train_state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
+    tstep = tts.make_train_step(build_model(tcfg, device="cpu"), tcfg,
+                                OptimizerConfig(**OPT), tts.TrainStepConfig())
+    rng = np.random.default_rng(3)
+    for batch in _batches(jcfg.vocab_size, 3, b=2):
+        batch["inputs"] = rng.standard_normal(
+            (2, 64, jcfg.d_model)).astype(np.float32)
+        jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))
+        tstate, tm = tstep(tstate, _tb(batch))
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                       rtol=1e-5, err_msg=key)
+    for g, w in zip(adamw.leaves(tstate["params"]),
+                    jax.tree.leaves(jstate["params"])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-5,
+                                   rtol=5e-4)
+    paths = jax.tree_util.tree_leaves_with_path(tstate["opt"]["m"])
+    assert [p for p, m in paths if not m.any()] == []
 
 
 def test_launch_train_mamba2_saves_and_resumes(tmp_path, capsys):

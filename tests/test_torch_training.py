@@ -1,8 +1,10 @@
 """The port's training path against the JAX package's, float32 on the CPU:
 the loss, the microbatch pick, the gradients of the flash op's and the
 grouped matmul's plain paths, five train steps of reduced yi-9b,
-granite-moe and gemma2 from bridged params at 1 and 2 microbatches, and the
-remat policies. The SSM and hybrid are in test_torch_ssm_training.py."""
+granite-moe and gemma2, and of musicgen and internvl2 on (B, S, d)
+embedding batches (each block remat'd), from bridged params at 1 and 2
+microbatches, and the remat policies. The SSM and hybrid are in
+test_torch_ssm_training.py."""
 import dataclasses
 
 import numpy as np
@@ -34,6 +36,10 @@ from repro_torch.optim.adamw import OptimizerConfig  # noqa: E402
 from repro_torch.training import train_step as tts  # noqa: E402
 
 TRANSFORMERS = ["yi-9b", "granite-moe-1b-a400m", "gemma2-27b"]
+# the embeddings input mode, each super-block under remat "full" on both
+# sides: the blocks' input (the batch) needs no gradient, and the first
+# block's params get theirs all the same
+EMBEDDINGS = ["musicgen-medium", "internvl2-26b"]
 OPT = dict(warmup_steps=2, total_steps=10)
 
 
@@ -45,12 +51,17 @@ def _cfgs(arch, **over):
     return jcfg, tcfg
 
 
-def _batches(vocab, n, b=4, s=32, seed=0):
+def _batches(vocab, n, b=4, s=32, seed=0, d=0):
+    """Token batches, or with ``d`` unit-scale (B, S, d) f32 embeddings
+    beside the token labels."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
         toks = rng.integers(1, vocab, size=(b, s + 1)).astype(np.int32)
         out.append({"inputs": toks[:, :-1], "labels": toks[:, 1:]})
+        if d:
+            out[-1]["inputs"] = rng.standard_normal((b, s, d)).astype(
+                np.float32)
     return out
 
 
@@ -157,10 +168,13 @@ def _jax_and_port(arch, mb, **over):
 
 
 @pytest.mark.parametrize("mb", [1, 2])
-@pytest.mark.parametrize("arch", TRANSFORMERS)
+@pytest.mark.parametrize("arch", TRANSFORMERS + EMBEDDINGS)
 def test_train_step_matches_jax_over_five_steps(arch, mb):
-    jcfg, jstate, jstep, tstate, tstep = _jax_and_port(arch, mb)
-    for batch in _batches(jcfg.vocab_size, 5):
+    embeddings = arch in EMBEDDINGS
+    jcfg, jstate, jstep, tstate, tstep = _jax_and_port(
+        arch, mb, **({"remat_policy": "full"} if embeddings else {}))
+    d = jcfg.d_model if embeddings else 0
+    for batch in _batches(jcfg.vocab_size, 5, d=d):
         jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))
         tstate, tm = tstep(tstate, _tb(batch))
         # f32 both sides: the loss over 128 tokens and the grad norm over
@@ -177,6 +191,11 @@ def test_train_step_matches_jax_over_five_steps(arch, mb):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-5,
                                    rtol=5e-4)
     assert int(tstate["opt"]["count"]) == 5
+    if embeddings:
+        # every leaf, the first block's among them, had a non-zero gradient
+        # (its first moment is not zero)
+        paths = jax.tree_util.tree_leaves_with_path(tstate["opt"]["m"])
+        assert [p for p, m in paths if not m.any()] == []
 
 
 def test_moe_aux_term_is_differentiable():

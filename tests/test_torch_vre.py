@@ -13,7 +13,11 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+import repro.core.services  # noqa: E402,F401  (registers JAX's services)
 from repro.checkpoint.store import CheckpointStore as JaxStore  # noqa: E402
+from repro.core.vre import VREConfig as JaxVREConfig  # noqa: E402
+from repro.core.vre import \
+    VirtualResearchEnvironment as JaxVRE  # noqa: E402
 from repro.data.pipeline import DataConfig as JaxDataConfig  # noqa: E402
 from repro.data.pipeline import SyntheticLMData as JaxData  # noqa: E402
 import repro_torch.core.services  # noqa: E402,F401  (registers the packages)
@@ -130,13 +134,24 @@ def test_vre_services_work_end_to_end(tmp_path):
 
 
 def test_failed_build_releases_what_was_built(tmp_path):
-    # an embeddings-input arch's trainer fails at build (ROADMAP A.7c)
-    cfg = VREConfig(name="t", services=["volumes", "lm-trainer"],
-                    arch="musicgen-medium", provider="cpu",
-                    workdir=str(tmp_path))
-    vre = VirtualResearchEnvironment(cfg)
-    with pytest.raises(NotImplementedError, match=r"A\.7c"):
-        vre.instantiate()
+    """A service that fails at build after another was built (an
+    autoscaled ``lm-server`` whose SLO config declares no target: JAX's VRE
+    fails there with the same message) leaves nothing behind in the port:
+    no service, no mesh, not RUNNING. (JAX's VRE keeps the services built
+    before the failure.)"""
+    kw = dict(name="t", services=["volumes", "lm-server"], arch="yi-9b",
+              provider="cpu", extra={"replicas": 1, "slots": 2,
+                                     "max_seq": 64, "autoscale": True,
+                                     "slo": {"window_s": 5.0}})
+    errors = {}
+    for name, config, vre_cls in (
+            ("jax", JaxVREConfig, JaxVRE),
+            ("port", VREConfig, VirtualResearchEnvironment)):
+        vre = vre_cls(config(workdir=str(tmp_path / name), **kw))
+        with pytest.raises(ValueError, match="declares no targets") as exc:
+            vre.instantiate()
+        errors[name] = str(exc.value)
+    assert errors["port"] == errors["jax"]
     assert vre.services == {} and vre.mesh is None
     assert vre.state != "RUNNING"
 
