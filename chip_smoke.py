@@ -46,7 +46,16 @@ repro_torch.launch.train --arch musicgen-medium`` at full width and depth
 restored state equal leaf for leaf) with one profiled step,
 internvl2-26b at full width and depth (prefill + decode against its
 forward), internvl2-26b at full width cut to 4 layers (3 steps) and a
-VRE's ``data`` and ``lm-trainer`` on musicgen-medium (3 steps); each with
+VRE's ``data`` and ``lm-trainer`` on musicgen-medium (3 steps); then the
+distributed layer (``distributed_granite``): two ranks share the card over
+gloo (``repro_torch.distributed.spawn``; every collective staged through
+pinned host memory, counted by op) on a (data 1, model 2) mesh, granite at
+full width and depth in bf16 ("heads" mode: 8 of 16 q heads, 4 of 8 kv
+heads and 16 of 32 experts a rank, the MoE expert-parallel) for two
+sharded train steps against the same steps unsharded (losses, every param
+gathered), then at 2 layers in f32 at the CPU tests' tolerances, with each
+rank's kernel launches, ms a step and peak memory, and each local kernel
+shape against its plain version; each with
 exact forward and backward launch counts; full-width (depth 2, float32)
 engine tokens against a reference for yi-9b and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
 same engine on the CPU), and for yi-9b with chunked prefill, the prefix
@@ -113,10 +122,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-H100_BF16_FLOPS = 989e12      # dense tensor-core peak, H100 SXM data sheet
-H100_F32_FLOPS = 67e12        # f32 outside the tensor cores
-H100_TF32_FLOPS = 495e12      # dense TF32 tensor-core peak
-H100_BYTES_PER_S = 3.35e12
+# the H100 SXM data sheet's rates, one place for the port and this check
+from repro_torch.launch.mesh import (H100_BF16_FLOPS,  # noqa: E402
+                                     H100_BYTES_PER_S, H100_F32_FLOPS,
+                                     H100_TF32_FLOPS)
 
 # flash attention: the sweep of tests/test_kernels.py, (B, S, H, KV, D,
 # window, softcap), and the serving prefill shapes at full width
@@ -1445,6 +1454,303 @@ def embeddings_phases(smi: str, ops: dict) -> dict:
     return counts
 
 
+# the distributed_granite phase: two ranks share the one card on a (data 1,
+# model 2) mesh (NCCL takes one rank a card, so they run gloo); two train
+# steps of one fixed batch, sharded, against the same steps unsharded
+DIST_GRANITE = dict(arch="granite-moe-1b-a400m", layers=None,
+                    dtype="bfloat16", batch=4, seq=2048, microbatches=2,
+                    steps=2)
+# its f32 check at 2 layers, held as the CPU tests hold the sharded step
+DIST_GRANITE_F32 = dict(DIST_GRANITE, layers=2, dtype="float32", seq=1024)
+
+
+def _dist_config(run):
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(run["arch"])
+    if run.get("reduced"):
+        cfg = reduced(cfg)
+    return dataclasses.replace(
+        cfg, dtype=run["dtype"],
+        num_layers=run["layers"] or cfg.num_layers)
+
+
+def _param_diff(got, want, m, bound):
+    """(max |got - want|, elements past ``bound(want)``, of them the ones
+    whose first moment ``m`` is not below 1e-3 of the leaf's largest)."""
+    diff = (got.float() - want.float()).abs()
+    off = diff > bound(want.float().abs())
+    live = off & (m.float().abs() >= 1e-3 * float(m.float().abs().max()))
+    return float(diff.max()), int(off.sum()), int(live.sum())
+
+
+def distributed_rank(rank, world, run):
+    """One rank of the distributed_granite phase (spawned by
+    ``repro_torch.distributed.spawn.run_ranks``): granite at ``run``'s depth
+    and dtype on a (data 1, model ``world``) mesh ("heads" mode: each rank
+    8 of the 16 q heads, 4 of 8 kv heads, 16 of 32 experts). Rank 0 first
+    takes ``run["steps"]`` unsharded steps of the full params (drawn from
+    seed 0 on the device, the same on every rank) and keeps them on the
+    host; then every rank takes the sharded steps, timed, with the
+    launches of the flash and grouped-matmul kernels (forward and
+    backward) and the kernels' local shapes recorded; each rank's peak
+    memory; the collectives by op (DTensor's and the port's helpers',
+    each staged through the host); the sharded params gathered and held to
+    the unsharded ones; each local shape's kernel against its plain
+    version."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         attention_ref_bwd)
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers, moe
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import OptimizerConfig, leaves
+    from repro_torch.training import train_step as ts
+    dev = run["device"]
+    cuda = dev == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = {"flash_attention": fa_ops, "grouped_matmul": gmm_ops}
+    for op in ops.values():
+        if cuda:
+            op.load_library()
+    cfg = _dist_config(run)
+    b, s, mb, steps = run["batch"], run["seq"], run["microbatches"], \
+        run["steps"]
+    mesh = make_test_mesh((1, world), ("data", "model"), device_type=dev)
+    policy, par = specs.make_policy(cfg, ShapeConfig("t", s, b, "train"),
+                                    mesh)
+    ocfg = OptimizerConfig(warmup_steps=2, total_steps=100)
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size,
+                                             size=(b, s + 1))
+    batch = {"inputs": torch.as_tensor(toks[:, :-1], device=dev),
+             "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+    sharded = build_model(cfg, dev, mesh, par, policy)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {"rank": rank, "mode": policy.mode, "h_pad": policy.h_pad,
+           "backend": dist.get_backend(), "layers": cfg.num_layers,
+           "dtype": cfg.dtype}
+
+    def steps_of(step_fn, state):
+        losses, ms = [], []
+        for _ in range(steps):
+            sync()
+            t = time.perf_counter()
+            state, met = step_fn(state, batch)
+            losses.append(float(met["loss"]))       # waits for the step
+            ms.append((time.perf_counter() - t) * 1e3)
+        return state, losses, ms
+
+    ref = None
+    if rank == 0:
+        plain = build_model(cfg, dev)
+        state = ts.init_state(plain, ocfg, torch.Generator(
+            device=dev).manual_seed(0))
+        state, out["unsharded_losses"], out["unsharded_ms"] = steps_of(
+            ts.make_train_step(plain, cfg, ocfg,
+                               ts.TrainStepConfig(microbatches=mb)), state)
+        ref = ([t.cpu() for t in leaves(state["params"])],
+               [t.cpu() for t in leaves(state["opt"]["m"])])
+        del state, plain
+    dist.barrier()
+    # the same params, drawn whole on every rank and distributed
+    state = ts.init_state(sharded, ocfg,
+                          torch.Generator(device=dev).manual_seed(0))
+    step_fn = ts.make_train_step(sharded, cfg, ocfg,
+                                 ts.TrainStepConfig(microbatches=mb))
+    # the kernels' local shapes, by shims over the names the model calls
+    shapes = {"flash_attention": set(), "grouped_matmul": set()}
+    fa_call, gmm_call = layers.flash_attention, moe.grouped_matmul
+
+    def fa_shim(q, k, v, **kw):
+        shapes["flash_attention"].add((tuple(q.shape), tuple(k.shape),
+                                       str(q.dtype), q.is_contiguous()))
+        return fa_call(q, k, v, **kw)
+
+    def gmm_shim(x, w):
+        shapes["grouped_matmul"].add((tuple(x.shape), tuple(w.shape),
+                                      str(x.dtype), x.is_contiguous()
+                                      and w.is_contiguous()))
+        return gmm_call(x, w)
+    layers.flash_attention, moe.grouped_matmul = fa_shim, gmm_shim
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches(ops)
+    comm.staged.clear()
+    comm.host_staged.clear()
+    try:
+        state, out["losses"], out["ms"] = steps_of(step_fn, state)
+    finally:
+        layers.flash_attention, moe.grouped_matmul = fa_call, gmm_call
+    out["launches"] = {**{n: op.launches for n, op in ops.items()},
+                       **{f"{n}_bwd": op.bwd_launches
+                          for n, op in ops.items()}}
+    out["grouped_matmul_by_variant"] = dict(gmm_ops.launches_by_variant)
+    out["staged"] = dict(comm.staged)
+    out["host_staged_bytes"] = dict(comm.host_staged)
+    out["peak_memory_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                             if cuda else None)
+    out["local_shapes"] = {k: sorted(v) for k, v in shapes.items()}
+    out["placements"] = {"wq": str(state["params"]["blocks"][0]["attn"]["wq"]
+                                   .placements),
+                         "experts": str(state["params"]["blocks"][0]["moe"]
+                                        ["wi"].placements),
+                         "local_experts": state["params"]["blocks"][0]["moe"]
+                         ["wi"].to_local().shape[1]}
+    # the sharded params gathered whole, held to the unsharded ones: bf16
+    # within what two Adam steps can move a param (the normalised step is
+    # at most ~1, so 2 lr a step, lr 1.5e-4 then 3e-4 here) and two bf16
+    # roundings of it (2^-6 of it); f32 at the CPU tests' atol 1e-4, rtol
+    # 1e-3
+    lr_sum = sum(float(adamw.schedule(ocfg, torch.tensor(i)))
+                 for i in range(1, steps + 1))
+    if cfg.dtype == "bfloat16":
+        bound = lambda w: 2.2 * lr_sum + 2 ** -6 * w
+    else:
+        bound = lambda w: 1e-4 + 1e-3 * w
+    worst = {"max_abs_diff": 0.0, "past_tol": 0, "past_tol_live_moment": 0,
+             "leaf": None, "lr_sum": lr_sum}
+    for i, p in enumerate(leaves(state["params"])):
+        full = p.full_tensor().cpu()
+        if ref is not None:
+            d, off, live = _param_diff(full, ref[0][i], ref[1][i], bound)
+            worst["past_tol"] += off
+            worst["past_tol_live_moment"] += live
+            if d > worst["max_abs_diff"]:
+                worst.update(max_abs_diff=d, leaf=i)
+    out["param_diff"] = worst
+    out["params"] = sum(t.numel() for t in leaves(state["params"]))
+    del state, step_fn
+    # every local shape against its plain version, forward and backward
+    checks = []
+    g = torch.Generator(device=dev).manual_seed(rank + 1)
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+    for qs, ks, dt, contiguous in out["local_shapes"]["flash_attention"]:
+        dtype = getattr(torch, dt.removeprefix("torch."))
+        q, k, v = (rand(sh, dtype) for sh in (qs, ks, ks))
+        dout = rand(qs, dtype)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fa_ops.flash_attention(qg, kg, vg)
+        grads = torch.autograd.grad(o, (qg, kg, vg), dout)
+        r = attention_ref(q.float(), k.float(), v.float())
+        rg = attention_ref_bwd(q.float(), k.float(), v.float(), dout.float())
+        # chip_smoke's flash tolerances (section 3)
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        err, ok = close(o, r, tol)
+        gerr = max(float((a.float() - c).abs().max()) / float(c.abs().max())
+                   for a, c in zip(grads, rg))
+        checks.append({"kernel": "flash_attention", "q": list(qs),
+                       "kv": list(ks), "dtype": dt, "contiguous": contiguous,
+                       "max_abs_err": err, "bwd_err_of_max": gerr,
+                       "tol": tol, "ok": ok and gerr <= tol})
+    for xs, ws, dt, contiguous in out["local_shapes"]["grouped_matmul"]:
+        dtype = getattr(torch, dt.removeprefix("torch."))
+        x, w = rand(xs, dtype, 0.3), rand(ws, dtype, 0.3)
+        dy = rand((xs[0], xs[1], ws[2]), dtype, 0.3)
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        o = gmm_ops.grouped_matmul(xg, wg)
+        dx, dw = torch.autograd.grad(o, (xg, wg), dy)
+        xr, wr = (t.float().requires_grad_() for t in (x, w))
+        r = grouped_matmul_ref(xr, wr)
+        rx, rw = torch.autograd.grad(r, (xr, wr), dy.float())
+        tol = 3e-2 if dtype == torch.bfloat16 else 3e-4
+        err, ok = close(o, r.detach(), tol)
+        gerr = max(float((a.float() - c).abs().max()) / float(c.abs().max())
+                   for a, c in ((dx, rx), (dw, rw)))
+        checks.append({"kernel": "grouped_matmul", "x": list(xs),
+                       "w": list(ws), "dtype": dt, "contiguous": contiguous,
+                       "max_abs_err": err, "bwd_err_of_max": gerr,
+                       "tol": tol, "ok": ok and gerr <= tol})
+    out["kernel_checks"] = checks
+    return out
+
+
+def distributed_phases(smi: str) -> dict:
+    """distributed_granite: ``distributed_rank`` on two ranks that share
+    the card, at full width and depth in bf16, then at 2 layers in f32;
+    fails on a rank's error, a kernel that disagrees with its plain
+    version at a local shape, launches off the exact count, or sharded
+    steps off the unsharded ones. Returns the bf16 run's launches a rank."""
+    from repro_torch.distributed.spawn import run_ranks
+    counts = {}
+    for label, run in (("distributed_granite", DIST_GRANITE),
+                       ("distributed_granite_f32", DIST_GRANITE_F32)):
+        t0 = time.perf_counter()
+        outs = run_ranks(distributed_rank, 2, backend="gloo",
+                         device_type="cuda", args=(dict(run, device="cuda"),),
+                         timeout=600, threads=0)
+        r0 = outs[0]
+        layers, steps, mbs = r0["layers"], run["steps"], run["microbatches"]
+        # remat "full": the forward kernels twice a layer a microbatch
+        per = layers * mbs * steps
+        want = {"flash_attention": 2 * per, "flash_attention_bwd": per,
+                "grouped_matmul": 6 * per, "grouped_matmul_bwd": 6 * per}
+        bf16 = run["dtype"] == "bfloat16"
+        # bf16: each step's loss within 1e-2 relative of the unsharded one
+        # (the sharded sums round in another order through 24 layers) and
+        # every param within ``distributed_rank``'s bound; f32: the CPU
+        # tests' tolerances (a param past them only where its first moment
+        # is near zero, at most 1e-5 of the params)
+        loss_rtol = 1e-2 if bf16 else 1e-4
+        loss_ok = all(abs(a - b) <= loss_rtol * abs(b) for a, b in zip(
+            r0["losses"], r0["unsharded_losses"]))
+        diff = r0["param_diff"]
+        if bf16:
+            param_tol = "2.2 x the lr summed over the steps + 2^-6 |p|"
+            params_ok = diff["past_tol"] == 0
+        else:
+            param_tol = "atol 1e-4, rtol 1e-3 (past it only a near-zero " \
+                        "first moment, at most 1e-5 of the params)"
+            params_ok = diff["past_tol_live_moment"] == 0 and \
+                diff["past_tol"] <= 1e-5 * r0["params"]
+        checks = [c for o in outs for c in o["kernel_checks"]]
+        emit({"phase": label, "arch": run["arch"], "layers": layers,
+              "dtype": r0["dtype"], "ranks": 2, "mesh": {"data": 1,
+                                                         "model": 2},
+              "mode": r0["mode"], "h_pad": r0["h_pad"],
+              "backend": r0["backend"],
+              "staging": "every collective of a CUDA tensor through pinned "
+                         "host memory (gloo takes none)",
+              "staged_by_op": [o["staged"] for o in outs],
+              "host_staged_bytes": [o["host_staged_bytes"] for o in outs],
+              "placements": r0["placements"],
+              "batch": run["batch"], "seq": run["seq"],
+              "microbatches": mbs, "losses": r0["losses"],
+              "unsharded_losses": r0["unsharded_losses"],
+              "loss_rtol": loss_rtol,
+              "param_diff": diff, "param_tol": param_tol,
+              "sharded_ms_a_step": [o["ms"] for o in outs],
+              "unsharded_ms_a_step": r0["unsharded_ms"],
+              "peak_memory_gb_a_rank": [o["peak_memory_gb"] for o in outs],
+              "launches_a_rank": [o["launches"] for o in outs],
+              "expected_launches_a_rank": want,
+              "local_shapes": r0["local_shapes"], "kernel_checks": checks,
+              "card": smi, "seconds": time.perf_counter() - t0})
+        bad = [c for c in checks if not c["ok"]]
+        if bad:
+            fail(f"{label}: kernels disagree with their plain versions at "
+                 f"local shapes: {bad}")
+        if any(o["launches"] != want for o in outs):
+            fail(f"{label}: launches {[o['launches'] for o in outs]}, "
+                 f"expected {want} a rank")
+        if not (loss_ok and params_ok and all(np.isfinite(r0["losses"]))):
+            fail(f"{label}: sharded losses {r0['losses']} against "
+                 f"{r0['unsharded_losses']}, params {diff} (tol "
+                 f"{param_tol})")
+        if label == "distributed_granite":
+            counts[label] = {**outs[0]["launches"], "ssd": 0, "ssd_bwd": 0,
+                             "grouped_matmul_by_variant":
+                             outs[0]["grouped_matmul_by_variant"]}
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2222,6 +2528,8 @@ def main():
     # -- 4b. training on the card -----------------------------------------
     train_counts = training_phases(smi, ops)
     train_counts.update(embeddings_phases(smi, ops))
+    # -- 4c. the distributed layer: two ranks share the card --------------
+    train_counts.update(distributed_phases(smi))
 
     # -- 5. full width, depth 2, float32: engine tokens == a reference -----
     def faults(monitor) -> list:

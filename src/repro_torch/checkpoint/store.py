@@ -7,7 +7,12 @@ GlusterFS-storage-node analogue from the paper:
   * writes are asynchronous (background thread) with a versioned manifest
     and an atomic COMMIT marker — the trainer never blocks on I/O;
   * ``restore`` puts each leaf on the device of the matching leaf of
-    ``like``.
+    ``like``, or, given ``placements``, distributes it onto a mesh (which
+    may differ from the one it was saved from: an elastic restart).
+
+A DTensor leaf (a sharded train state) is saved as its full value: every
+rank of its mesh gathers it (a collective, so every rank calls ``save``)
+and global rank 0 alone writes the step.
 
 A port of the JAX package's ``repro.checkpoint.store`` to nested dicts and
 lists of torch tensors, in the same on-disk format, so either package
@@ -30,6 +35,9 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import distribute_full
 
 # numpy can't natively serialize bf16/f8 — bit-cast through a same-width
 # unsigned int and restore via the manifest's dtype record
@@ -46,8 +54,11 @@ def _dtype_name(v) -> str:
 
 def _to_savable(v) -> np.ndarray:
     """A leaf as the numpy array written to disk (exotic floats as their
-    bits in an unsigned integer of the same width)."""
+    bits in an unsigned integer of the same width); a DTensor's full
+    value."""
     name = _dtype_name(v)
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
     if isinstance(v, torch.Tensor):
         # a copy even on the CPU: the train step updates its state in
         # place while an asynchronous save is still writing it
@@ -67,15 +78,22 @@ def _from_saved(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _flatten_with_paths(tree, prefix: tuple = ()) -> List[Tuple[str, Any]]:
+def _flatten_with_paths(tree, prefix: tuple = (),
+                        pair: bool = False) -> List[Tuple[str, Any]]:
     """(key, leaf) pairs in ``jax.tree_util``'s order: dict keys sorted,
-    list and tuple items by index, None an empty subtree."""
+    list and tuple items by index, None an empty subtree. With ``pair``, a
+    2-tuple whose first item is not a container (a (mesh, placements)
+    pair) is a leaf."""
+    if pair and isinstance(tree, tuple) and len(tree) == 2 and \
+            not isinstance(tree[0], (dict, list, tuple)):
+        return [("/".join(prefix), tree)]
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
-                for kv in _flatten_with_paths(tree[k], prefix + (str(k),))]
+                for kv in _flatten_with_paths(tree[k], prefix + (str(k),),
+                                              pair)]
     if isinstance(tree, (list, tuple)):
         return [kv for i, v in enumerate(tree)
-                for kv in _flatten_with_paths(v, prefix + (str(i),))]
+                for kv in _flatten_with_paths(v, prefix + (str(i),), pair)]
     if tree is None:
         return []
     return [("/".join(prefix), tree)]
@@ -119,14 +137,19 @@ class CheckpointStore:
 
     def save(self, state: Any, step: int, blocking: bool = False):
         """Copy to the host + async write; atomic COMMIT marker at the
-        end."""
-        host_leaves = [(k, _dtype_name(v), _to_savable(v))
-                       for k, v in _flatten_with_paths(state)]
+        end. A state with DTensor leaves is gathered on every rank and
+        written by global rank 0 alone (the others return the manifest and
+        write nothing)."""
+        flat = _flatten_with_paths(state)
+        host_leaves = [(k, _dtype_name(v), _to_savable(v)) for k, v in flat]
+        writer = not any(isinstance(v, DTensor) for _, v in flat) or \
+            torch.distributed.get_rank() == 0
         d = self.step_dir(step)
         tmp = d.with_suffix(".tmp")
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
+        if writer:
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir(parents=True)
         manifest = {
             "step": step,
             "time": time.time(),
@@ -145,9 +168,9 @@ class CheckpointStore:
             os.rename(tmp, d)
             (d / "COMMITTED").touch()
 
-        if blocking:
+        if writer and blocking:
             _commit()
-        else:
+        elif writer:
             fut = self._commit_pool.submit(_commit)
             with self._lock:
                 self._pending.append(fut)
@@ -165,22 +188,33 @@ class CheckpointStore:
                  if (p / "COMMITTED").exists()]
         return max(steps) if steps else None
 
-    def restore(self, like: Any, step: Optional[int] = None) -> Any:
+    def restore(self, like: Any, step: Optional[int] = None,
+                placements: Any = None) -> Any:
         """Restore into the structure of ``like`` as tensors, each on the
         device of the matching leaf of ``like`` (the CPU where that leaf is
-        not a tensor)."""
+        not a tensor). ``placements``, a tree of ``like``'s structure whose
+        leaves are ``(mesh, placements)`` pairs (JAX's ``shardings``), puts
+        each leaf, read whole on every rank, onto its mesh's device type as
+        a DTensor with those placements (each rank keeps its own slices),
+        whatever mesh it was saved from."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.root}")
         d = self.step_dir(step)
         manifest = json.loads((d / "manifest.json").read_text())
         dtypes = {e["key"]: e["dtype"] for e in manifest["leaves"]}
+        where = dict(_flatten_with_paths(placements, pair=True)) \
+            if placements is not None else {}
         out = {}
         for k, leaf in _flatten_with_paths(like):
             arr = np.load(d / (k.replace("/", "__") + ".npy"))
             t = _from_saved(arr, dtypes.get(k, arr.dtype.name))
-            out[k] = t.to(leaf.device) if isinstance(leaf, torch.Tensor) \
-                else t
+            if k in where:
+                mesh, place = where[k]
+                out[k] = distribute_full(t.to(mesh.device_type), mesh, place)
+            else:
+                out[k] = t.to(leaf.device) if isinstance(
+                    leaf, torch.Tensor) else t
         return _unflatten(like, out)
 
     def gc(self, keep_last: int = 3):

@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -24,6 +25,13 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 # ---------------------------------------------------------------------------
 
 
+class MetaGenerator:
+    """Stands for a generator on the ``meta`` device, which torch has not:
+    inits drawn from it make meta tensors (shapes and dtypes, no storage),
+    the counterpart of JAX's ``eval_shape`` of an init."""
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None,
                *, stack: int = 0):
     """Normal * scale (default 1/sqrt(fan_in) with fan_in = shape[0]) cast to
@@ -31,6 +39,10 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None
     draws, made one slice at a time to keep f32 temporaries small."""
     fan_in = shape[0] if len(shape) > 1 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(((stack,) if stack else ()) + tuple(shape),
+                           dtype=dtype, device="meta")
 
     def one():
         x = torch.randn(shape, generator=gen, device=gen.device,
@@ -76,6 +88,16 @@ def _rope_freqs_f32(head_dim: int, theta: float, device: torch.device):
                            device=device)
 
 
+def replicated_like(x, t):
+    """``t`` (a plain tensor, the same on every rank) as a replicated
+    DTensor on ``x``'s mesh where ``x`` is a DTensor, else ``t``: DTensor
+    ops take no plain tensor beside a DTensor."""
+    if not isinstance(x, DTensor):
+        return t
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, D); positions: broadcastable to (..., S). Frequencies
     in float64 numpy, angles in f32, sin/cos cast to x.dtype, the rotation
@@ -83,8 +105,8 @@ def apply_rope(x, positions, theta: float):
     freqs = _rope_freqs_f32(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs           # (..., S, D/2)
     angles = angles[..., None, :]                            # (..., S, 1, D/2)
-    sin = torch.sin(angles).to(x.dtype)
-    cos = torch.cos(angles).to(x.dtype)
+    sin = replicated_like(x, torch.sin(angles).to(x.dtype))
+    cos = replicated_like(x, torch.cos(angles).to(x.dtype))
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
@@ -101,19 +123,26 @@ def zeros(gen, shape, dtype, stack: int = 0):
                        dtype=dtype, device=gen.device)
 
 
-def attn_init(gen, cfg, dtype, stack: int):
+def attn_init(gen, cfg, dtype, stack: int, h_pad: Optional[int] = None):
     """wq, wk, wv, wo; with ``qkv_bias`` zero biases bq, bk, bv, and with
-    ``qk_norm`` zero-centred norms q_norm, k_norm over the head dim."""
+    ``qk_norm`` zero-centred norms q_norm, k_norm over the head dim.
+    ``h_pad`` > num_heads pads the q heads with zero wq columns and wo rows
+    (their gradients masked by ``attn_grad_masks``, so the function is
+    unchanged), as JAX's ``attn_init``."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    he = h_pad or h
     p = {
-        "wq": dense_init(gen, (d, h, hd), dtype, stack=stack),
+        "wq": dense_init(gen, (d, he, hd), dtype, stack=stack),
         "wk": dense_init(gen, (d, kv, hd), dtype, stack=stack),
         "wv": dense_init(gen, (d, kv, hd), dtype, stack=stack),
-        "wo": dense_init(gen, (h, hd, d), dtype, scale=1.0 / math.sqrt(h * hd),
-                         stack=stack),
+        "wo": dense_init(gen, (he, hd, d), dtype,
+                         scale=1.0 / math.sqrt(h * hd), stack=stack),
     }
+    if he > h:
+        p["wq"][..., h:, :] = 0
+        p["wo"][..., h:, :, :] = 0
     if cfg.qkv_bias:
-        p["bq"] = zeros(gen, (h, hd), dtype, stack)
+        p["bq"] = zeros(gen, (he, hd), dtype, stack)
         p["bk"] = zeros(gen, (kv, hd), dtype, stack)
         p["bv"] = zeros(gen, (kv, hd), dtype, stack)
     if cfg.qk_norm:
@@ -122,9 +151,51 @@ def attn_init(gen, cfg, dtype, stack: int):
     return p
 
 
+def attn_axes(cfg) -> dict:
+    """Logical axes of ``attn_init``'s params (unstacked), as JAX's."""
+    ax = {"wq": ("embed", "q_heads", "head_dim"),
+          "wk": ("embed", "kv_heads", "head_dim"),
+          "wv": ("embed", "kv_heads", "head_dim"),
+          "wo": ("q_heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        ax.update(bq=("q_heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                  bv=("kv_heads", "head_dim"))
+    if cfg.qk_norm:
+        ax.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return ax
+
+
+def attn_grad_masks(cfg, h_pad: Optional[int] = None) -> dict:
+    """Same keys as ``attn_init``'s params: 1.0 where the gradient is kept,
+    else a 0/1 f32 tensor broadcastable to the leaf (stacked or not) that
+    zeroes the padded q-head slices."""
+    h = cfg.num_heads
+    he = h_pad or h
+    base = dict.fromkeys(attn_axes(cfg), 1.0)
+    if he > h:
+        m = (torch.arange(he) < h).float()
+        base["wq"] = m[None, :, None]
+        base["wo"] = m[:, None, None]
+        if cfg.qkv_bias:
+            base["bq"] = m[:, None]
+    return base
+
+
+def kv_head_map(num_heads: int, num_kv_heads: int, h_pad: int):
+    """Per-q-head kv index (padded heads clamp to the last kv head)."""
+    g = max(num_heads // num_kv_heads, 1)
+    return torch.clamp(torch.arange(h_pad) // g, 0, num_kv_heads - 1)
+
+
+def expand_kv(k, head_map):
+    """(B, S, KV, hd) -> (B, S, H_pad, hd) per-q-head layout."""
+    return torch.index_select(k, 2, replicated_like(k, head_map.to(k.device)))
+
+
 def _proj(x, w):
     """einsum("bsd,dhk->bshk"): one matmul over the flattened (h, k) axes."""
-    return (x @ w.reshape(w.shape[0], -1)).view(*x.shape[:-1], *w.shape[1:])
+    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
+                                                   *w.shape[1:])
 
 
 def qkv_proj(p, cfg, x, positions, theta: float):
@@ -155,8 +226,38 @@ def _group(q, kv_heads):
     return q.reshape(b, s, kv_heads, h // kv_heads, hd)
 
 
+def contiguous_strides(shape) -> tuple:
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """``x`` made contiguous, and its gradient too: a DTensor reshapes its
+    local tensor by a view, which a strided gradient (the plain backward's
+    transposes) would not take."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.contiguous() if not x.is_contiguous() else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def attention(cfg, q, k, v, *, window: int = 0):
-    """Full-sequence causal attention (prefill): the flash attention op."""
+    """Full-sequence causal attention (prefill): the flash attention op. On
+    DTensors (batch and heads sharded, as the policy's constraints leave
+    them), the op runs on each rank's local batch rows and heads: contiguous
+    plain tensors, no collective."""
+    if isinstance(q, DTensor):
+        out = flash_attention(*(_ContiguousGrad.apply(t.to_local())
+                                for t in (q, k, v)),
+                              causal=True, window=window,
+                              softcap=cfg.attn_softcap)
+        # the plain version's output is a strided view; the kernel's is not
+        return DTensor.from_local(out.contiguous(), q.device_mesh,
+                                  q.placements, shape=q.shape,
+                                  stride=contiguous_strides(q.shape))
     return flash_attention(q, k, v, causal=True, window=window,
                            softcap=cfg.attn_softcap)
 
@@ -211,6 +312,11 @@ def mlp_init(gen, d: int, ff: int, dtype, stack: int):
     }
 
 
+def mlp_axes() -> dict:
+    return {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+            "wo": ("mlp", "embed")}
+
+
 def mlp_apply(p, x):
     return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
 
@@ -223,6 +329,10 @@ def mlp_apply(p, x):
 def embed_init(gen, cfg, dtype):
     return {"tok": dense_init(gen, (cfg.padded_vocab, cfg.d_model), dtype,
                               scale=1.0)}
+
+
+def embed_axes() -> dict:
+    return {"tok": ("vocab", "embed")}
 
 
 def embed_apply(p, tokens, d_model: int):

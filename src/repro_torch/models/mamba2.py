@@ -10,7 +10,7 @@ layouts and dtypes: ``A_log``, ``D`` and ``dt_bias`` are f32 in any model
 dtype, and ``dt`` is f32 from the projection on.
 
 Not ported: ``ssd_fused_proxy``, a dry-run lowering, which comes with the
-dry-run tools (ROADMAP A.8); ``mamba_block`` raises on a config that asks
+dry-run tools (ROADMAP A.8b); ``mamba_block`` raises on a config that asks
 for it.
 """
 from __future__ import annotations
@@ -56,6 +56,18 @@ def mamba_init(gen, cfg, dtype, stack: int):
         "norm": torch.zeros((stack, di), dtype=dtype, device=dev),
         "out_proj": dense_init(gen, (di, d), dtype, stack=stack),
     }
+
+
+def mamba_axes() -> dict:
+    """Logical axes of ``mamba_init``'s params (unstacked), as JAX's."""
+    return {"w_z": ("embed", "d_inner"), "w_x": ("embed", "d_inner"),
+            "w_B": ("embed", "ssm_state"), "w_C": ("embed", "ssm_state"),
+            "w_dt": ("embed", "ssm_heads"),
+            "conv_x": ("conv", "d_inner"), "conv_B": ("conv", "ssm_state"),
+            "conv_C": ("conv", "ssm_state"),
+            "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+            "dt_bias": ("ssm_heads",),
+            "norm": ("d_inner",), "out_proj": ("d_inner", "embed")}
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +162,7 @@ def mamba_block(p, cfg, h):
     gradients."""
     if cfg.ssd_impl == "fused_proxy":
         raise ValueError(f"{cfg.name}: ssd_impl 'fused_proxy' is a dry-run "
-                         f"lowering, not ported (ROADMAP A.8)")
+                         f"lowering, not ported (ROADMAP A.8b)")
     s_cfg = cfg.ssm
     nh, hd = s_cfg.num_heads(cfg.d_model), s_cfg.head_dim
     b, s, _ = h.shape

@@ -57,16 +57,20 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from types import SimpleNamespace
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import is_axes_leaf
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.grouped_matmul import ops as gmm_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -108,11 +112,13 @@ def program(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def sub_init(gen, cfg: ModelConfig, sub: Sub, dtype, n_super: int):
+def sub_init(gen, cfg: ModelConfig, sub: Sub, dtype, n_super: int,
+             h_pad: Optional[int] = None):
     """One sub-layer's params, stacked on a leading ``n_super`` axis (none
-    when ``n_super`` is 0, as the hybrid's shared block)."""
+    when ``n_super`` is 0, as the hybrid's shared block); ``h_pad`` pads
+    the q heads (``layers.attn_init``)."""
     p = {"ln1": L.zeros(gen, (cfg.d_model,), dtype, n_super),
-         "attn": L.attn_init(gen, cfg, dtype, n_super),
+         "attn": L.attn_init(gen, cfg, dtype, n_super, h_pad),
          "ln2": L.zeros(gen, (cfg.d_model,), dtype, n_super)}
     if sub.ffn == "dense":
         p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, n_super)
@@ -122,6 +128,39 @@ def sub_init(gen, cfg: ModelConfig, sub: Sub, dtype, n_super: int):
         p["post_ln1"] = L.zeros(gen, (cfg.d_model,), dtype, n_super)
         p["post_ln2"] = L.zeros(gen, (cfg.d_model,), dtype, n_super)
     return p
+
+
+def sub_axes(cfg: ModelConfig, sub: Sub) -> dict:
+    """Logical axes of ``sub_init``'s params without the stacked axis, as
+    JAX's ``sub_init``."""
+    ax = {"ln1": ("norm",), "attn": L.attn_axes(cfg), "ln2": ("norm",)}
+    if sub.ffn == "dense":
+        ax["mlp"] = L.mlp_axes()
+    else:
+        ax["moe"] = MOE.moe_axes(cfg)
+    if cfg.post_norm:
+        ax["post_ln1"] = ("norm",)
+        ax["post_ln2"] = ("norm",)
+    return ax
+
+
+def _ones_like_tree(tree):
+    return {k: _ones_like_tree(v) if isinstance(v, dict) else 1.0
+            for k, v in tree.items()}
+
+
+def sub_masks(cfg: ModelConfig, sub: Sub, h_pad=None) -> dict:
+    """Gradient-mask tree of ``sub_init``'s keys (JAX's ``sub_masks``)."""
+    return {**_ones_like_tree(sub_axes(cfg, sub)),
+            "attn": L.attn_grad_masks(cfg, h_pad)}
+
+
+def stack_axes(ax_tree):
+    """Each axes leaf with the stacked ``"super"`` axis in front (JAX's
+    ``_stack_axes``)."""
+    if is_axes_leaf(ax_tree):
+        return ("super",) + ax_tree
+    return {k: stack_axes(v) for k, v in ax_tree.items()}
 
 
 def _rolling(sub: Sub, max_seq: int) -> bool:
@@ -183,7 +222,7 @@ def _write_index(pos0, c: int, cache_len: int, rows=None, device=None,
 
 def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
               cache=None, pos=None, max_seq: Optional[int] = None,
-              write=None, rows=None):
+              write=None, rows=None, mesh=None, parallel=None, policy=None):
     """One transformer sub-layer. Returns (h, new_cache); in ``train``
     mode (h, aux), aux the MoE layer's load-balance term (0 for a dense
     FFN), differentiable.
@@ -199,9 +238,26 @@ def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
     sub (window < ``max_seq``, the global caches' length) keeps a cache of
     its window and decodes at slot ``pos % window``. ``train``: the
     prefill's attention with no cache, differentiable (on the card the
-    flash op's forward and backward kernels)."""
+    flash op's forward and backward kernels).
+
+    With a ``policy`` (``train`` on DTensors): q, k and v are constrained
+    to the policy's heads sharding before attention runs on each rank's
+    heads; in ``"expand"`` mode k and v are first expanded to one kv head
+    per (padded) q head and take the q heads' sharding (JAX's
+    constraints); the MoE FFN runs expert-parallel on ``mesh``."""
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = L.qkv_proj(p["attn"], cfg, hn, positions, sub.theta)
+    if policy is not None:
+        qa = ("batch", "seq", "q_heads", "head_dim")
+        q = policy.constraint(q, qa)
+        if policy.mode == "expand":
+            head_map = L.kv_head_map(cfg.num_heads, cfg.num_kv_heads,
+                                     q.shape[2])
+            k, v = (policy.constraint(L.expand_kv(t, head_map), qa)
+                    for t in (k, v))
+        else:
+            k, v = (policy.constraint(t, ("batch", "seq", "kv_heads",
+                                          "head_dim")) for t in (k, v))
     if mode in ("decode", "chunk"):
         crow, cpos, r, j = write
         cache["k"][crow, cpos] = k[r, j]
@@ -226,6 +282,9 @@ def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
         raise ValueError(f"mode {mode!r} is not ported (prefill, decode, "
                          f"chunk, train)")
     out = L.out_proj(attn, p["attn"]["wo"])
+    if policy is not None:
+        # the heads' partial sums all-reduced here, over ``model``
+        out = policy.constraint(out, ("batch", "seq", "act"))
     if cfg.post_norm:
         out = L.rms_norm(out, p["post_ln1"], cfg.norm_eps)
     h = h + out
@@ -234,12 +293,14 @@ def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
     if sub.ffn == "dense":
         mo = L.mlp_apply(p["mlp"], hn)
     else:
-        mo, aux = MOE.moe_apply(p["moe"], cfg, hn)
+        mo, aux = MOE.moe_apply(p["moe"], cfg, hn, mesh, parallel)
+    if policy is not None:
+        mo = policy.constraint(mo, ("batch", "seq", "act"))
     if cfg.post_norm:
         mo = L.rms_norm(mo, p["post_ln2"], cfg.norm_eps)
     if mode == "train":
-        return h + mo, (aux if aux is not None else
-                        torch.zeros((), dtype=torch.float32, device=h.device))
+        return h + mo, (aux if aux is not None else L.replicated_like(
+            h, torch.zeros((), dtype=torch.float32, device=h.device)))
     return h + mo, new_cache
 
 
@@ -296,6 +357,14 @@ def _layer(tree: dict, i: int) -> dict:
             for k, x in tree.items()}
 
 
+def _default_generator(device):
+    """Seed 0 on ``device``; on ``meta``, a stand-in that makes meta
+    tensors."""
+    if device.type == "meta":
+        return L.MetaGenerator()
+    return torch.Generator(device=device).manual_seed(0)
+
+
 def _embed_inputs(cfg: ModelConfig, embed_params, inputs):
     """The stack's input: token ids (B, S) looked up in the table and
     scaled by sqrt(d); in the ``embeddings`` input mode the (B, S, d)
@@ -307,12 +376,25 @@ def _embed_inputs(cfg: ModelConfig, embed_params, inputs):
     return L.embed_apply(embed_params, inputs, cfg.d_model)
 
 
-def build_model(cfg: ModelConfig, device=None):
+def build_model(cfg: ModelConfig, device=None, mesh=None, parallel=None,
+                policy=None):
     """The model for ``cfg`` on ``device`` (default: the current CUDA
-    device; raises when there is none)."""
+    device; raises when there is none). With a ``policy``
+    (``repro_torch.launch.specs.make_policy``) on ``mesh``, a DeviceMesh
+    of this process group whose device type is ``device``'s, and its
+    ``parallel``: the dense and MoE transformers for training on that mesh
+    (JAX's ``build_model(cfg, mesh, parallel, policy)``, ``train`` mode:
+    ``model.distribute`` places params, ``forward`` takes DTensors). The
+    SSM and hybrid families, and prefill and decode, under a policy are
+    not ported yet (ROADMAP A.8b)."""
     if cfg.family in ("dense", "moe"):
-        builder = _build_transformer
-    elif cfg.family == "ssm":
+        return _build_transformer(cfg, resolve_device(device), mesh,
+                                  parallel, policy)
+    if policy is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family under a sharding policy "
+            f"is not ported yet (ROADMAP A.8b)")
+    if cfg.family == "ssm":
         builder = _build_ssm
     elif cfg.family == "hybrid":
         builder = _build_hybrid
@@ -321,19 +403,79 @@ def build_model(cfg: ModelConfig, device=None):
     return builder(cfg, resolve_device(device))
 
 
-def _build_transformer(cfg: ModelConfig, device: torch.device):
+def _sharded_embed(cfg, tok, inputs, policy, mesh, parallel):
+    """The token lookup on a vocab-sharded table (DTensors): each rank looks
+    up the ids in its own rows of the table (gathered over the FSDP axes),
+    zeroes the rest, and the ranks of ``model`` sum the rows; scaled by
+    sqrt(d) in the table's dtype. Returns the (B, S, d) activations,
+    batch-sharded."""
+    ids = policy.distribute(inputs, ("batch", "seq"))
+    table = comm.local_whole(tok, parallel)
+    ids_loc = ids.to_local()
+    tp_axis = parallel.tp_axis
+    vp = tok.placements[list(mesh.mesh_dim_names).index(tp_axis)] \
+        if tp_axis else None
+    if vp is not None and vp.is_shard():
+        group = comm.axis_group(mesh, tp_axis)
+        v0 = comm.group_rank(group) * table.shape[0]
+        local = ids_loc.long() - v0
+        hit = (local >= 0) & (local < table.shape[0])
+        rows = table[local.clamp(0, table.shape[0] - 1)] * \
+            hit[..., None].to(table.dtype)
+        rows = comm.sum_over(rows, group)
+    else:
+        rows = table[ids_loc.long()]
+    rows = rows * torch.tensor(math.sqrt(cfg.d_model), dtype=table.dtype)
+    shape = (*ids.shape, cfg.d_model)
+    return DTensor.from_local(
+        rows, mesh, policy.placements_for(shape, ("batch", "seq", "act")),
+        shape=shape, stride=L.contiguous_strides(shape))
+
+
+def _build_transformer(cfg: ModelConfig, device: torch.device, mesh=None,
+                       parallel=None, policy=None):
     n_super, subs = program(cfg)
     dtype = _dtype(cfg)
+    expand = policy is not None and policy.mode == "expand"
+    h_pad = policy.h_pad if expand else None
 
     def init(gen: Optional[torch.Generator] = None):
         """Random params with the JAX package's distributions, drawn from
-        ``gen`` (default: seed 0 on the model's device)."""
+        ``gen`` (default: seed 0 on the model's device); full tensors, with
+        the q heads padded to the policy's ``h_pad`` in ``"expand"``
+        mode."""
         if gen is None:
-            gen = torch.Generator(device=device).manual_seed(0)
+            gen = _default_generator(device)
         return {"embed": L.embed_init(gen, cfg, dtype),
-                "blocks": [sub_init(gen, cfg, sub, dtype, n_super)
+                "blocks": [sub_init(gen, cfg, sub, dtype, n_super, h_pad)
                            for sub in subs],
                 "final_norm": L.zeros(gen, (cfg.d_model,), dtype)}
+
+    def axes():
+        """The params' logical axes, leaf for leaf (JAX's ``init``'s)."""
+        return {"embed": L.embed_axes(),
+                "blocks": [stack_axes(sub_axes(cfg, sub)) for sub in subs],
+                "final_norm": ("norm",)}
+
+    def distribute(params):
+        """Full params (the same on every rank) as DTensors in the policy's
+        placements: each rank keeps its own slices."""
+        return policy.distribute_tree(params, axes())
+
+    def grad_masks(params):
+        """None, or in ``"expand"`` mode with padded q heads the mask tree
+        that zeroes their gradients (JAX's ``grad_masks``)."""
+        if not expand or h_pad == cfg.num_heads:
+            return None
+        return {"embed": {"tok": 1.0},
+                "blocks": [sub_masks(cfg, sub, h_pad) for sub in subs],
+                "final_norm": 1.0}
+
+    def _constrain_h(h):
+        if policy is None:
+            return h
+        return policy.constraint(h, ("batch",) + ("seq",) * (h.ndim - 2)
+                                 + ("act",))
 
     def _run(params, h, positions, mode, caches=None, pos=None,
              max_seq=None, writes=None, rows=None):
@@ -360,9 +502,10 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
 
     def _train_block(block_params, h, aux, positions):
         for sub, bp in zip(subs, block_params):
-            h, a = sub_apply(bp, cfg, sub, h, positions, "train")
+            h, a = sub_apply(bp, cfg, sub, h, positions, "train", mesh=mesh,
+                             parallel=parallel, policy=policy)
             aux = aux + a
-        return h, aux
+        return _constrain_h(h), aux
 
     def forward(params, inputs):
         """Train mode. inputs: (B, S) token ids, or (B, S, d) embeddings,
@@ -370,16 +513,33 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
         aux): aux the summed MoE load-balance terms (f32 scalar; 0 for a
         dense model), both differentiable. Each super-block runs under
         ``cfg.remat_policy``. ``params`` may be stacked or
-        ``split_blocks``'s form."""
-        h = _embed_inputs(cfg, params["embed"], inputs)
+        ``split_blocks``'s form.
+
+        Under a policy, params are DTensors (``distribute``) and the full
+        inputs (the same on every rank) are batch-sharded here; the
+        residual stream is constrained after the embedding and each
+        super-block, the logits (vocab-sharded) at the end, as JAX's
+        ``_constrainer``; logits and aux come back as DTensors."""
+        if policy is not None and cfg.input_mode != "embeddings":
+            h = _sharded_embed(cfg, params["embed"]["tok"], inputs, policy,
+                               mesh, parallel)
+        elif policy is not None:
+            h = policy.distribute(inputs, ("batch", "seq", "act")).to(dtype)
+        else:
+            h = _embed_inputs(cfg, params["embed"], inputs)
+        h = _constrain_h(h)
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        aux = L.replicated_like(h, torch.zeros((), dtype=torch.float32,
+                                               device=h.device))
         block = _remat(_train_block, cfg.remat_policy)
         for i in range(n_super):
             h, aux = block([_layer(bp, i) for bp in params["blocks"]], h, aux,
                            positions)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return L.unembed_apply(params["embed"], cfg, h), aux
+        logits = L.unembed_apply(params["embed"], cfg, h)
+        if policy is not None:
+            logits = policy.constraint(logits, ("batch", "seq", "vocab"))
+        return logits, aux
 
     def _writes(caches, pos0, c: int, rows=None, device=None):
         """(max_seq, each sub's ``_write_index``): one index for the global
@@ -467,11 +627,26 @@ def _build_transformer(cfg: ModelConfig, device: torch.device):
 
     kernel_ops = (flash_ops,) + ((gmm_ops,) if any(
         s.ffn == "moe" for s in subs) else ())
-    return SimpleNamespace(cfg=cfg, device=device, init=init, forward=forward,
-                           split_blocks=split_blocks, prefill=prefill,
-                           decode=decode, prefill_chunk=prefill_chunk,
-                           decode_verify=decode_verify, init_cache=init_cache,
-                           n_super=n_super, subs=subs, kernel_ops=kernel_ops)
+    serving = dict(prefill=prefill, decode=decode,
+                   prefill_chunk=prefill_chunk, decode_verify=decode_verify,
+                   init_cache=init_cache)
+    if policy is not None:
+        serving = {name: _not_under_policy(cfg, name) for name in serving}
+    return SimpleNamespace(cfg=cfg, device=device, init=init, axes=axes,
+                           forward=forward, split_blocks=split_blocks,
+                           grad_masks=grad_masks, n_super=n_super, subs=subs,
+                           kernel_ops=kernel_ops, mesh=mesh,
+                           parallel=parallel, policy=policy,
+                           distribute=distribute if policy is not None
+                           else None, **serving)
+
+
+def _not_under_policy(cfg, name):
+    def refuse(*args, **kwargs):
+        raise NotImplementedError(
+            f"{cfg.name}: {name} under a sharding policy is not ported yet "
+            f"(ROADMAP A.8b); build the model without one to serve it")
+    return refuse
 
 
 def _mamba_prefill(cfg, stacked, h, layers):
@@ -506,6 +681,10 @@ def _stack_mamba(per_layer):
     return {"conv": {k: torch.stack([c["conv"][k] for c in per_layer])
                      for k in ("x", "B", "C")},
             "ssd": torch.stack([c["ssd"] for c in per_layer])}
+
+
+def _mamba_axes():
+    return stack_axes({"ln": ("norm",), "mamba": M.mamba_axes()})
 
 
 def _mamba_params(gen, cfg, dtype, n: int):
@@ -548,7 +727,7 @@ def _build_ssm(cfg: ModelConfig, device: torch.device):
         """Random params with the JAX package's distributions, drawn from
         ``gen`` (default: seed 0 on the model's device)."""
         if gen is None:
-            gen = torch.Generator(device=device).manual_seed(0)
+            gen = _default_generator(device)
         return {"embed": L.embed_init(gen, cfg, dtype),
                 "mamba": _mamba_params(gen, cfg, dtype, n),
                 "final_norm": L.zeros(gen, (cfg.d_model,), dtype)}
@@ -580,6 +759,11 @@ def _build_ssm(cfg: ModelConfig, device: torch.device):
 
     layer = _mamba_train_layer(cfg)
 
+    def axes():
+        """The params' logical axes, leaf for leaf (JAX's ``init``'s)."""
+        return {"embed": L.embed_axes(), "mamba": _mamba_axes(),
+                "final_norm": ("norm",)}
+
     def forward(params, inputs):
         """Train mode. inputs: (B, S) token ids or (B, S, d) embeddings.
         Returns (logits (B, S, padded vocab) f32, a zero f32 aux),
@@ -592,7 +776,8 @@ def _build_ssm(cfg: ModelConfig, device: torch.device):
         return (L.unembed_apply(params["embed"], cfg, h),
                 torch.zeros((), dtype=torch.float32, device=h.device))
 
-    return SimpleNamespace(cfg=cfg, device=device, init=init, forward=forward,
+    return SimpleNamespace(cfg=cfg, device=device, init=init, axes=axes,
+                           forward=forward, policy=None,
                            split_blocks=lambda p: _split_mamba(p, n),
                            prefill=prefill, decode=decode,
                            init_cache=init_cache, kernel_ops=(ssd_ops,))
@@ -623,7 +808,7 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device):
         """Random params with the JAX package's distributions, drawn from
         ``gen`` (default: seed 0 on the model's device)."""
         if gen is None:
-            gen = torch.Generator(device=device).manual_seed(0)
+            gen = _default_generator(device)
         return {"embed": L.embed_init(gen, cfg, dtype),
                 "mamba": _mamba_params(gen, cfg, dtype, n),
                 "shared": sub_init(gen, cfg, shared, dtype, 0),
@@ -678,6 +863,11 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device):
 
     layer = _mamba_train_layer(cfg)
 
+    def axes():
+        """The params' logical axes, leaf for leaf (JAX's ``init``'s)."""
+        return {"embed": L.embed_axes(), "mamba": _mamba_axes(),
+                "shared": sub_axes(cfg, shared), "final_norm": ("norm",)}
+
     def forward(params, inputs):
         """Train mode, as JAX's: each segment's Mamba2 layers (each under
         ``cfg.remat_policy``), then the shared block in ``train`` mode, not
@@ -698,7 +888,8 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device):
         return (L.unembed_apply(params["embed"], cfg, h),
                 torch.zeros((), dtype=torch.float32, device=h.device))
 
-    return SimpleNamespace(cfg=cfg, device=device, init=init, forward=forward,
+    return SimpleNamespace(cfg=cfg, device=device, init=init, axes=axes,
+                           forward=forward, policy=None,
                            split_blocks=lambda p: _split_mamba(p, n),
                            prefill=prefill, decode=decode,
                            init_cache=init_cache,

@@ -18,6 +18,7 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,19 +84,38 @@ def _is_int8(cfg) -> bool:
 
 def init(params, cfg: OptimizerConfig) -> dict:
     """Zero moments (and, for int8, zero per-tensor scales) shaped like
-    ``params``, on their devices, and a step count of 0."""
-    dev = leaves(params)[0].device
+    ``params``, on their devices (a DTensor param's moments are DTensors in
+    its placements; scales stay plain, the same on every rank), and a step
+    count of 0."""
+    dev = _local(leaves(params)[0]).device
     count = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def zeros(dtype):
+        return lambda p: torch.zeros_like(
+            p, dtype=dtype, memory_format=torch.contiguous_format)
     if _is_int8(cfg):
-        z8 = lambda p: torch.zeros(p.shape, dtype=torch.int8, device=p.device)
-        sc = lambda p: torch.zeros((), dtype=torch.float32, device=p.device)
-        return {"m": tree_map(z8, params), "m_scale": tree_map(sc, params),
-                "v": tree_map(z8, params), "v_scale": tree_map(sc, params),
-                "count": count}
+        sc = lambda p: torch.zeros((), dtype=torch.float32,
+                                   device=_local(p).device)
+        return {"m": tree_map(zeros(torch.int8), params),
+                "m_scale": tree_map(sc, params),
+                "v": tree_map(zeros(torch.int8), params),
+                "v_scale": tree_map(sc, params), "count": count}
     mdt = getattr(torch, cfg.moment_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-            "count": count}
+    return {"m": tree_map(zeros(mdt), params),
+            "v": tree_map(zeros(mdt), params), "count": count}
+
+
+def _local(x):
+    """A DTensor's local shard; a plain tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _unique_share(x) -> float:
+    """1 / the number of ranks that hold a copy of each of DTensor ``x``'s
+    elements (the product of its replicated mesh dims' sizes)."""
+    mesh = x.device_mesh
+    return 1.0 / math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                           if not p.is_shard())
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -103,17 +123,46 @@ def global_norm(tree) -> torch.Tensor:
     ``sum(square(x.astype(f32)))``, a chunk of a leaf at a time (bounded
     temporaries). ``torch.sum`` reduces in a tree on the CPU too, where
     ``linalg.vector_norm``'s running f32 sum loses ~1e-3 of the norm of a
-    19M-element leaf."""
-    total = None
+    19M-element leaf. DTensor leaves (a sharded state) sum their local
+    shards, each weighted by 1 / its copies (a power of two: exact), and one
+    all-reduce over the mesh adds the ranks' sums; the result is a plain
+    tensor, the same on every rank."""
+    total, mesh = None, None
     for leaf in leaves(tree):
+        share = 1.0
+        if isinstance(leaf, DTensor):
+            mesh, share = leaf.device_mesh, _unique_share(leaf)
+            leaf = leaf.to_local()
         for chunk in leaf.contiguous().view(-1).split(NORM_CHUNK):
             sq = torch.sum(torch.square(chunk.to(torch.float32)))
+            if share != 1.0:
+                sq = sq * share
             total = sq if total is None else total + sq
+    if mesh is not None:
+        _all_reduce_mesh(total, mesh, torch.distributed.ReduceOp.SUM)
     return torch.sqrt(total)
 
 
-def _q8(x):
-    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+def _all_reduce_mesh(t, mesh, op):
+    """All-reduce ``t`` in place over every rank of ``mesh``: one call when
+    the mesh spans the process group, else one a mesh axis."""
+    from repro_torch.distributed import comm
+    if mesh.size() == torch.distributed.get_world_size():
+        comm.all_reduce(t, None if mesh.size() == 1 else
+                        torch.distributed.group.WORLD, op)
+        return t
+    for name in mesh.mesh_dim_names:
+        comm.all_reduce(t, comm.axis_group(mesh, name), op)
+    return t
+
+
+def _q8(x, mesh=None):
+    """Per-tensor int8: the scale from the largest magnitude over the
+    whole tensor (over ``mesh``'s ranks when ``x`` is a local shard)."""
+    top = x.abs().max()
+    if mesh is not None:
+        _all_reduce_mesh(top, mesh, torch.distributed.ReduceOp.MAX)
+    scale = torch.clamp(top, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -151,12 +200,14 @@ def _update_leaf(g, m, v, p, cfg, scale, lr, bc1, bc2):
 
 def _update_int8(grads, opt_state, params, cfg, scale, lr, bc1, bc2):
     def upd(g, m8, ms, v8, vs, p):
+        mesh = p.device_mesh if isinstance(p, DTensor) else None
+        g, m8, v8, p = (_local(t) for t in (g, m8, v8, p))
         m32 = m8.to(torch.float32) * ms
         v32 = v8.to(torch.float32) * vs
         _adam_step(g, m32, v32, p, cfg, p.ndim >= 2, scale, lr, bc1,
                    bc2)
-        nm8, nms = _q8(m32)
-        nv8, nvs = _q8(v32)
+        nm8, nms = _q8(m32, mesh)
+        nv8, nvs = _q8(v32, mesh)
         m8.copy_(nm8)
         ms.copy_(nms)
         v8.copy_(nv8)
@@ -170,7 +221,9 @@ def _update_int8(grads, opt_state, params, cfg, scale, lr, bc1, bc2):
 def update(grads, opt_state, params, cfg: OptimizerConfig):
     """One AdamW step: (params, opt_state, {"grad_norm", "lr"}), the first
     two the given trees updated in place. The scalars stay on the params'
-    device (no wait for it)."""
+    device (no wait for it). DTensor leaves (a sharded state; each grad and
+    moment in its param's placements) update their local shards, so each
+    moment stays in its param's placements."""
     count = opt_state["count"] + 1
     gnorm = global_norm(grads)
     if cfg.clip_norm:
@@ -185,8 +238,8 @@ def update(grads, opt_state, params, cfg: OptimizerConfig):
     if _is_int8(cfg):
         _update_int8(grads, opt_state, params, cfg, scale, lr, bc1, bc2)
     else:
-        tree_map(lambda g, m, v, p: _update_leaf(g, m, v, p, cfg, scale, lr,
-                                                 bc1, bc2),
-                 grads, opt_state["m"], opt_state["v"], params)
+        tree_map(lambda g, m, v, p: _update_leaf(
+            *(_local(t) for t in (g, m, v, p)), cfg, scale, lr, bc1, bc2),
+            grads, opt_state["m"], opt_state["v"], params)
     opt_state["count"] = count
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -13,21 +13,36 @@ params with each stacked leaf split into its layers
 super-blocks, the Mamba2 layers), so each layer's gradient is its own
 tensor; the gradients are stacked back into the params' layout for the
 optimizer, which updates the state in place (JAX donates it).
+
+A model built under a sharding policy (the dense and MoE transformers on a
+``torch.distributed`` device mesh) trains the same step on DTensors: the
+state in the policy's placements (``init_state``, ``distribute_state``),
+the loss over vocab-sharded logits on each rank's shards
+(``_sharded_cross_entropy``), each gradient reduced into its param's
+placements, AdamW on the local shards.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import comm
+from repro_torch.models.layers import replicated_like
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_map
 
 
 def cross_entropy(logits, labels, vocab_size: int, label_mask=None):
     """logits: (B, S, Vp) f32; labels: (B, S) int. Masks the padded vocab
-    to -1e30; with ``label_mask`` the mean over the masked-in labels."""
+    to -1e30; with ``label_mask`` the mean over the masked-in labels.
+    Logits as a DTensor (a model under a sharding policy) take
+    ``_sharded_cross_entropy``."""
+    if isinstance(logits, DTensor):
+        return _sharded_cross_entropy(logits, labels, vocab_size, label_mask)
     vp = logits.shape[-1]
     if vp > vocab_size:
         pad_mask = torch.arange(vp, device=logits.device) < vocab_size
@@ -40,6 +55,70 @@ def cross_entropy(logits, labels, vocab_size: int, label_mask=None):
         return torch.sum(nll * label_mask) / torch.clamp(label_mask.sum(),
                                                          min=1)
     return torch.mean(nll)
+
+
+def _sharded_cross_entropy(logits, labels, vocab_size: int, label_mask=None):
+    """``cross_entropy`` of DTensor logits, batch- and vocab-sharded, on
+    each rank's local tensors: the log-sum-exp from each rank's part of
+    the vocab (a max and a sum over the vocab's ranks), the label's logit
+    from the rank that holds it, the mean over the global batch. Returns a
+    replicated DTensor scalar. The logits are never gathered whole."""
+    mesh = logits.device_mesh
+    names = list(mesh.mesh_dim_names)
+    local = logits.to_local()
+    vloc = local.shape[-1]
+    v0, vocab_groups, batch_groups = 0, [], []
+    for i, p in enumerate(logits.placements):
+        g = comm.axis_group(mesh, names[i])
+        if p.is_shard() and p.dim == logits.ndim - 1:
+            v0 += comm.group_rank(g) * vloc * math.prod(
+                mesh.size(j) for j in range(i + 1, mesh.ndim)
+                if logits.placements[j].is_shard()
+                and logits.placements[j].dim == logits.ndim - 1)
+            vocab_groups.append(g)
+        elif p.is_shard() and p.dim == 0:
+            batch_groups.append(g)
+        elif p.is_shard() or p.is_partial():
+            raise ValueError(f"logits placed {logits.placements}: want "
+                             f"batch and vocab shards only")
+    vid = v0 + torch.arange(vloc, device=local.device)
+    if logits.shape[-1] > vocab_size:
+        local = torch.where(vid < vocab_size, local, -1e30)
+    m = local.detach().amax(-1, keepdim=True)
+    for g in vocab_groups:
+        m = comm.all_reduce(m.contiguous(), g, torch.distributed.ReduceOp.MAX)
+    sumexp = torch.exp(local - m).sum(-1)
+    rows = _local_rows(labels, logits, batch_groups)
+    hit = (rows.long()[..., None] == vid)
+    ll = torch.where(hit, local, 0.0).sum(-1)
+    for g in vocab_groups:
+        sumexp = comm.sum_over(sumexp, g)
+        ll = comm.sum_over(ll, g)
+    nll = torch.log(sumexp) + m[..., 0] - ll
+    if label_mask is not None:
+        mask = _local_rows(label_mask, logits, batch_groups).to(nll.dtype)
+        num, den = torch.sum(nll * mask), mask.sum()
+    else:
+        num = torch.sum(nll)
+        den = torch.tensor(float(nll.numel()), device=nll.device)
+    for g in batch_groups:
+        num = comm.sum_over(num, g)
+        den = comm.all_reduce(den.clone(), g)
+    loss = num / torch.clamp(den, min=1)
+    return DTensor.from_local(loss, mesh, [Replicate()] * mesh.ndim)
+
+
+def _local_rows(x, logits, batch_groups):
+    """This rank's batch rows of ``x`` (a full (B, S) tensor or a DTensor)
+    as the logits' batch shards split them."""
+    if isinstance(x, DTensor):
+        return x.to_local()
+    x = x.to(logits.device)
+    mesh = logits.device_mesh
+    for i, p in enumerate(logits.placements):
+        if p.is_shard() and p.dim == 0:
+            x = x.chunk(mesh.size(i), dim=0)[mesh.get_local_rank(i)]
+    return x
 
 
 def pick_microbatches(cfg: ModelConfig, shape: ShapeConfig, dp: int,
@@ -77,6 +156,20 @@ def make_loss_fn(model, cfg: ModelConfig, ts: TrainStepConfig):
         loss = cross_entropy(logits, labels, cfg.vocab_size)
         return loss + ts.aux_coef * aux, (loss, aux)
     return loss_fn
+
+
+def _like_param(g, leaf):
+    """A DTensor gradient in its leaf's placements (the gradient reduced
+    over the ranks where it is a partial sum)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(
+            leaf.placements):
+        return g.redistribute(leaf.device_mesh, leaf.placements)
+    return g
+
+
+def _plain(x):
+    """A replicated DTensor scalar's value; a plain tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def _grad_leaves(model, params):
@@ -119,35 +212,48 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig,
     are summed in ``grad_accum_dtype``, each divided by the count, as JAX
     sums them. metrics: ``loss``, ``aux_loss``, ``grad_norm``, ``lr`` as
     0-dim tensors on the device. Padded-head archs get their padded q-head
-    slices grad-masked (``model.grad_masks``; none on one card)."""
+    slices grad-masked (``model.grad_masks``: a model under a policy in
+    ``"expand"`` mode with padded heads).
+
+    Under a sharding policy (``model.policy``) the state's params and
+    moments are DTensors in the policy's placements (``init_state``,
+    ``distribute_state``) and the batch is the full batch on every rank;
+    each gradient is reduced into its param's placements, the optimizer
+    updates each rank's local shards, and the metrics are the global
+    ones."""
     loss_fn = make_loss_fn(model, cfg, ts)
     adt = getattr(torch, opt_cfg.grad_accum_dtype)
+
+    def mask(g, m):
+        if isinstance(m, float):
+            return g if m == 1.0 else g * m
+        return g * replicated_like(g, m.to(device=g.device, dtype=g.dtype))
 
     def mask_grads(params, grads):
         masks = getattr(model, "grad_masks", lambda p: None)(params)
         if masks is None:
             return grads
-        return tree_map(lambda g, m: g * torch.as_tensor(m, dtype=g.dtype),
-                        grads, masks)
+        return tree_map(mask, grads, masks)
 
     def grad(params, inputs, labels):
-        """(per-super-block grads in the split layout, loss, aux)."""
+        """(per-super-block grads in the split layout, each in its leaf's
+        placements under a policy, loss, aux)."""
         split = _grad_leaves(model, params)
         flat = adamw.leaves(split)
         with torch.enable_grad():
             tot, (loss, aux) = loss_fn(split, inputs, labels)
             grads = torch.autograd.grad(tot, flat)
-        it = iter(grads)
+        it = iter([_like_param(g, p) for g, p in zip(grads, flat)])
         del grads, flat
-        return (tree_map(lambda _: next(it), split), loss.detach(),
-                aux.detach())
+        return (tree_map(lambda _: next(it), split), _plain(loss.detach()),
+                _plain(aux.detach()))
 
     def accumulate(params, batch):
         n = ts.microbatches
         mbs = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])
                for k, v in batch.items()}
-        g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                               device=p.device), params)
+        g_acc = tree_map(lambda p: torch.zeros_like(
+            p, dtype=adt, memory_format=torch.contiguous_format), params)
         dev = adamw.leaves(params)[0].device
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
         aux_acc = torch.zeros((), dtype=torch.float32, device=dev)
@@ -178,11 +284,28 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig,
 
 def init_state(model, opt_cfg: adamw.OptimizerConfig,
                gen: torch.Generator = None) -> dict:
-    """A fresh train state: ``model.init(gen)`` params and zero moments.
-    (JAX also returns the params' logical axes; the port has none until
-    the distributed slice, ROADMAP A.8.)"""
+    """A fresh train state: ``model.init(gen)`` params and zero moments;
+    under a sharding policy (``model.policy``) the full params, the same
+    on every rank, distributed into the policy's placements first. (JAX's
+    also returns the params' logical axes: here ``model.axes()``, and
+    ``state_axes(model.axes())`` the whole state's.)"""
     params = model.init(gen)
+    if model.policy is not None:
+        params = model.distribute(params)
     return {"params": params, "opt": adamw.init(params, opt_cfg)}
+
+
+def distribute_state(model, state) -> dict:
+    """A full train state (the same on every rank, e.g. bridged from the
+    JAX package) in ``model.policy``'s placements: params and moments by
+    the params' axes; the step count and int8 scales stay as they are."""
+    axes = state_axes(model.axes())
+    opt_axes = {k: axes["opt"]["m"] if k in ("m", "v") else ()
+                for k in state["opt"]}
+    place = model.policy.distribute_tree
+    return {"params": place(state["params"], axes["params"]),
+            "opt": {k: (place(v, opt_axes[k]) if k in ("m", "v") else v)
+                    for k, v in state["opt"].items()}}
 
 
 def state_axes(params_axes):

@@ -27,7 +27,12 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.observability.slo",
             "repro_torch.observability.telemetry",
             "repro_torch.optim.adamw", "repro_torch.training.train_step",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.comm",
+            "repro_torch.distributed.collectives",
+            "repro_torch.distributed.pipeline",
+            "repro_torch.distributed.spawn"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -57,6 +62,26 @@ def test_training_modules_import_without_jax():
             "repro_torch.launch.train"]
     code = (
         "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+def test_distributed_modules_and_rank_bodies_import_without_jax():
+    """The distributed layer and the multi-rank tests' rank bodies (which
+    every spawned rank imports), in a fresh process: no JAX, nothing of the
+    JAX package."""
+    mods = ["repro_torch.distributed.spawn", "repro_torch.launch.specs",
+            "repro_torch.distributed.pipeline",
+            "repro_torch.distributed.collectives", "torch_dist_ranks"]
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')))\n")

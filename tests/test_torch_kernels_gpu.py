@@ -509,3 +509,59 @@ def test_ssd_chunked_gradients_on_the_card_match_the_cpu():
                           grads["cpu"]):
         torch.testing.assert_close(g.cpu(), r, atol=5e-4 * float(
             r.abs().max()), rtol=5e-3, msg=lambda m: f"{name}: {m}")
+
+
+# -- the distributed layer on the card ----------------------------------------
+
+GLOO_CASES = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
+              "send_recv", "dtensor_partial_to_replicate",
+              "dtensor_partial_to_shard", "dtensor_shard_to_replicate",
+              "dtensor_shard0_to_shard1"]
+
+
+@pytest.fixture(scope="module")
+def gloo_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_dist_ranks
+    from repro_torch.distributed.spawn import run_ranks
+    return run_ranks(torch_dist_ranks.gloo_cuda_collectives, 2,
+                     backend="gloo", device_type="cuda", timeout=300,
+                     threads=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GLOO_CASES)
+def test_gloo_collective_of_cuda_tensors_goes_through_the_host(gloo_cuda,
+                                                                case):
+    """Two ranks share the card over gloo, which takes no CUDA tensor: each
+    collective, the port's helpers' and DTensor's redistributes, gives the
+    exact result on the card, and was staged through the host."""
+    for rank_out in gloo_cuda:
+        on_card, equal, staged = rank_out[case]
+        assert on_card and equal, (case, rank_out[case])
+        assert sum(staged.values()) >= 1, (case, staged)
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_a_strided_local_shard():
+    """A Shard of a middle dim taken as a view is strided: the flash and
+    grouped-matmul wrappers raise on it rather than read it wrong (the
+    sharded path hands them contiguous locals)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    q = torch.randn(2, 64, 8, 64, device="cuda",
+                    dtype=torch.bfloat16).chunk(2, dim=2)[0]
+    k = torch.randn(2, 64, 2, 64, device="cuda", dtype=torch.bfloat16)
+    assert not q.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q, k, k.clone())
+    x = torch.randn(8, 32, 64, device="cuda",
+                    dtype=torch.bfloat16).chunk(2, dim=0)[0].transpose(1, 2)
+    w = torch.randn(4, 32, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_ops.grouped_matmul(x, w)
