@@ -50,12 +50,23 @@ VRE's ``data`` and ``lm-trainer`` on musicgen-medium (3 steps); then the
 distributed layer (``distributed_granite``): two ranks share the card over
 gloo (``repro_torch.distributed.spawn``; every collective staged through
 pinned host memory, counted by op) on a (data 1, model 2) mesh, granite at
-full width and depth in bf16 ("heads" mode: 8 of 16 q heads, 4 of 8 kv
-heads and 16 of 32 experts a rank, the MoE expert-parallel) for two
+full width and 12 of 24 layers in bf16 ("heads" mode: 8 of 16 q heads, 4
+of 8 kv heads and 16 of 32 experts a rank, the MoE expert-parallel) for two
 sharded train steps against the same steps unsharded (losses, every param
 gathered), then at 2 layers in f32 at the CPU tests' tolerances, with each
 rank's kernel launches, ms a step and peak memory, and each local kernel
-shape against its plain version; each with
+shape against its plain version; then prefill and decode under a policy
+(``sharded_phases``): two ranks serve yi-9b (full depth bf16, "heads"),
+granite-moe-1b-a400m (full depth bf16, the MoE expert-parallel in prefill
+and decode), mamba2-370m (full depth bf16, 16 of 32 SSM heads a rank) and
+zamba2-1.2b (8 of 38 layers), each prefilling and decoding 16 steps fed
+the unsharded model's greedy tokens, logits held to the unsharded ones in
+the same run, mamba2 and zamba2 also taking 2 sharded train steps against
+unsharded ones; eight ranks run yi-9b at 2 layers in f32 with an "expand"
+prefill (4 of 32 q heads a rank, the cache's sequence over model) and a
+"head_dim" decode (16 of 128 a rank), greedy tokens equal; each phase with
+its exact launches, staged collectives, peak memory and host ms a call a
+rank, and each local kernel shape against its plain version; each with
 exact forward and backward launch counts; full-width (depth 2, float32)
 engine tokens against a reference for yi-9b and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
 same engine on the CPU), and for yi-9b with chunked prefill, the prefix
@@ -1456,8 +1467,10 @@ def embeddings_phases(smi: str, ops: dict) -> dict:
 
 # the distributed_granite phase: two ranks share the one card on a (data 1,
 # model 2) mesh (NCCL takes one rank a card, so they run gloo); two train
-# steps of one fixed batch, sharded, against the same steps unsharded
-DIST_GRANITE = dict(arch="granite-moe-1b-a400m", layers=None,
+# steps of one fixed batch, sharded, against the same steps unsharded; 12
+# of granite's 24 layers (the time limit: the sharded serving phases after
+# it share the script's budget)
+DIST_GRANITE = dict(arch="granite-moe-1b-a400m", layers=12,
                     dtype="bfloat16", batch=4, seq=2048, microbatches=2,
                     steps=2)
 # its f32 check at 2 layers, held as the CPU tests hold the sharded step
@@ -1748,6 +1761,531 @@ def distributed_phases(smi: str) -> dict:
             counts[label] = {**outs[0]["launches"], "ssd": 0, "ssd_bwd": 0,
                              "grouped_matmul_by_variant":
                              outs[0]["grouped_matmul_by_variant"]}
+    return counts
+
+
+# prefill and decode under a policy, and the SSM and hybrid families
+# sharded: ranks share the one card over host-staged gloo, as in
+# distributed_granite. Two ranks on a (data 1, model 2) mesh run four
+# phases in one process group; eight ranks on (data 1, model 8) run
+# yi-9b's production modes at tp 8. Each serving phase prefills, then
+# decodes ``steps`` tokens teacher-forced with the unsharded model's greedy
+# tokens (so that no divergence compounds), sharded against unsharded in
+# the same run; the SSM phases also take sharded train steps against
+# unsharded ones, as distributed_granite does.
+SERVE_2K = dict(prompt=1024, steps=16, max_seq=2048)
+SHARDED_PAIR = [
+    dict(phase="sharded_serve_yi9b", arch="yi-9b", layers=None,
+         dtype="bfloat16", serve=dict(SERVE_2K, batch=2)),
+    # at data 1 each rank routes the whole batch: the unsharded capacity
+    dict(phase="sharded_serve_granite", arch="granite-moe-1b-a400m",
+         layers=None, dtype="bfloat16", serve=dict(SERVE_2K, batch=1)),
+    dict(phase="sharded_mamba2", arch="mamba2-370m", layers=None,
+         dtype="bfloat16", serve=dict(SERVE_2K, batch=1),
+         train=dict(batch=4, seq=2048, microbatches=2, steps=2)),
+    # zamba2 cut from 38 layers to 8: one segment of 6 with the shared
+    # block after it, and the 2 trailing layers (the time limit)
+    dict(phase="sharded_zamba2", arch="zamba2-1.2b", layers=8,
+         dtype="bfloat16", serve=dict(SERVE_2K, batch=1),
+         train=dict(batch=4, seq=2048, microbatches=2, steps=2))]
+# yi-9b at 2 layers, f32, 8 ranks: "expand" prefill (4 of 32 q heads a
+# rank, the 4 kv heads expanded, the cache's sequence over model), then
+# "head_dim" decode (16 of 128 a rank); greedy tokens held equal
+SHARDED_MODES = [dict(phase="sharded_modes_yi9b", arch="yi-9b", layers=2,
+                      dtype="float32", serve=dict(SERVE_2K, batch=2))]
+# the largest logit difference from the unsharded model over the largest
+# logit: bf16 through the full depth, the ranks' partial sums rounded in
+# another order, 2e-2; bf16 MoE 1e-1, where that rounding can move a near
+# tie in the top-8-of-32 routing and so one expert's share of a token; f32
+# at 2 layers 1e-4
+SHARDED_LOGITS_REL = {"bfloat16": 2e-2, "moe_bfloat16": 1e-1,
+                      "float32": 1e-4}
+
+
+class _shapes_seen:
+    """Records the local shapes (and dtype) that the flash, grouped-matmul
+    and SSD ops receive through the names the models call, in the
+    block."""
+    def __enter__(self):
+        from repro_torch.models import layers, mamba2, moe
+        self.mods = (layers, moe, mamba2)
+        self.fns = (layers.flash_attention, moe.grouped_matmul,
+                    mamba2.ssd_chunked)
+        self.seen = {"flash_attention": set(), "grouped_matmul": set(),
+                     "ssd": set()}
+        fa, gmm, ssd = self.fns
+
+        def fa_shim(q, k, v, **kw):
+            self.seen["flash_attention"].add(
+                (tuple(q.shape), tuple(k.shape), str(q.dtype)))
+            return fa(q, k, v, **kw)
+
+        def gmm_shim(x, w):
+            self.seen["grouped_matmul"].add(
+                (tuple(x.shape), tuple(w.shape), str(x.dtype)))
+            return gmm(x, w)
+
+        def ssd_shim(x, dt, A, B, C, chunk):
+            self.seen["ssd"].add((tuple(x.shape), B.shape[-1], chunk))
+            return ssd(x, dt, A, B, C, chunk)
+        layers.flash_attention, moe.grouped_matmul, mamba2.ssd_chunked = (
+            fa_shim, gmm_shim, ssd_shim)
+        return self.seen
+
+    def __exit__(self, *exc):
+        layers, moe, mamba2 = self.mods
+        (layers.flash_attention, moe.grouped_matmul,
+         mamba2.ssd_chunked) = self.fns
+
+
+def _check_local_shapes(seen, trained: bool, gen) -> list:
+    """Each kernel at each local shape of ``seen`` against its plain
+    version, on fresh inputs: flash forward (and backward where the phase
+    trains) against ``attention_ref``, the grouped matmul against
+    ``grouped_matmul_ref``, the SSD intra-chunk kernels forward (and
+    backward) against ``ssd_intra_chunk_ref`` at the chunks the local
+    (b, s, heads) make, the models' decay range."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         attention_ref_bwd)
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import (ssd_intra_chunk_ref,
+                                             ssd_intra_chunk_ref_bwd)
+    checks = []
+    for qs, ks, dt in sorted(seen["flash_attention"]):
+        dtype = getattr(torch, dt.removeprefix("torch."))
+        q, k, v = (randn(sh, dtype, gen) for sh in (qs, ks, ks))
+        o = fa_ops.flash_attention(q, k, v)
+        r = attention_ref(q.float(), k.float(), v.float())
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        err, ok = close(o, r, tol)
+        check = {"kernel": "flash_attention", "q": list(qs), "kv": list(ks),
+                 "dtype": dt, "max_abs_err": err, "tol": tol}
+        if trained:
+            dout = randn(qs, dtype, gen)
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            grads = torch.autograd.grad(fa_ops.flash_attention(qg, kg, vg),
+                                        (qg, kg, vg), dout)
+            rg = attention_ref_bwd(q.float(), k.float(), v.float(),
+                                   dout.float())
+            check["bwd_err_of_max"] = gerr = max(
+                float((a.float() - c).abs().max()) / float(c.abs().max())
+                for a, c in zip(grads, rg))
+            ok = ok and gerr <= tol
+        checks.append(dict(check, ok=ok))
+    for xs, ws, dt in sorted(seen["grouped_matmul"]):
+        dtype = getattr(torch, dt.removeprefix("torch."))
+        x, w = randn(xs, dtype, gen, 0.3), randn(ws, dtype, gen, 0.3)
+        tol = 3e-2 if dtype == torch.bfloat16 else 3e-4
+        err, ok = close(gmm_ops.grouped_matmul(x, w),
+                        grouped_matmul_ref(x.float(), w.float()), tol)
+        checks.append({"kernel": "grouped_matmul", "x": list(xs),
+                       "w": list(ws), "dtype": dt, "max_abs_err": err,
+                       "tol": tol, "ok": ok})
+    # tests/test_kernels.py's SSD tolerance; the backward's of check_ssd_bwd
+    ssd_tol = dict(atol=5e-4, rtol=5e-3)
+    for (b, s, nh, hd), ds, ch in sorted(seen["ssd"]):
+        s = -(-s // ch) * ch
+        ins = ssd_kernel_inputs(*ssd_inputs(b, s, nh, hd, ds, gen, True), ch)
+        y, S = ssd_ops.ssd_intra_chunk(*ins)
+        ry, rS = ssd_intra_chunk_ref(*ins)
+        err = max(float((y - ry).abs().max()), float((S - rS).abs().max()))
+        ok = all(torch.allclose(o, r, **ssd_tol) for o, r in ((y, ry),
+                                                               (S, rS)))
+        check = {"kernel": "ssd", "b": b, "s": s, "local_heads": nh,
+                 "hd": hd, "ds": ds, "chunk": ch, "dtype": "float32",
+                 "max_abs_err": err, "tol": ssd_tol}
+        if trained:
+            ins = [t.requires_grad_() for t in ins]
+            dy = randn(ins[1].shape, torch.float32, gen)
+            dS = randn((b, nh, s // ch, ds, hd), torch.float32, gen)
+            grads = torch.autograd.grad(ssd_ops.ssd_intra_chunk(*ins),
+                                        ins, (dy, dS))
+            refs = ssd_intra_chunk_ref_bwd(*(t.detach() for t in ins), dy,
+                                           dS)
+            rel = 0.0
+            for g, r in zip(grads, refs):
+                top = float(r.abs().max())
+                rel = max(rel, float((g - r).abs().max()) / top)
+                ok = ok and bool(((g - r).abs() <= SSD_BWD_TOL["atol_of_max"]
+                                  * top + SSD_BWD_TOL["rtol"] * r.abs())
+                                 .all())
+            check.update(bwd_err_of_max=rel, bwd_tol=SSD_BWD_TOL)
+        checks.append(dict(check, ok=ok))
+    return checks
+
+
+def _logits_rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / float(
+        want.float().abs().max())
+
+
+def _sharded_serve(run, rank, mesh, ops, dev) -> dict:
+    """A serving phase on this rank: the unsharded prefill and greedy
+    decode on rank 0 (its logits on the host, its tokens sent to every
+    rank), then the same steps sharded: prefill under a prefill-kind
+    policy, the caches placed for a decode-kind policy's model, decode fed
+    the unsharded tokens; launches, local shapes, staged collectives, peak
+    memory and host ms a call over the sharded steps only."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import comm
+    from repro_torch.launch import specs
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import leaves
+    cfg = _dist_config(run)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sv = run["serve"]
+    b, s, steps, max_seq = sv["batch"], sv["prompt"], sv["steps"], \
+        sv["max_seq"]
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, size=(b, s)), device=dev)
+    pos = [torch.full((b,), s + t) for t in range(steps)]
+    out, ref = {}, None
+    with torch.no_grad():
+        if rank == 0:
+            plain = build_model(cfg, dev)
+            params = plain.init(torch.Generator(device=dev).manual_seed(0))
+            lg, c = plain.prefill(params, toks, max_seq)
+            ref, feed = [lg.float().cpu()], []
+            for t in range(steps):
+                feed.append(lg[:, -1, :cfg.vocab_size].argmax(-1))
+                lg, c = plain.decode(params, c, feed[-1][:, None], pos[t])
+                ref.append(lg.float().cpu())
+            feed = torch.stack(feed, 1).cpu()
+            del plain, params, c, lg
+            _reset_memory(dev)
+        box = [feed if rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        feed = box[0].to(dev)
+        pol_p, par = specs.make_policy(cfg, ShapeConfig("p", s, b,
+                                                        "prefill"), mesh)
+        pol_d, _ = specs.make_policy(cfg, ShapeConfig("d", max_seq, b,
+                                                      "decode"), mesh)
+        mp = build_model(cfg, dev, mesh, par, pol_p)
+        md = build_model(cfg, dev, mesh, par, pol_d)
+        full = mp.init(torch.Generator(device=dev).manual_seed(0))
+        pp = mp.distribute(full)
+        # one mode for both kinds: the same placements, one copy
+        dp = pp if (pol_p.mode, pol_p.h_pad) == (pol_d.mode, pol_d.h_pad) \
+            else md.distribute(full)
+        del full
+        _reset_memory(dev)
+        reset_launches(ops)
+        comm.staged.clear()
+        comm.host_staged.clear()
+        got, ms = [], {"prefill": None, "decode": []}
+        with _shapes_seen() as seen:
+            sync()
+            t0 = time.perf_counter()
+            lg, c = mp.prefill(pp, toks, max_seq)
+            got.append(lg.full_tensor().float().cpu())
+            ms["prefill"] = (time.perf_counter() - t0) * 1e3
+            c = pol_d.constrain_tree(c, md.cache_axes())
+            greedy = [got[0][:, -1, :cfg.vocab_size].argmax(-1)]
+            for t in range(steps):
+                sync()
+                t0 = time.perf_counter()
+                lg, c = md.decode(dp, c, feed[:, t:t + 1], pos[t])
+                got.append(lg.full_tensor().float().cpu())
+                ms["decode"].append((time.perf_counter() - t0) * 1e3)
+                greedy.append(got[-1][:, -1, :cfg.vocab_size].argmax(-1))
+        out["launches"] = read_launches(ops)
+        out["staged"] = dict(comm.staged)
+        out["host_staged_bytes"] = dict(comm.host_staged)
+        out["peak_memory_gb"] = _peak_gb(dev)
+        out["host_ms"] = ms
+        out["modes"] = {"prefill": pol_p.mode, "decode": pol_d.mode,
+                        "h_pad": pol_p.h_pad}
+        out["local_shapes"] = {k: sorted(v) for k, v in seen.items()}
+        out["cache_placements"] = [str(x.placements) for x in
+                                   leaves(c)][:3]
+        del mp, md, pp, dp, c, lg
+    if rank == 0:
+        rels = [_logits_rel(g, r) for g, r in zip(got, ref)]
+        out.update(logits_rel=rels, greedy_feed=feed.cpu().tolist(),
+                   greedy_sharded=torch.stack(greedy[:-1], 1).tolist(),
+                   greedy_equal=bool(torch.equal(
+                       torch.stack(greedy[:-1], 1), feed.cpu())))
+    return out
+
+
+def _reset_memory(dev):
+    """Frees what was dropped and restarts the peak count (on the card)."""
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(dev):
+    return torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" \
+        else None
+
+
+def _sharded_train(run, rank, mesh, ops, dev) -> dict:
+    """A training check on this rank, as distributed_rank's: rank 0's
+    unsharded steps from seed 0 (params and first moments kept on the
+    host), then the sharded steps from the same params; losses, the
+    largest param difference, launches, local shapes, staged collectives,
+    peak memory, ms a step."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import comm
+    from repro_torch.launch import specs
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import OptimizerConfig, leaves
+    from repro_torch.training import train_step as ts
+    cfg = _dist_config(run)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    tr = run["train"]
+    b, s, mb, steps = tr["batch"], tr["seq"], tr["microbatches"], \
+        tr["steps"]
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size,
+                                             size=(b, s + 1))
+    batch = {"inputs": torch.as_tensor(toks[:, :-1], device=dev),
+             "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+    ocfg = OptimizerConfig(warmup_steps=2, total_steps=100)
+    tcfg = ts.TrainStepConfig(microbatches=mb)
+    out, ref = {}, None
+
+    def steps_of(step_fn, state):
+        losses, ms = [], []
+        for _ in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            state, met = step_fn(state, batch)
+            losses.append(float(met["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return state, losses, ms
+    if rank == 0:
+        plain = build_model(cfg, dev)
+        state = ts.init_state(plain, ocfg, torch.Generator(
+            device=dev).manual_seed(0))
+        state, out["unsharded_losses"], out["unsharded_ms"] = steps_of(
+            ts.make_train_step(plain, cfg, ocfg, tcfg), state)
+        ref = ([t.cpu() for t in leaves(state["params"])],
+               [t.cpu() for t in leaves(state["opt"]["m"])])
+        del state, plain
+        _reset_memory(dev)
+    dist.barrier()
+    policy, par = specs.make_policy(cfg, ShapeConfig("t", s, b, "train"),
+                                    mesh)
+    model = build_model(cfg, dev, mesh, par, policy)
+    state = ts.init_state(model, ocfg, torch.Generator(
+        device=dev).manual_seed(0))
+    step_fn = ts.make_train_step(model, cfg, ocfg, tcfg)
+    _reset_memory(dev)
+    reset_launches(ops)
+    comm.staged.clear()
+    comm.host_staged.clear()
+    with _shapes_seen() as seen:
+        state, out["losses"], out["ms"] = steps_of(step_fn, state)
+    out["launches"] = read_launches(ops)
+    out["staged"] = dict(comm.staged)
+    out["host_staged_bytes"] = dict(comm.host_staged)
+    out["peak_memory_gb"] = _peak_gb(dev)
+    out["local_shapes"] = {k: sorted(v) for k, v in seen.items()}
+    out["mode"] = policy.mode
+    lr_sum = sum(float(adamw.schedule(ocfg, torch.tensor(i)))
+                 for i in range(1, steps + 1))
+    # distributed_granite's bounds: bf16 2.2 lr summed over the steps +
+    # 2^-6 |p|, f32 atol 1e-4 rtol 1e-3
+    if cfg.dtype == "bfloat16":
+        bound = lambda w: 2.2 * lr_sum + 2 ** -6 * w
+    else:
+        bound = lambda w: 1e-4 + 1e-3 * w
+    worst = {"max_abs_diff": 0.0, "past_tol": 0, "past_tol_live_moment": 0,
+             "lr_sum": lr_sum}
+    for i, p in enumerate(leaves(state["params"])):
+        full = p.full_tensor().cpu()
+        if ref is not None:
+            d, off, live = _param_diff(full, ref[0][i], ref[1][i], bound)
+            worst["past_tol"] += off
+            worst["past_tol_live_moment"] += live
+            worst["max_abs_diff"] = max(worst["max_abs_diff"], d)
+    out["param_diff"] = worst
+    del state, step_fn, model
+    return out
+
+
+def sharded_rank(rank, world, runs):
+    """The ranks' body for the sharded serving phases: each run of
+    ``runs`` on a (data 1, model ``world``) mesh of this process group,
+    its serving check, then its training check where it has one, then its
+    kernels at each local shape against their plain versions; everything
+    freed between runs. Returns each run's results (rank 0's logits
+    comparisons and reference numbers)."""
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = {"flash_attention": fa_ops, "grouped_matmul": gmm_ops,
+           "ssd": ssd_ops}
+    for op in ops.values():
+        op.load_library()
+    dev = "cuda"
+    mesh = make_test_mesh((1, world), ("data", "model"), device_type=dev)
+    results = []
+    for run in runs:
+        t0 = time.perf_counter()
+        res = {"rank": rank, "backend": dist.get_backend()}
+        res["serve"] = _sharded_serve(run, rank, mesh, ops, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if run.get("train"):
+            res["train"] = _sharded_train(run, rank, mesh, ops, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+        seen = {k: set(v) for k, v in res["serve"]["local_shapes"].items()}
+        if run.get("train"):
+            for k, v in res["train"]["local_shapes"].items():
+                seen[k] |= set(v)
+        res["kernel_checks"] = _check_local_shapes(
+            seen, bool(run.get("train")),
+            torch.Generator(device=dev).manual_seed(rank + 1))
+        res["seconds"] = time.perf_counter() - t0
+        dist.barrier()
+        results.append(res)
+    return results
+
+
+def _expected_launches(run, cfg) -> dict:
+    """Each kernel's exact launches a rank in the serving check (prefill,
+    then decode, which runs no kernel but the MoE's grouped matmuls) and
+    the training check (remat "full": the Mamba2 layers' SSD forward twice
+    a microbatch; the hybrid's shared block not remat'd)."""
+    from repro_torch.models.model import _hybrid_layout, program
+    sv, layers = run["serve"], cfg.num_layers
+    zero = dict.fromkeys(("flash_attention", "grouped_matmul", "ssd"), 0)
+    serve = dict(zero)
+    train = dict(zero, **{f"{k}_bwd": 0 for k in zero})
+    if cfg.family in ("dense", "moe"):
+        n_super, subs = program(cfg)
+        serve["flash_attention"] = layers
+        moe_layers = n_super * sum(s.ffn == "moe" for s in subs)
+        serve["grouped_matmul"] = 3 * moe_layers * (1 + sv["steps"])
+    else:
+        serve["ssd"] = layers
+        apps = _hybrid_layout(cfg)[1] if cfg.family == "hybrid" else 0
+        serve["flash_attention"] = apps
+        if run.get("train"):
+            per = run["train"]["microbatches"] * run["train"]["steps"]
+            train.update(ssd=2 * layers * per, ssd_bwd=layers * per,
+                         flash_attention=apps * per,
+                         flash_attention_bwd=apps * per)
+    serve.update({f"{k}_bwd": 0 for k in zero})
+    return {"serve": serve, "train": train}
+
+
+def sharded_phases(smi: str) -> dict:
+    """The sharded serving phases: ``sharded_rank`` on two ranks sharing
+    the card for SHARDED_PAIR, then on eight for SHARDED_MODES; one line a
+    phase; fails on a rank's error, a kernel that disagrees with its plain
+    version at a local shape, launches off the exact count a rank, logits
+    past SHARDED_LOGITS_REL of the unsharded ones, f32 greedy tokens that
+    differ, or sharded train steps off the unsharded ones. Returns each
+    phase's launches a rank (serving and training summed)."""
+    from repro_torch.distributed.spawn import run_ranks
+    counts = {}
+    for runs, world in ((SHARDED_PAIR, 2), (SHARDED_MODES, 8)):
+        if not runs:
+            continue
+        t0 = time.perf_counter()
+        outs = run_ranks(sharded_rank, world, backend="gloo",
+                         device_type="cuda", args=(runs,), timeout=900,
+                         threads=0)
+        spawn_s = time.perf_counter() - t0
+        for i, run in enumerate(runs):
+            cfg = _dist_config(run)
+            per_rank = [o[i] for o in outs]
+            r0 = per_rank[0]
+            want = _expected_launches(run, cfg)
+            sv = [o["serve"] for o in per_rank]
+            rel_tol = SHARDED_LOGITS_REL[
+                ("moe_" if cfg.family == "moe" else "") + cfg.dtype
+                if cfg.dtype == "bfloat16" else cfg.dtype]
+            line = {"phase": run["phase"], "arch": run["arch"],
+                    "layers": cfg.num_layers, "dtype": cfg.dtype,
+                    "ranks": world, "mesh": {"data": 1, "model": world},
+                    "backend": r0["backend"],
+                    "staging": "every collective of a CUDA tensor through "
+                               "pinned host memory (gloo takes none)",
+                    "modes": r0["serve"]["modes"], "serve": run["serve"],
+                    "logits_rel": r0["serve"]["logits_rel"],
+                    "logits_rel_tol": rel_tol,
+                    "greedy_equal": r0["serve"]["greedy_equal"],
+                    "serve_launches_a_rank": [o["launches"] for o in sv],
+                    "expected_serve_launches": want["serve"],
+                    "serve_host_ms": [o["host_ms"] for o in sv],
+                    "serve_peak_memory_gb_a_rank":
+                        [o["peak_memory_gb"] for o in sv],
+                    "serve_staged_by_op": [o["staged"] for o in sv],
+                    "serve_host_staged_bytes":
+                        [o["host_staged_bytes"] for o in sv],
+                    "serve_local_shapes": r0["serve"]["local_shapes"],
+                    "cache_placements": r0["serve"]["cache_placements"],
+                    "kernel_checks": [c for o in per_rank
+                                      for c in o["kernel_checks"]],
+                    "card": smi, "seconds": r0["seconds"]}
+            bad = []
+            if any(x > rel_tol for x in line["logits_rel"]):
+                bad.append(f"logits {line['logits_rel']} past {rel_tol}")
+            if cfg.dtype == "float32" and not line["greedy_equal"]:
+                bad.append("greedy tokens differ")
+            if any({k: o["launches"][k] for k in want["serve"]}
+                   != want["serve"] for o in sv):
+                bad.append(f"serve launches {line['serve_launches_a_rank']}"
+                           f", expected {want['serve']}")
+            total = dict(want["serve"])
+            if run.get("train"):
+                tr = [o["train"] for o in per_rank]
+                t0r = r0["train"]
+                loss_rtol = 1e-2 if cfg.dtype == "bfloat16" else 1e-4
+                line.update(
+                    train=run["train"], train_mode=t0r["mode"],
+                    losses=t0r["losses"],
+                    unsharded_losses=t0r["unsharded_losses"],
+                    loss_rtol=loss_rtol, param_diff=t0r["param_diff"],
+                    sharded_ms_a_step=[o["ms"] for o in tr],
+                    unsharded_ms_a_step=t0r["unsharded_ms"],
+                    train_launches_a_rank=[o["launches"] for o in tr],
+                    expected_train_launches=want["train"],
+                    train_peak_memory_gb_a_rank=[o["peak_memory_gb"]
+                                                 for o in tr],
+                    train_staged_by_op=[o["staged"] for o in tr],
+                    train_host_staged_bytes=[o["host_staged_bytes"]
+                                             for o in tr],
+                    train_local_shapes=t0r["local_shapes"])
+                if not all(abs(a - b) <= loss_rtol * abs(b) for a, b in zip(
+                        t0r["losses"], t0r["unsharded_losses"])) or not \
+                        all(np.isfinite(t0r["losses"])):
+                    bad.append(f"losses {t0r['losses']} against "
+                               f"{t0r['unsharded_losses']}")
+                if t0r["param_diff"]["past_tol"]:
+                    bad.append(f"params {t0r['param_diff']}")
+                if any({k: o["launches"][k] for k in want["train"]}
+                       != want["train"] for o in tr):
+                    bad.append(f"train launches "
+                               f"{line['train_launches_a_rank']}, expected "
+                               f"{want['train']}")
+                total = {k: total[k] + want["train"][k] for k in total}
+            if not all(c["ok"] for c in line["kernel_checks"]):
+                bad.append("kernels disagree with their plain versions at "
+                           "local shapes: " + str(
+                               [c for c in line["kernel_checks"]
+                                if not c["ok"]]))
+            line["spawn_seconds"] = spawn_s
+            emit(line)
+            if bad:
+                fail(f"{run['phase']}: " + "; ".join(bad))
+            counts[run["phase"]] = dict(total, grouped_matmul_by_variant=r0[
+                "serve"]["launches"]["grouped_matmul_by_variant"])
     return counts
 
 
@@ -2530,6 +3068,8 @@ def main():
     train_counts.update(embeddings_phases(smi, ops))
     # -- 4c. the distributed layer: two ranks share the card --------------
     train_counts.update(distributed_phases(smi))
+    # -- 4d. prefill and decode sharded, the SSM and hybrid families -------
+    train_counts.update(sharded_phases(smi))
 
     # -- 5. full width, depth 2, float32: engine tokens == a reference -----
     def faults(monitor) -> list:

@@ -212,9 +212,11 @@ class ShardingPolicy:
     def placements(self, spec) -> tuple:
         """The spec's DTensor placements, one a mesh dim in the mesh's
         order: ``Shard(d)`` on each mesh axis that dim d's entry names,
-        ``Replicate()`` on every other. A dim over several mesh axes is
-        split over them in the mesh's order (its major axis first), which
-        is JAX's for an entry that names them in that order."""
+        ``Replicate()`` on every other, and on a mesh axis of one rank
+        (where a shard is the whole tensor: DTensor's views do not take a
+        shard of a dim of size 1). A dim over several mesh axes is split
+        over them in the mesh's order (its major axis first), which is
+        JAX's for an entry that names them in that order."""
         from torch.distributed.tensor import Replicate, Shard
         names = list(self.axis_sizes)
         out = [Replicate()] * len(names)
@@ -227,7 +229,8 @@ class ShardingPolicy:
                 raise ValueError(f"spec entry {entry} is not in the mesh's "
                                  f"axis order {tuple(names)}")
             for i in idx:
-                out[i] = Shard(dim)
+                if self.axis_sizes[names[i]] > 1:
+                    out[i] = Shard(dim)
         return tuple(out)
 
     def placements_for(self, shape, axes) -> tuple:
@@ -260,6 +263,32 @@ class ShardingPolicy:
 
     def distribute_tree(self, tree, axes_tree):
         return map_axes(self.distribute, tree, axes_tree)
+
+
+def local_span(shape, mesh, placements, dim: int) -> tuple:
+    """(offset, size) of this rank's part of dim ``dim`` of a tensor of
+    global ``shape`` in ``placements`` on ``mesh``: each mesh dim that
+    shards ``dim`` splits the part the mesh dims before it left, evenly,
+    as ``distribute_full`` and DTensor cut it."""
+    off, size = 0, shape[dim]
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            size //= mesh.size(i)
+            off += coord[i] * size
+    return off, size
+
+
+def zeros(shape, dtype, device, mesh, placements):
+    """A DTensor of zeros of global ``shape`` in ``placements`` (even
+    shards, as a policy's specs give): each rank allocates its own part
+    only."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    local = tuple(local_span(shape, mesh, placements, d)[1]
+                  for d in range(len(shape)))
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device),
+                              mesh, placements)
 
 
 def distribute_full(x, mesh, placements):

@@ -1,13 +1,15 @@
-"""Abstract arguments of a train step for every (arch x shape), from the
-JAX package's ``repro.launch.specs``: meta-device tensors (shapes and
-dtypes, no storage, JAX's ``ShapeDtypeStruct``s) paired with their specs
-under a ``ShardingPolicy``. Launch-time code reuses the specs to place real
-tensors (``ShardingPolicy.placements``).
+"""Abstract arguments of every step kind (train, prefill, decode) for
+every (arch x shape), from the JAX package's ``repro.launch.specs``:
+meta-device tensors (shapes and dtypes, no storage, JAX's
+``ShapeDtypeStruct``s) paired with their specs under a ``ShardingPolicy``.
+Launch-time code reuses the specs to place real tensors
+(``ShardingPolicy.placements``; a model built under the policy places its
+params and caches itself: ``model.distribute``, ``model.init_cache``).
 
-Ported: ``make_policy``, ``abstract_params``, ``abstract_opt_state`` (f32,
-bf16 and int8 moments) and ``batch_specs``. The prefill and decode kinds'
-``abstract_cache``, ``decode_specs`` and ``input_specs`` come with the
-dry-run (ROADMAP A.8b).
+``make_policy``, ``abstract_params``, ``abstract_opt_state`` (f32, bf16
+and int8 moments), ``abstract_cache``, ``batch_specs``, ``decode_specs``
+and ``input_specs`` for the three kinds. JAX's ``_with_shardings`` has no
+counterpart: a spec travels beside its meta tensor instead of inside it.
 """
 from __future__ import annotations
 
@@ -79,3 +81,58 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
               policy.spec((b, s), ("batch", "seq")))
     return {"inputs": inputs, "labels": labels}
 
+
+
+def abstract_cache(model, policy: ShardingPolicy, batch: int, max_seq: int):
+    """(caches as meta tensors, their axes, their specs): the model's
+    ``init_cache`` on the meta device."""
+    caches = model.init_cache(batch, max_seq, cache_device="meta")
+    axes = model.cache_axes()
+    return caches, axes, policy.tree_specs(caches, axes)
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeConfig,
+                 policy: ShardingPolicy):
+    """Single-token decode inputs: ((inputs, spec), (pos, spec)), inputs
+    (B, 1) token ids or (B, 1, d) embeddings, pos (B,) int32."""
+    b = shape.global_batch
+    if cfg.input_mode == "embeddings":
+        inputs = (_meta((b, 1, cfg.d_model), getattr(torch, cfg.dtype)),
+                  policy.spec((b, 1, cfg.d_model), ("batch", "seq", "act")))
+    else:
+        inputs = (_meta((b, 1), torch.int32),
+                  policy.spec((b, 1), ("batch", "seq")))
+    pos = (_meta((b,), torch.int32), policy.spec((b,), ("batch",)))
+    return inputs, pos
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                policy: ShardingPolicy, model):
+    """Every abstract input of the step ``shape`` runs, as JAX's:
+
+      train   -> (state, batch)
+      prefill -> (params, batch inputs)
+      decode  -> (params, caches, inputs, pos)
+
+    Returns (args, aux): args as meta tensors (a batch or decode input as
+    its (meta tensor, spec) pair, as ``batch_specs``), aux the specs and
+    axes JAX returns for its out-shardings (``state_sh`` and
+    ``moment_dtype``; ``params_sh``; ``cache_sh`` and ``cache_axes``; and
+    ``axes``)."""
+    params, axes, params_sh = abstract_params(model, policy)
+    if shape.kind == "train":
+        mdt = "bfloat16" if cfg.param_count() > 1e11 else "float32"
+        opt, opt_sh = abstract_opt_state(params, axes, policy, mdt)
+        return ({"params": params, "opt": opt},
+                batch_specs(cfg, shape, policy)), {
+                    "state_sh": {"params": params_sh, "opt": opt_sh},
+                    "moment_dtype": mdt, "axes": axes}
+    if shape.kind == "prefill":
+        return (params, batch_specs(cfg, shape, policy)["inputs"]), {
+            "params_sh": params_sh, "axes": axes}
+    caches, cache_axes, cache_sh = abstract_cache(
+        model, policy, shape.global_batch, shape.seq_len)
+    inputs, pos = decode_specs(cfg, shape, policy)
+    return (params, caches, inputs, pos), {
+        "params_sh": params_sh, "cache_sh": cache_sh, "axes": axes,
+        "cache_axes": cache_axes}

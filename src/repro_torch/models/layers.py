@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.distributed import comm
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 # ---------------------------------------------------------------------------
@@ -60,11 +61,30 @@ def rms_norm(x, weight, eps: float = 1e-6):
     """RMSNorm with a zero-centred weight: f32 mean-square, then
     ``(x * scale.astype(dtype)) * (1 + w).astype(dtype)`` as in the JAX
     function."""
-    dtype = x.dtype
     var = torch.sum(torch.square(x.float()), dim=-1, keepdim=True) / x.shape[-1]
+    return rms_norm_from(x, weight, var, eps)
+
+
+def rms_norm_from(x, weight, var, eps: float):
+    """``rms_norm`` from the f32 mean square ``var`` of x's last dim."""
+    dtype = x.dtype
     scale = torch.rsqrt(var + eps)
     w = 1.0 + weight.float()
     return (x * scale.to(dtype)) * w.to(dtype)
+
+
+def head_dim_norms(q, k, q_norm, k_norm, eps: float, group, head_dim: int):
+    """``rms_norm`` of q and k over a head dim that the ranks of ``group``
+    hold in contiguous blocks (``"head_dim"`` mode; the norms' weights
+    sharded alike): each rank's sums of squares, one all-reduce SUM over
+    ``group`` of q's and k's together (B, S, H + KV, 1) f32, then each
+    rank's block normed by the whole head dim's mean square."""
+    ss = torch.cat([torch.sum(torch.square(t.float()), dim=-1, keepdim=True)
+                    for t in (q, k)], dim=2)
+    var = comm.all_reduce(ss, group) / head_dim
+    h = q.shape[2]
+    return (rms_norm_from(q, q_norm, var[:, :, :h], eps),
+            rms_norm_from(k, k_norm, var[:, :, h:], eps))
 
 
 def softcap(x, cap: float):
@@ -109,6 +129,36 @@ def apply_rope(x, positions, theta: float):
     cos = replicated_like(x, torch.cos(angles).to(x.dtype))
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def apply_rope_head_dim(q, k, positions, theta: float, group, head_dim: int):
+    """``apply_rope`` of q and k whose head dim the ranks of ``group`` hold
+    in contiguous blocks of ``c = head_dim / tp`` (``"head_dim"`` mode). The
+    rotation pairs dim i with dim i + head_dim / 2, so a rank of the first
+    half (blocks 0 .. tp/2 - 1) needs the block tp/2 ranks on, and a rank
+    of the second half the block tp/2 ranks back: one exchange with that
+    partner (``comm.send_recv``, q's and k's blocks together) per call.
+    Each rank then computes its own block with the unsharded formula's
+    operations, so the values are the unsharded ones bit for bit. tp is
+    even: the mode needs it to divide the head dim, a power of two."""
+    tp, r = comm.group_size(group), comm.group_rank(group)
+    if tp % 2:
+        raise ValueError(f"head-dim sharding over {tp} ranks: rope pairs "
+                         f"the halves of the head dim, which an odd tp "
+                         f"does not split at a block edge")
+    h = q.shape[2]
+    both = torch.cat([q, k], dim=2)
+    c = both.shape[-1]
+    first = r < tp // 2
+    partner = comm.send_recv(both, (r + tp // 2) % tp, (r + tp // 2) % tp,
+                             group)
+    j0 = r * c if first else r * c - head_dim // 2
+    freqs = _rope_freqs_f32(head_dim, theta, both.device)[j0:j0 + c]
+    angles = (positions[..., None].float() * freqs)[..., None, :]
+    sin = torch.sin(angles).to(both.dtype)
+    cos = torch.cos(angles).to(both.dtype)
+    out = both * cos - partner * sin if first else both * cos + partner * sin
+    return out[:, :, :h], out[:, :, h:]
 
 
 # ---------------------------------------------------------------------------
@@ -198,12 +248,22 @@ def _proj(x, w):
                                                    *w.shape[1:])
 
 
-def qkv_proj(p, cfg, x, positions, theta: float):
+def qkv_proj(p, cfg, x, positions, theta: float, head_dim_group=None):
     """Project, then the bias and the per-head norm where the params hold
-    them, then rope. x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    them, then rope. x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd). With
+    ``head_dim_group``, ``p`` holds this rank's block of the head dim
+    (``"head_dim"`` mode) and the norm and rope take that group's
+    collectives (``head_dim_norms``, ``apply_rope_head_dim``)."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if head_dim_group is not None:
+        if "q_norm" in p:
+            q, k = head_dim_norms(q, k, p["q_norm"], p["k_norm"],
+                                  cfg.norm_eps, head_dim_group, cfg.head_dim)
+        q, k = apply_rope_head_dim(q, k, positions, theta, head_dim_group,
+                                   cfg.head_dim)
+        return q, k, v
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -262,14 +322,18 @@ def attention(cfg, q, k, v, *, window: int = 0):
                            softcap=cfg.attn_softcap)
 
 
-def masked_attention(cfg, q, k_cache, v_cache, valid):
+def masked_attention(cfg, q, k_cache, v_cache, valid, scores_sum=None):
     """Softmax attention of q (B,C,H,hd) over cache slots (B,T,KV,hd) where
     ``valid`` (B,C,T) holds: f32 scores, scale, softcap, masked to -1e30,
     probabilities in q's dtype (the JAX cast order). The plain cores of
-    decode (global and rolling) and chunk attention."""
+    decode (global and rolling) and chunk attention. ``scores_sum`` sums
+    the f32 scores over the ranks first where q and the caches hold a
+    block of the head dim each (``"head_dim"`` mode: JAX's psum)."""
     b, c, h, hd = q.shape
     qg = _group(q, k_cache.shape[2])
     s = torch.einsum("bskgh,btkh->bkgst", qg, k_cache).float()
+    if scores_sum is not None:
+        s = scores_sum(s)
     s = softcap(s * _scale(cfg), cfg.attn_softcap)
     s = torch.where(valid[:, None, None], s, -1e30)
     p = torch.softmax(s, dim=-1).to(q.dtype)
@@ -289,14 +353,16 @@ def chunk_attention(cfg, q, k_cache, v_cache, qpos):
     return masked_attention(cfg, q, k_cache, v_cache, valid)
 
 
-def decode_attention(cfg, q, k_cache, v_cache, pos, *, window: int = 0):
+def decode_attention(cfg, q, k_cache, v_cache, pos, *, window: int = 0,
+                     scores_sum=None):
     """Single-token decode. q: (B,1,H,hd); caches: (B,S,KV,hd); pos: (B,)
     (position of the *current* token, already written into the cache)."""
     kpos = torch.arange(k_cache.shape[1], device=q.device)
     valid = kpos[None, :] <= pos[:, None]
     if window:
         valid &= pos[:, None] - kpos[None, :] < window
-    return masked_attention(cfg, q, k_cache, v_cache, valid[:, None])
+    return masked_attention(cfg, q, k_cache, v_cache, valid[:, None],
+                            scores_sum)
 
 
 # ---------------------------------------------------------------------------

@@ -9,17 +9,33 @@ d_inner / head_dim, one B/C group shared by every head. Params keep its
 layouts and dtypes: ``A_log``, ``D`` and ``dt_bias`` are f32 in any model
 dtype, and ``dt`` is f32 from the projection on.
 
+Under a sharding policy (params and activations DTensors) the params
+shard as JAX's: ``w_z``, ``w_x``,
+``conv_x``, ``norm`` and ``out_proj`` over ``d_inner``, ``w_dt``,
+``A_log``, ``D`` and ``dt_bias`` over ``ssm_heads`` (both on ``model``),
+``w_B``, ``w_C``, ``conv_B`` and ``conv_C`` replicated. The block runs as
+one local region on each rank's channels and SSM heads, B and C whole: the
+projections, convs, the SSD op (its kernels forward and backward) and
+decode's state update on local tensors, with the collectives of
+``_Ranks``: the gated norm over the whole ``d_inner`` sums its squares
+over the ranks (GSPMD's all-reduce in JAX), ``out_proj``'s partial sums
+are all-reduced, and the inputs every rank shares take their gradients'
+sums.
+
 Not ported: ``ssd_fused_proxy``, a dry-run lowering, which comes with the
-dry-run tools (ROADMAP A.8b); ``mamba_block`` raises on a config that asks
-for it.
+dry-run tools (ROADMAP A.8b.1, the dry-run's ``fused_proxy`` variants);
+``mamba_block`` raises on a config that asks for it.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import comm
 from repro_torch.kernels.ssd.ops import ssd_chunked
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import (contiguous_strides, dense_init,
+                                       rms_norm_from)
 
 # ---------------------------------------------------------------------------
 # Params
@@ -134,27 +150,157 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
 # ---------------------------------------------------------------------------
 
 
-def _proj(p, h):
-    z = h @ p["w_z"]
-    x = h @ p["w_x"]
+class _Whole:
+    """The collectives of an unsharded block: none."""
+    @staticmethod
+    def enter(t):
+        return t
+
+    total = out = enter
+
+
+_WHOLE = _Whole()
+
+
+class _Ranks:
+    """The collectives of a block whose ``d_inner`` and SSM heads the ranks
+    of ``group`` (the ``model`` axis) shard in contiguous blocks, each rank
+    computing its own channels and heads on local tensors:
+
+      enter(t)   t is the same on every rank and each uses it for its own
+                 channels (h into z's, x's and dt's projections; B and C
+                 into the SSD): identity, its gradient all-reduced
+      total(ss)  the gated norm's sums of squares over every rank's
+                 channels: all-reduced, and so is its gradient (each rank's
+                 block adds its own part of it)
+      out(t)     ``out_proj``'s partial sums: all-reduced, the gradient as
+                 it is (the residual stream is the same on every rank)
+
+    Forward, one small all-reduce and one of (B, S, d) a layer; backward,
+    one of (B, S, d), two of (B, S, d_state) and a small one."""
+    def __init__(self, group):
+        self.group = group
+
+    def enter(self, t):
+        return comm.enter(t, self.group)
+
+    def total(self, ss):
+        return comm.enter(comm.sum_over(ss, self.group), self.group)
+
+    def out(self, t):
+        return comm.sum_over(t, self.group)
+
+
+def _proj(p, h, r):
+    he = r.enter(h)
+    z = he @ p["w_z"]
+    x = he @ p["w_x"]
     B = h @ p["w_B"]
     C = h @ p["w_C"]
-    dt = (h @ p["w_dt"]).float()
+    dt = (he @ p["w_dt"]).float()
     return z, x, B, C, dt
 
 
-def _out(p, cfg, y, x, z):
-    """D skip, gate, norm and out projection. y, x: (..., nh, hd)."""
+def _out(p, cfg, y, x, z, r):
+    """D skip, gate, norm over the whole ``d_inner`` and out projection.
+    y, x: (..., nh, hd)."""
     y = y + x * p["D"][:, None].to(y.dtype)
     y = y.reshape(*y.shape[:-2], -1)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    g = y * F.silu(z)
+    ss = torch.sum(torch.square(g.float()), dim=-1, keepdim=True)
+    var = r.total(ss) / cfg.ssm.d_inner(cfg.d_model)
+    return r.out(rms_norm_from(g, p["norm"], var, cfg.norm_eps)
+                 @ p["out_proj"])
 
 
-def mamba_block(p, cfg, h):
+def _run(p, cfg, h, r, states: bool):
+    """The full-sequence block on (local) tensors: (out, the prefill cache
+    when ``states``, else None)."""
+    s_cfg = cfg.ssm
+    hd = s_cfg.head_dim
+    b, s, _ = h.shape
+    z, x, B, C, dt = _proj(p, h, r)
+    cache = None
+    if states:
+        w = s_cfg.conv_width
+        cache = {"conv": {"x": _conv_state(x, w), "B": _conv_state(B, w),
+                          "C": _conv_state(C, w)}}
+    x = causal_conv(x, p["conv_x"])
+    B = r.enter(causal_conv(B, p["conv_B"]))
+    C = r.enter(causal_conv(C, p["conv_C"]))
+    dt = F.softplus(dt + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = x.reshape(b, s, -1, hd)
+    y, final = ssd_chunked(xh, dt, A, B, C, s_cfg.chunk_size)
+    if states:
+        cache["ssd"] = final
+    return _out(p, cfg, y, xh, z, r), cache
+
+
+def _step(p, cfg, h_t, cache, r):
+    """One decode step on (local) tensors: (out (B, 1, d), the new
+    cache)."""
+    b = h_t.shape[0]
+    z, x, B, C, dt = (v[:, 0] for v in _proj(p, h_t, r))
+    conv = cache["conv"]
+    cs_x, x = conv_step(conv["x"], x, p["conv_x"])
+    cs_B, B = conv_step(conv["B"], B, p["conv_B"])
+    cs_C, C = conv_step(conv["C"], C, p["conv_C"])
+    dt = F.softplus(dt + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = x.reshape(b, -1, cfg.ssm.head_dim)
+    state, y = ssd_step(cache["ssd"], xh, dt, A, B, C)
+    out = _out(p, cfg, y, xh, z, r)
+    return out[:, None, :], {"conv": {"x": cs_x, "B": cs_B, "C": cs_C},
+                             "ssd": state}
+
+
+def _local(p, cfg, policy):
+    """(this rank's params, gathered whole over the FSDP axes, and the
+    block's ``_Ranks`` over the ``model`` axis). The block's channels and
+    heads must shard alike."""
+    par = policy.parallel
+    lp = {k: comm.local_whole(w, par) for k, w in p.items()}
+    if lp["w_x"].shape[-1] != lp["A_log"].shape[-1] * cfg.ssm.head_dim:
+        raise ValueError(f"{cfg.name}: d_inner and the SSM heads shard "
+                         f"differently over {par.tp_axis!r}")
+    group = comm.axis_group(policy.mesh, par.tp_axis) if par.tp_axis \
+        else None
+    return lp, _Ranks(group)
+
+
+def _like(t, h):
+    """A local output as a DTensor placed as h (all-reduced over
+    ``model``)."""
+    return DTensor.from_local(t, h.device_mesh, h.placements, shape=h.shape,
+                              stride=contiguous_strides(h.shape))
+
+
+def _placed_cache(cache, cfg, policy, batch: int):
+    """Each rank's cache parts as DTensors in the policy's placements for
+    ``mamba_cache_axes()``."""
+    s = cfg.ssm
+    di, w = s.d_inner(cfg.d_model), s.conv_width - 1
+    shapes = {"conv": {"x": (batch, w, di), "B": (batch, w, s.d_state),
+                       "C": (batch, w, s.d_state)},
+              "ssd": (batch, s.num_heads(cfg.d_model), s.head_dim,
+                      s.d_state)}
+
+    def place(t, shape, axes):
+        return DTensor.from_local(
+            t.contiguous(), policy.mesh, policy.placements_for(shape, axes),
+            shape=shape, stride=contiguous_strides(shape))
+    ax = mamba_cache_axes()
+    return {"conv": {k: place(cache["conv"][k], shapes["conv"][k],
+                              ax["conv"][k]) for k in ("x", "B", "C")},
+            "ssd": place(cache["ssd"], shapes["ssd"], ax["ssd"])}
+
+
+def mamba_block(p, cfg, h, policy=None):
     """Full-sequence Mamba2 block, the training path. h: (B, S, d) ->
     (B, S, d), differentiable (on the card through the SSD op's forward and
-    backward kernels).
+    backward kernels). With a ``policy``, p and h are DTensors and the
+    block runs on each rank's local channels and SSM heads (``_Ranks``).
 
     Every length runs the chunked SSD op, a tail short of a chunk padded
     with dt = 0 inside it; the JAX package runs its sequential scan
@@ -162,19 +308,12 @@ def mamba_block(p, cfg, h):
     gradients."""
     if cfg.ssd_impl == "fused_proxy":
         raise ValueError(f"{cfg.name}: ssd_impl 'fused_proxy' is a dry-run "
-                         f"lowering, not ported (ROADMAP A.8b)")
-    s_cfg = cfg.ssm
-    nh, hd = s_cfg.num_heads(cfg.d_model), s_cfg.head_dim
-    b, s, _ = h.shape
-    z, x, B, C, dt = _proj(p, h)
-    x = causal_conv(x, p["conv_x"])
-    B = causal_conv(B, p["conv_B"])
-    C = causal_conv(C, p["conv_C"])
-    dt = F.softplus(dt + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    xh = x.reshape(b, s, nh, hd)
-    y, _ = ssd_chunked(xh, dt, A, B, C, s_cfg.chunk_size)
-    return _out(p, cfg, y, xh, z)
+                         f"lowering, not ported (ROADMAP A.8b.1, the "
+                         f"dry-run's fused_proxy variants)")
+    if policy is None:
+        return _run(p, cfg, h, _WHOLE, states=False)[0]
+    lp, r = _local(p, cfg, policy)
+    return _like(_run(lp, cfg, h.to_local(), r, states=False)[0], h)
 
 
 def _conv_state(v, width: int):
@@ -184,47 +323,42 @@ def _conv_state(v, width: int):
         :, -(width - 1):]
 
 
-def mamba_prefill(p, cfg, h):
+def mamba_prefill(p, cfg, h, policy=None):
     """h: (B, S, d) -> (out (B, S, d), {"conv": {"x", "B", "C"}, "ssd"}).
+    With a ``policy``, on each rank's channels and heads as
+    ``mamba_block``; the cache as DTensors, the conv state's x by its
+    ``d_inner`` shards and the SSD state by its heads.
 
     Every length runs the chunked SSD op: a tail short of a chunk is padded
     with dt = 0 inside it (the JAX package runs its sequential scan
     instead when S is not a chunk multiple)."""
-    s_cfg = cfg.ssm
-    nh, hd = s_cfg.num_heads(cfg.d_model), s_cfg.head_dim
-    b, s, _ = h.shape
-    z, x, B, C, dt = _proj(p, h)
-    w = s_cfg.conv_width
-    conv_state = {"x": _conv_state(x, w), "B": _conv_state(B, w),
-                  "C": _conv_state(C, w)}
-    x = causal_conv(x, p["conv_x"])
-    B = causal_conv(B, p["conv_B"])
-    C = causal_conv(C, p["conv_C"])
-    dt = F.softplus(dt + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    xh = x.reshape(b, s, nh, hd)
-    y, final = ssd_chunked(xh, dt, A, B, C, s_cfg.chunk_size)
-    return _out(p, cfg, y, xh, z), {"conv": conv_state, "ssd": final}
+    if policy is None:
+        return _run(p, cfg, h, _WHOLE, states=True)
+    lp, r = _local(p, cfg, policy)
+    out, cache = _run(lp, cfg, h.to_local(), r, states=True)
+    return _like(out, h), _placed_cache(cache, cfg, policy, h.shape[0])
 
 
-def mamba_decode(p, cfg, h_t, cache):
+def mamba_decode(p, cfg, h_t, cache, policy=None):
     """Single-token decode. h_t: (B, 1, d); cache: {"conv": {...}, "ssd"}.
-    Returns (out (B, 1, d), the new cache)."""
-    s_cfg = cfg.ssm
-    nh, hd = s_cfg.num_heads(cfg.d_model), s_cfg.head_dim
-    b = h_t.shape[0]
-    z, x, B, C, dt = (v[:, 0] for v in _proj(p, h_t))
-    conv = cache["conv"]
-    cs_x, x = conv_step(conv["x"], x, p["conv_x"])
-    cs_B, B = conv_step(conv["B"], B, p["conv_B"])
-    cs_C, C = conv_step(conv["C"], C, p["conv_C"])
-    dt = F.softplus(dt + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    xh = x.reshape(b, nh, hd)
-    state, y = ssd_step(cache["ssd"], xh, dt, A, B, C)
-    out = _out(p, cfg, y, xh, z)
-    new_cache = {"conv": {"x": cs_x, "B": cs_B, "C": cs_C}, "ssd": state}
-    return out[:, None, :], new_cache
+    Returns (out (B, 1, d), the new cache). With a ``policy``, on each
+    rank's channels and heads as ``mamba_block`` (the cache DTensors)."""
+    if policy is None:
+        return _step(p, cfg, h_t, cache, _WHOLE)
+    lp, r = _local(p, cfg, policy)
+    local = {"conv": {k: v.to_local() for k, v in cache["conv"].items()},
+             "ssd": cache["ssd"].to_local()}
+    out, new = _step(lp, cfg, h_t.to_local(), local, r)
+    return _like(out, h_t), _placed_cache(new, cfg, policy, h_t.shape[0])
+
+
+def mamba_cache_axes() -> dict:
+    """Logical axes of ``init_mamba_cache``'s caches (unstacked), as
+    JAX's."""
+    return {"conv": {"x": ("batch", "conv", "d_inner"),
+                     "B": ("batch", "conv", "ssm_state"),
+                     "C": ("batch", "conv", "ssm_state")},
+            "ssd": ("batch", "ssm_heads", "head_dim_ssm", "ssm_state")}
 
 
 def init_mamba_cache(cfg, batch: int, dtype, device, stack: int):

@@ -52,6 +52,9 @@ The hybrid's shared attention+MLP block runs once after each segment, not
 remat'd, as in JAX.
 ``split_blocks`` gives the per-layer views a train step differentiates.
 ``model.kernel_ops`` lists the kernel modules the model's path launches.
+Under a sharding policy (``build_model``'s docstring) every family trains,
+prefills and decodes on DTensors, each kernel on each rank's local shard
+(``model.cache_axes()`` names the caches' logical axes).
 """
 from __future__ import annotations
 
@@ -63,14 +66,15 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import comm
-from repro_torch.distributed.sharding import is_axes_leaf
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import is_axes_leaf, local_span
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.grouped_matmul import ops as gmm_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -190,14 +194,15 @@ def _build_prefill_cache(k, v, cache_len: int):
             torch.roll(v[:, s - cache_len:], shift, 1))
 
 
-def _decode_attn_rolling(cfg, q, k_cache, v_cache, pos):
+def _decode_attn_rolling(cfg, q, k_cache, v_cache, pos, scores_sum=None):
     """Rolling-cache decode attention. Slot s holds absolute position
     pos - ((pos - s) mod W), valid iff >= 0; every valid slot lies inside
     the window."""
     slots = torch.arange(k_cache.shape[1], device=q.device)
     kpos = pos[:, None] - torch.remainder(pos[:, None] - slots[None, :],
                                           k_cache.shape[1])
-    return L.masked_attention(cfg, q, k_cache, v_cache, (kpos >= 0)[:, None])
+    return L.masked_attention(cfg, q, k_cache, v_cache, (kpos >= 0)[:, None],
+                              scores_sum)
 
 
 def _write_index(pos0, c: int, cache_len: int, rows=None, device=None,
@@ -240,13 +245,44 @@ def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
     prefill's attention with no cache, differentiable (on the card the
     flash op's forward and backward kernels).
 
-    With a ``policy`` (``train`` on DTensors): q, k and v are constrained
-    to the policy's heads sharding before attention runs on each rank's
-    heads; in ``"expand"`` mode k and v are first expanded to one kv head
-    per (padded) q head and take the q heads' sharding (JAX's
-    constraints); the MoE FFN runs expert-parallel on ``mesh``."""
+    With a ``policy`` (h and p DTensors): in ``train`` mode q, k and v are
+    constrained to the policy's heads sharding before attention runs on
+    each rank's heads; in ``"expand"`` mode k and v are first expanded to
+    one kv head per (padded) q head and take the q heads' sharding (JAX's
+    constraints). In ``prefill`` and ``decode`` the attention half runs in
+    a local region (``_attn_sharded``; ``cache`` a ``_LocalCache``). The
+    MoE FFN runs expert-parallel on ``mesh`` in every mode."""
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
-    q, k, v = L.qkv_proj(p["attn"], cfg, hn, positions, sub.theta)
+    if policy is not None and mode in ("prefill", "decode"):
+        out, new_cache = _attn_sharded(p["attn"], cfg, sub, hn, positions,
+                                       mode, cache, pos, max_seq, write,
+                                       mesh, parallel)
+    else:
+        out, new_cache = _attn(p["attn"], cfg, sub, hn, positions, mode,
+                               cache, pos, max_seq, write, rows, policy)
+    if cfg.post_norm:
+        out = L.rms_norm(out, p["post_ln1"], cfg.norm_eps)
+    h = h + out
+    hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    aux = None
+    if sub.ffn == "dense":
+        mo = L.mlp_apply(p["mlp"], hn)
+    else:
+        mo, aux = MOE.moe_apply(p["moe"], cfg, hn, mesh, parallel)
+    if policy is not None:
+        mo = policy.constraint(mo, ("batch", "seq", "act"))
+    if cfg.post_norm:
+        mo = L.rms_norm(mo, p["post_ln2"], cfg.norm_eps)
+    if mode == "train":
+        return h + mo, (aux if aux is not None else _zero_aux(h))
+    return h + mo, new_cache
+
+
+def _attn(p, cfg, sub, hn, positions, mode, cache, pos, max_seq, write,
+          rows, policy):
+    """The attention half of ``sub_apply`` on whole tensors, or on
+    DTensors in ``train`` mode: (output after ``wo``, new cache)."""
+    q, k, v = L.qkv_proj(p, cfg, hn, positions, sub.theta)
     if policy is not None:
         qa = ("batch", "seq", "q_heads", "head_dim")
         q = policy.constraint(q, qa)
@@ -258,6 +294,7 @@ def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
         else:
             k, v = (policy.constraint(t, ("batch", "seq", "kv_heads",
                                           "head_dim")) for t in (k, v))
+    new_cache = None
     if mode in ("decode", "chunk"):
         crow, cpos, r, j = write
         cache["k"][crow, cpos] = k[r, j]
@@ -281,35 +318,197 @@ def sub_apply(p, cfg: ModelConfig, sub: Sub, h, positions, mode: str,
     else:
         raise ValueError(f"mode {mode!r} is not ported (prefill, decode, "
                          f"chunk, train)")
-    out = L.out_proj(attn, p["attn"]["wo"])
+    out = L.out_proj(attn, p["wo"])
     if policy is not None:
         # the heads' partial sums all-reduced here, over ``model``
         out = policy.constraint(out, ("batch", "seq", "act"))
-    if cfg.post_norm:
-        out = L.rms_norm(out, p["post_ln1"], cfg.norm_eps)
-    h = h + out
-    hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-    aux = None
-    if sub.ffn == "dense":
-        mo = L.mlp_apply(p["mlp"], hn)
+    return out, new_cache
+
+
+@dataclasses.dataclass
+class _LocalCache:
+    """One sub-layer's K/V cache in a sharded prefill or decode: this
+    rank's parts ``k`` and ``v`` (in decode, views of the stacked local
+    tensors, written in place), their DTensor ``placements`` and the
+    global ``shape`` (B, L, KV, hd)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    placements: tuple
+    shape: tuple
+
+
+def _attn_sharded(p, cfg, sub, hn, positions, mode, cache, pos, max_seq,
+                  write, mesh, parallel):
+    """The attention half of a sub-layer in prefill or decode under a
+    policy, on each rank's local tensors: (output after ``wo``, a DTensor
+    in hn's placements; the new ``_LocalCache`` in prefill, ``cache`` in
+    decode). Each weight is this rank's part, gathered whole over the FSDP
+    axes (``comm.local_whole``); what the ``model`` (tp) axis shards in
+    ``wq`` and ``wk`` sets the mode:
+
+      q and kv heads (``"heads"``): q, k, v, the cache and flash or decode
+        attention on this rank's heads; no collective inside.
+      q heads only (``"expand"``): k and v whole on every rank, expanded to
+        this rank's (padded) q heads for attention; the prefill cache
+        (unexpanded, as JAX's) keeps this rank's block of the sequence.
+      the head dim (``"head_dim"``): q, k, v and the cache hold this rank's
+        block of the head dim. The qk norm's sums of squares take one
+        all-reduce (``L.head_dim_norms``), rope one exchange with the rank
+        holding the other half (``L.apply_rope_head_dim``), the decode
+        scores (B, KV, G, 1, L) one all-reduce before the softcap, mask and
+        softmax (JAX's psum); a prefill gathers q, k and v whole for flash
+        and keeps its block of the output.
+
+    Then ``wo``'s partial sums over the sharded heads or head dim take one
+    all-reduce over ``model``. A cache whose sequence is sharded (the
+    ``"expand"`` prefill cache, long-context decode) is all-gathered along
+    it for decode attention. Writes go to the rank that holds the row and
+    slot; a position past a global cache's end is dropped, as unsharded
+    (``_write_index``, worked out on the host). Every collective is one of
+    ``comm``'s, counted in ``comm.staged`` when staged through the host."""
+    names = list(mesh.mesh_dim_names)
+    ti = names.index(parallel.tp_axis) if parallel.tp_axis in names else None
+    group = comm.axis_group(mesh, parallel.tp_axis) if ti is not None \
+        else None
+    tp, rank = comm.group_size(group), comm.group_rank(group)
+
+    def tp_dim(w):
+        pl = w.placements[ti] if ti is not None else Replicate()
+        return pl.dim if pl.is_shard() and tp > 1 else None
+    q_dim, kv_dim = tp_dim(p["wq"]), tp_dim(p["wk"])
+    by_heads, by_hd = q_dim == 1, q_dim == 2
+    lp = {k: comm.local_whole(w, parallel) for k, w in p.items()}
+    x = hn.to_local()
+    dev = x.device
+    b0, bl = local_span(hn.shape, mesh, hn.placements, 0)
+    if mode == "decode":
+        pos = pos[b0:b0 + bl].to(dev)
+        positions = pos[:, None]
+    q, k, v = L.qkv_proj(lp, cfg, x, positions, sub.theta,
+                         group if by_hd else None)
+    expand = by_heads and kv_dim is None
+    if expand:
+        hl = q.shape[2]
+        head_map = L.kv_head_map(cfg.num_heads, cfg.num_kv_heads,
+                                 hl * tp)[rank * hl:(rank + 1) * hl]
+    if mode == "prefill":
+        kc, vc = _build_prefill_cache(k, v, _cache_len(sub, max_seq))
+        kpl = list(hn.placements)
+        if kv_dim is not None:
+            kpl[ti] = Shard(kv_dim + 1)      # wk (d, KV, hd) -> k (B,S,KV,hd)
+        new_cache = _LocalCache(kc, vc, tuple(kpl),
+                                (hn.shape[0], kc.shape[1], cfg.num_kv_heads,
+                                 cfg.head_dim))
+        if expand:
+            k, v = L.expand_kv(k, head_map), L.expand_kv(v, head_map)
+        if by_hd:
+            q, k, v = (comm.all_gather(t, group, 3) for t in (q, k, v))
+        attn = L.attention(cfg, q, k, v, window=sub.window)
+        if by_hd:
+            attn = attn.chunk(tp, dim=3)[rank]
     else:
-        mo, aux = MOE.moe_apply(p["moe"], cfg, hn, mesh, parallel)
-    if policy is not None:
-        mo = policy.constraint(mo, ("batch", "seq", "act"))
-    if cfg.post_norm:
-        mo = L.rms_norm(mo, p["post_ln2"], cfg.norm_eps)
-    if mode == "train":
-        return h + mo, (aux if aux is not None else L.replicated_like(
-            h, torch.zeros((), dtype=torch.float32, device=h.device)))
-    return h + mo, new_cache
+        new_cache = cache
+        s0, sl = local_span(cache.shape, mesh, cache.placements, 1)
+        crow, slot, r, j = _local_write(write, b0, bl, s0, sl, dev)
+        cache.k[crow, slot] = k[r, j]
+        cache.v[crow, slot] = v[r, j]
+        kc, vc = cache.k, cache.v
+        for i in reversed(range(mesh.ndim)):
+            if cache.placements[i].is_shard(1):
+                g = mesh.get_group(names[i])
+                kc, vc = (comm.all_gather(t, g, 1) for t in (kc, vc))
+        if expand:
+            kc, vc = (torch.index_select(t, 2, head_map.to(dev))
+                      for t in (kc, vc))
+        ssum = (lambda s: comm.all_reduce(s, group)) if by_hd else None
+        if _rolling(sub, max_seq):
+            attn = _decode_attn_rolling(cfg, q, kc, vc, pos, ssum)
+        else:
+            attn = L.decode_attention(cfg, q, kc, vc, pos, window=sub.window,
+                                      scores_sum=ssum)
+    out = L.out_proj(attn.contiguous(), lp["wo"])
+    if by_heads or by_hd:
+        out = comm.all_reduce(out, group)
+    return DTensor.from_local(out, mesh, hn.placements, shape=hn.shape,
+                              stride=L.contiguous_strides(hn.shape)), \
+        new_cache
+
+
+def _local_write(write, b0: int, bl: int, s0: int, sl: int, device):
+    """A ``_write_index`` (host tensors, global rows and slots) cut to the
+    cache rows [b0, b0 + bl) and slots [s0, s0 + sl) this rank holds, in
+    its local numbering, on ``device``. The call rows are the cache rows
+    (decode), so they take the same offset."""
+    crow, slot, r, j = write
+    keep = (crow >= b0) & (crow < b0 + bl) & (slot >= s0) & (slot < s0 + sl)
+    return tuple(torch.stack([crow[keep] - b0, slot[keep] - s0,
+                              r[keep] - b0, j[keep]]).to(device).unbind(0))
 
 
 def init_sub_cache(cfg, sub: Sub, n_super: int, batch: int, max_seq: int,
-                   dtype, device):
+                   dtype, device, policy=None):
+    """A sub's zeroed ``{"k", "v"}`` caches, stacked on ``n_super``; under
+    a policy DTensors in its placements for ``SUB_CACHE_AXES`` (each rank
+    allocates its own part)."""
     shape = (n_super, batch, _cache_len(sub, max_seq), cfg.num_kv_heads,
              cfg.head_dim)
+    if policy is not None and torch.device(device).type != "meta":
+        pl = policy.placements_for(shape, stack_axes(SUB_CACHE_AXES))
+        return {k: sharding.zeros(shape, dtype, device, policy.mesh, pl)
+                for k in ("k", "v")}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# logical axes of a sub's K/V cache without the stacked axis (JAX's
+# ``init_sub_cache``)
+SUB_CACHE_AXES = ("batch", "seq_kv", "kv_heads", "head_dim")
+
+
+def _sub_cache_axes():
+    ax = stack_axes(SUB_CACHE_AXES)
+    return {"k": ax, "v": ax}
+
+
+def _stack(ts):
+    """``torch.stack`` of per-layer tensors; of DTensors in one placement,
+    their local tensors stacked and placed on the new leading axis."""
+    if not isinstance(ts[0], DTensor):
+        return torch.stack(ts)
+    t = ts[0]
+    shape = (len(ts),) + tuple(t.shape)
+    pl = [Shard(p.dim + 1) if p.is_shard() else p for p in t.placements]
+    return DTensor.from_local(torch.stack([x.to_local() for x in ts]),
+                              t.device_mesh, pl, shape=shape,
+                              stride=L.contiguous_strides(shape))
+
+
+def _place_caches(per_layer, policy):
+    """A sub's prefill ``_LocalCache``s, one a layer, stacked and placed in
+    the policy's cache placements (``SUB_CACHE_AXES``): each rank's parts
+    as built, then redistributed, which cuts this rank's block of the
+    sequence out of a cache that every ``model`` rank built whole (the
+    ``"expand"`` mode; no collective)."""
+    c = per_layer[0]
+    shape = (len(per_layer),) + tuple(c.shape)
+    pl = [Shard(p.dim + 1) if p.is_shard() else p for p in c.placements]
+    out = {}
+    for name in ("k", "v"):
+        local = torch.stack([getattr(x, name) for x in per_layer])
+        t = DTensor.from_local(local, policy.mesh, pl, shape=shape,
+                               stride=L.contiguous_strides(shape))
+        out[name] = policy.constraint(t, stack_axes(SUB_CACHE_AXES))
+    return out
+
+
+def _local_caches(stacked):
+    """A stacked ``{"k", "v"}`` DTensor cache as ``i -> _LocalCache`` of
+    layer i: views of the local tensors, which decode writes in place."""
+    k, v = stacked["k"].to_local(), stacked["v"].to_local()
+    pl = tuple(Shard(p.dim - 1) if p.is_shard() else p
+               for p in stacked["k"].placements)
+    shape = tuple(stacked["k"].shape[1:])
+    return lambda i: _LocalCache(k[i], v[i], pl, shape)
 
 
 # ---------------------------------------------------------------------------
@@ -379,28 +578,69 @@ def _embed_inputs(cfg: ModelConfig, embed_params, inputs):
 def build_model(cfg: ModelConfig, device=None, mesh=None, parallel=None,
                 policy=None):
     """The model for ``cfg`` on ``device`` (default: the current CUDA
-    device; raises when there is none). With a ``policy``
-    (``repro_torch.launch.specs.make_policy``) on ``mesh``, a DeviceMesh
-    of this process group whose device type is ``device``'s, and its
-    ``parallel``: the dense and MoE transformers for training on that mesh
-    (JAX's ``build_model(cfg, mesh, parallel, policy)``, ``train`` mode:
-    ``model.distribute`` places params, ``forward`` takes DTensors). The
-    SSM and hybrid families, and prefill and decode, under a policy are
-    not ported yet (ROADMAP A.8b)."""
+    device; raises when there is none): JAX's ``build_model(cfg, mesh,
+    parallel, policy)``, every family.
+
+    With a ``policy`` (``repro_torch.launch.specs.make_policy``) on
+    ``mesh``, a DeviceMesh of this process group whose device type is
+    ``device``'s, and its ``parallel``: ``model.distribute`` places full
+    params (the same on every rank) as DTensors, and the model runs on
+    them. Every family (dense, sliding-window, MoE, SSM, hybrid) runs
+    ``forward`` (train; the sharded train step of
+    ``training.train_step``), ``prefill``, ``decode`` and ``init_cache``,
+    its caches DTensors in the policy's placements for
+    ``model.cache_axes()``. A policy fixes its attention mode for one step
+    kind (``"heads"``; ``"expand"`` for train and prefill, q heads padded
+    to ``h_pad``; ``"head_dim"`` for decode), so run each step under a
+    policy of its own kind, as the JAX dry-run does: a model built under a
+    prefill-kind policy prefills, one under a decode-kind policy on the
+    same mesh decodes, each with the params distributed by its own
+    ``distribute``; caches cross from one to the other by
+    ``policy.constrain_tree(caches, model.cache_axes())`` (JAX's input
+    shardings). A policy in another kind's mode still computes the same
+    function, at the cost of gathers. ``prefill_chunk`` and
+    ``decode_verify`` refuse a policy, as no JAX code runs them sharded;
+    the serving engine takes unsharded models only, as JAX's."""
     if cfg.family in ("dense", "moe"):
-        return _build_transformer(cfg, resolve_device(device), mesh,
-                                  parallel, policy)
-    if policy is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family under a sharding policy "
-            f"is not ported yet (ROADMAP A.8b)")
-    if cfg.family == "ssm":
+        builder = _build_transformer
+    elif cfg.family == "ssm":
         builder = _build_ssm
     elif cfg.family == "hybrid":
         builder = _build_hybrid
     else:
         raise ValueError(cfg.family)
-    return builder(cfg, resolve_device(device))
+    return builder(cfg, resolve_device(device), mesh, parallel, policy)
+
+
+def _embed(cfg, embed_params, inputs, policy=None, mesh=None,
+           parallel=None):
+    """``_embed_inputs``; under a policy the residual stream as a DTensor,
+    batch-sharded: token ids through ``_sharded_embed``, embeddings (the
+    same on every rank) distributed and cast."""
+    if policy is None:
+        return _embed_inputs(cfg, embed_params, inputs)
+    if cfg.input_mode == "embeddings":
+        return policy.distribute(inputs, ("batch", "seq", "act")).to(
+            _dtype(cfg))
+    return _sharded_embed(cfg, embed_params["tok"], inputs, policy, mesh,
+                          parallel)
+
+
+def _constrain_act(policy, h):
+    """h (B, S..., d) in the policy's activation sharding (JAX's
+    ``_constrainer``); as it is with no policy."""
+    if policy is None:
+        return h
+    return policy.constraint(h, ("batch",) + ("seq",) * (h.ndim - 2)
+                             + ("act",))
+
+
+def _logits(cfg, embed_params, h, policy=None):
+    """The tied unembedding; under a policy the logits vocab-sharded."""
+    logits = L.unembed_apply(embed_params, cfg, h)
+    if policy is not None:
+        logits = policy.constraint(logits, ("batch", "seq", "vocab"))
+    return logits
 
 
 def _sharded_embed(cfg, tok, inputs, policy, mesh, parallel):
@@ -457,11 +697,6 @@ def _build_transformer(cfg: ModelConfig, device: torch.device, mesh=None,
                 "blocks": [stack_axes(sub_axes(cfg, sub)) for sub in subs],
                 "final_norm": ("norm",)}
 
-    def distribute(params):
-        """Full params (the same on every rank) as DTensors in the policy's
-        placements: each rank keeps its own slices."""
-        return policy.distribute_tree(params, axes())
-
     def grad_masks(params):
         """None, or in ``"expand"`` mode with padded q heads the mask tree
         that zeroes their gradients (JAX's ``grad_masks``)."""
@@ -472,23 +707,27 @@ def _build_transformer(cfg: ModelConfig, device: torch.device, mesh=None,
                 "final_norm": 1.0}
 
     def _constrain_h(h):
-        if policy is None:
-            return h
-        return policy.constraint(h, ("batch",) + ("seq",) * (h.ndim - 2)
-                                 + ("act",))
+        return _constrain_act(policy, h)
 
     def _run(params, h, positions, mode, caches=None, pos=None,
              max_seq=None, writes=None, rows=None):
         new_caches = [[] for _ in subs]
+        if policy is not None and caches is not None:
+            caches = [_local_caches(c) for c in caches]
         for i in range(n_super):
             for j, sub in enumerate(subs):
-                cs = _layer(caches[j], i) if caches is not None else None
+                cs = None
+                if caches is not None:
+                    cs = caches[j](i) if policy is not None else \
+                        _layer(caches[j], i)
                 h, nc = sub_apply(_layer(params["blocks"][j], i), cfg, sub, h,
                                   positions, mode, cache=cs, pos=pos,
                                   max_seq=max_seq,
                                   write=None if writes is None else writes[j],
-                                  rows=rows)
+                                  rows=rows, mesh=mesh, parallel=parallel,
+                                  policy=policy)
                 new_caches[j].append(nc)
+            h = _constrain_h(h)
         return L.rms_norm(h, params["final_norm"], cfg.norm_eps), new_caches
 
     def split_blocks(params):
@@ -520,26 +759,16 @@ def _build_transformer(cfg: ModelConfig, device: torch.device, mesh=None,
         residual stream is constrained after the embedding and each
         super-block, the logits (vocab-sharded) at the end, as JAX's
         ``_constrainer``; logits and aux come back as DTensors."""
-        if policy is not None and cfg.input_mode != "embeddings":
-            h = _sharded_embed(cfg, params["embed"]["tok"], inputs, policy,
-                               mesh, parallel)
-        elif policy is not None:
-            h = policy.distribute(inputs, ("batch", "seq", "act")).to(dtype)
-        else:
-            h = _embed_inputs(cfg, params["embed"], inputs)
-        h = _constrain_h(h)
+        h = _constrain_h(_embed(cfg, params["embed"], inputs, policy, mesh,
+                                parallel))
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
-        aux = L.replicated_like(h, torch.zeros((), dtype=torch.float32,
-                                               device=h.device))
+        aux = _zero_aux(h)
         block = _remat(_train_block, cfg.remat_policy)
         for i in range(n_super):
             h, aux = block([_layer(bp, i) for bp in params["blocks"]], h, aux,
                            positions)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        logits = L.unembed_apply(params["embed"], cfg, h)
-        if policy is not None:
-            logits = policy.constraint(logits, ("batch", "seq", "vocab"))
-        return logits, aux
+        return _logits(cfg, params["embed"], h, policy), aux
 
     def _writes(caches, pos0, c: int, rows=None, device=None):
         """(max_seq, each sub's ``_write_index``): one index for the global
@@ -557,26 +786,41 @@ def _build_transformer(cfg: ModelConfig, device: torch.device, mesh=None,
     def prefill(params, inputs, max_seq: int):
         """inputs: (B, S) token ids or (B, S, d) embeddings. Returns
         (logits of the last position, caches of length ``max_seq``, or of
-        the window where rolling)."""
+        the window where rolling). Under a policy the logits and caches
+        are DTensors, the caches in the policy's placements for
+        ``cache_axes()``."""
         _check_prompt(inputs, max_seq)
-        h = _embed_inputs(cfg, params["embed"], inputs)
+        h = _constrain_h(_embed(cfg, params["embed"], inputs, policy, mesh,
+                                parallel))
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
         h, per_layer = _run(params, h, positions, "prefill", max_seq=max_seq)
-        caches = [{"k": torch.stack([c["k"] for c in cs]),
-                   "v": torch.stack([c["v"] for c in cs])} for cs in per_layer]
-        return L.unembed_apply(params["embed"], cfg, h[:, -1:]), caches
+        if policy is not None:
+            caches = [_place_caches(cs, policy) for cs in per_layer]
+        else:
+            caches = [{"k": torch.stack([c["k"] for c in cs]),
+                       "v": torch.stack([c["v"] for c in cs])}
+                      for cs in per_layer]
+        return _logits(cfg, params["embed"], h[:, -1:], policy), caches
 
     def decode(params, caches, inputs, pos):
         """inputs: (B, 1) token ids or (B, 1, d) embeddings at positions
         ``pos`` (B,). Writes their K/V into ``caches`` in place (a row past
         the end writes nothing and attends over the whole cache, as in
-        JAX); returns (logits, caches)."""
-        h = _embed_inputs(cfg, params["embed"], inputs)
-        max_seq, writes = _writes(caches, pos, 1, device=h.device)
-        pos = pos.to(h.device)
-        h, _ = _run(params, h, pos[:, None], "decode", caches=caches,
-                    pos=pos, max_seq=max_seq, writes=writes)
-        return L.unembed_apply(params["embed"], cfg, h), caches
+        JAX); returns (logits, caches). Under a policy ``caches`` are
+        DTensors (``init_cache``, ``prefill`` or placed for this policy's
+        ``cache_axes()``) and each rank writes its own parts."""
+        h = _constrain_h(_embed(cfg, params["embed"], inputs, policy, mesh,
+                                parallel))
+        if policy is not None:
+            # host indices: each rank keeps the writes to its own parts
+            max_seq, writes = _writes(caches, pos, 1)
+        else:
+            max_seq, writes = _writes(caches, pos, 1, device=h.device)
+            pos = pos.to(h.device)
+        h, _ = _run(params, h, None if policy is not None else pos[:, None],
+                    "decode", caches=caches, pos=pos, max_seq=max_seq,
+                    writes=writes)
+        return _logits(cfg, params["embed"], h, policy), caches
 
     def prefill_chunk(params, caches, inputs, pos0, rows=None,
                       logits: bool = True):
@@ -621,66 +865,105 @@ def _build_transformer(cfg: ModelConfig, device: torch.device, mesh=None,
     def init_cache(batch: int, max_seq: int, cache_device=None):
         """Zeroed caches on ``cache_device`` (default: the model's device);
         real tensors, not broadcast views, since decode writes them in
-        place."""
+        place. Under a policy DTensors in its placements for
+        ``cache_axes()``; on the meta device whole meta tensors (the
+        shapes ``launch.specs.abstract_cache`` gives specs)."""
         return [init_sub_cache(cfg, sub, n_super, batch, max_seq, dtype,
-                               cache_device or device) for sub in subs]
+                               cache_device or device, policy)
+                for sub in subs]
+
+    def cache_axes():
+        """The caches' logical axes, leaf for leaf (JAX's
+        ``init_cache``'s)."""
+        return [_sub_cache_axes() for _ in subs]
 
     kernel_ops = (flash_ops,) + ((gmm_ops,) if any(
         s.ffn == "moe" for s in subs) else ())
-    serving = dict(prefill=prefill, decode=decode,
-                   prefill_chunk=prefill_chunk, decode_verify=decode_verify,
-                   init_cache=init_cache)
+    unsharded = dict(prefill_chunk=prefill_chunk, decode_verify=decode_verify)
     if policy is not None:
-        serving = {name: _not_under_policy(cfg, name) for name in serving}
+        unsharded = {name: _not_under_policy(cfg, name) for name in unsharded}
     return SimpleNamespace(cfg=cfg, device=device, init=init, axes=axes,
                            forward=forward, split_blocks=split_blocks,
                            grad_masks=grad_masks, n_super=n_super, subs=subs,
                            kernel_ops=kernel_ops, mesh=mesh,
                            parallel=parallel, policy=policy,
-                           distribute=distribute if policy is not None
-                           else None, **serving)
+                           distribute=_distributor(policy, axes),
+                           prefill=prefill, decode=decode,
+                           init_cache=init_cache, cache_axes=cache_axes,
+                           **unsharded)
 
 
 def _not_under_policy(cfg, name):
+    """Chunked prefill and speculative verify under a policy: neither the
+    JAX package's code nor its tests run them sharded, so the port refuses
+    them rather than add a feature JAX lacks (ROADMAP C, departures)."""
     def refuse(*args, **kwargs):
         raise NotImplementedError(
-            f"{cfg.name}: {name} under a sharding policy is not ported yet "
-            f"(ROADMAP A.8b); build the model without one to serve it")
+            f"{cfg.name}: {name} under a sharding policy is not supported "
+            f"(ROADMAP C: the JAX package runs it unsharded only); build "
+            f"the model without one to serve it")
     return refuse
 
 
-def _mamba_prefill(cfg, stacked, h, layers):
+def _mamba_prefill(cfg, stacked, h, layers, policy=None):
     """Prefill through the Mamba layers ``layers`` of a stacked {"ln",
-    "mamba"} tree: (h, each layer's cache)."""
+    "mamba"} tree: (h, each layer's cache); under a policy the residual
+    stream constrained after each layer (``out_proj``'s partial sums
+    all-reduced)."""
     caches = []
     for i in layers:
         p = _layer(stacked, i)
         out, cache = M.mamba_prefill(
-            p["mamba"], cfg, L.rms_norm(h, p["ln"], cfg.norm_eps))
-        h = h + out
+            p["mamba"], cfg, L.rms_norm(h, p["ln"], cfg.norm_eps), policy)
+        h = _constrain_act(policy, h + _constrain_act(policy, out))
         caches.append(cache)
     return h, caches
 
 
-def _mamba_decode(cfg, stacked, caches, h, layers):
+def _mamba_decode(cfg, stacked, caches, h, layers, policy=None):
     """One decode step through the Mamba layers ``layers``, writing their
-    new states into the stacked ``caches`` in place."""
+    new states into the stacked ``caches`` in place (under a policy each
+    rank its own parts)."""
     for i in layers:
         p = _layer(stacked, i)
         cache = _layer(caches, i)
         out, new = M.mamba_decode(
-            p["mamba"], cfg, L.rms_norm(h, p["ln"], cfg.norm_eps), cache)
-        h = h + out
+            p["mamba"], cfg, L.rms_norm(h, p["ln"], cfg.norm_eps), cache,
+            policy)
+        h = _constrain_act(policy, h + _constrain_act(policy, out))
         for k in ("x", "B", "C"):
             cache["conv"][k].copy_(new["conv"][k])
         cache["ssd"].copy_(new["ssd"])
     return h
 
 
-def _stack_mamba(per_layer):
-    return {"conv": {k: torch.stack([c["conv"][k] for c in per_layer])
-                     for k in ("x", "B", "C")},
-            "ssd": torch.stack([c["ssd"] for c in per_layer])}
+def _stack_mamba(per_layer, policy=None):
+    """Per-layer Mamba caches stacked on the layer axis; under a policy in
+    its placements for ``_mamba_cache_axes()``."""
+    out = {"conv": {k: _stack([c["conv"][k] for c in per_layer])
+                    for k in ("x", "B", "C")},
+           "ssd": _stack([c["ssd"] for c in per_layer])}
+    if policy is not None:
+        out = policy.constrain_tree(out, _mamba_cache_axes())
+    return out
+
+
+def _mamba_cache_axes():
+    return stack_axes(M.mamba_cache_axes())
+
+
+def _init_mamba_cache(cfg, batch, dtype, device, n, policy=None):
+    """``M.init_mamba_cache``; under a policy zeroed DTensors in its
+    placements (each rank allocates its own parts); on the meta device
+    whole meta tensors."""
+    if policy is None or torch.device(device).type == "meta":
+        return M.init_mamba_cache(cfg, batch, dtype, device, n)
+    shapes = M.init_mamba_cache(cfg, batch, dtype, "meta", n)
+    return sharding.map_axes(
+        lambda t, a: sharding.zeros(tuple(t.shape), t.dtype, device,
+                                    policy.mesh,
+                                    policy.placements_for(t.shape, a)),
+        shapes, _mamba_cache_axes())
 
 
 def _mamba_axes():
@@ -692,13 +975,16 @@ def _mamba_params(gen, cfg, dtype, n: int):
             "mamba": M.mamba_init(gen, cfg, dtype, n)}
 
 
-def _mamba_train_layer(cfg):
+def _mamba_train_layer(cfg, policy=None):
     """One Mamba2 layer of the train path, ``(p, h) -> h + mamba(norm(h))``
     for a layer's ``{"ln", "mamba"}`` params, under ``cfg.remat_policy``
-    (JAX remats its scan body, one layer)."""
+    (JAX remats its scan body, one layer); under a policy on DTensors, the
+    output and the residual stream constrained as JAX's ``_constrainer``
+    does."""
     def layer(p, h):
-        return h + M.mamba_block(p["mamba"], cfg,
-                                 L.rms_norm(h, p["ln"], cfg.norm_eps))
+        out = M.mamba_block(p["mamba"], cfg,
+                            L.rms_norm(h, p["ln"], cfg.norm_eps), policy)
+        return _constrain_act(policy, h + _constrain_act(policy, out))
     return _remat(layer, cfg.remat_policy)
 
 
@@ -711,15 +997,25 @@ def _split_mamba(params, n: int):
     return {**params, "mamba": [_layer(params["mamba"], i) for i in range(n)]}
 
 
+def _zero_aux(h):
+    return L.replicated_like(h, torch.zeros((), dtype=torch.float32,
+                                            device=h.device))
+
+
 def _check_prompt(inputs, max_seq: int):
     if inputs.shape[1] > max_seq:
         raise ValueError(f"prompt of {inputs.shape[1]} tokens exceeds "
                          f"max_seq={max_seq}")
 
 
-def _build_ssm(cfg: ModelConfig, device: torch.device):
+def _build_ssm(cfg: ModelConfig, device: torch.device, mesh=None,
+               parallel=None, policy=None):
     """The pure Mamba2 stack: ``num_layers`` x (norm, Mamba2 block), run as
-    a Python loop over the stacked layers."""
+    a Python loop over the stacked layers. Under a ``policy`` on ``mesh``
+    (JAX's ``_build_ssm(cfg, mesh, parallel, policy)``): params placed by
+    ``distribute``, forward, prefill and decode on DTensors (the Mamba2
+    block's sharding in ``models.mamba2``), caches in the policy's
+    placements."""
     dtype = _dtype(cfg)
     n = cfg.num_layers
 
@@ -732,32 +1028,39 @@ def _build_ssm(cfg: ModelConfig, device: torch.device):
                 "mamba": _mamba_params(gen, cfg, dtype, n),
                 "final_norm": L.zeros(gen, (cfg.d_model,), dtype)}
 
+    def embed(params, inputs):
+        return _constrain_act(policy, _embed(cfg, params["embed"], inputs,
+                                             policy, mesh, parallel))
+
     def prefill(params, inputs, max_seq: int):
         """inputs: (B, S) token ids or (B, S, d) embeddings. Returns
         (logits of the last position, caches)."""
         _check_prompt(inputs, max_seq)
-        h = _embed_inputs(cfg, params["embed"], inputs)
-        h, per_layer = _mamba_prefill(cfg, params["mamba"], h, range(n))
+        h = embed(params, inputs)
+        h, per_layer = _mamba_prefill(cfg, params["mamba"], h, range(n),
+                                      policy)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return (L.unembed_apply(params["embed"], cfg, h[:, -1:]),
-                _stack_mamba(per_layer))
+        return (_logits(cfg, params["embed"], h[:, -1:], policy),
+                _stack_mamba(per_layer, policy))
 
     def decode(params, caches, inputs, pos):
         """inputs: (B, 1) token ids or (B, 1, d) embeddings (``pos`` is
         unused: the state carries the position). Writes the new states into
         ``caches`` in place; returns (logits, caches)."""
-        h = _embed_inputs(cfg, params["embed"], inputs)
-        h = _mamba_decode(cfg, params["mamba"], caches, h, range(n))
+        h = embed(params, inputs)
+        h = _mamba_decode(cfg, params["mamba"], caches, h, range(n), policy)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return L.unembed_apply(params["embed"], cfg, h), caches
+        return _logits(cfg, params["embed"], h, policy), caches
 
     def init_cache(batch: int, max_seq: int, cache_device=None):
         """Zeroed caches on ``cache_device`` (default: the model's device);
-        real tensors, since decode writes them in place."""
-        return M.init_mamba_cache(cfg, batch, dtype, cache_device or device,
-                                  n)
+        real tensors, since decode writes them in place; under a policy
+        DTensors in its placements (on the meta device whole meta
+        tensors)."""
+        return _init_mamba_cache(cfg, batch, dtype, cache_device or device,
+                                 n, policy)
 
-    layer = _mamba_train_layer(cfg)
+    layer = _mamba_train_layer(cfg, policy)
 
     def axes():
         """The params' logical axes, leaf for leaf (JAX's ``init``'s)."""
@@ -768,19 +1071,32 @@ def _build_ssm(cfg: ModelConfig, device: torch.device):
         """Train mode. inputs: (B, S) token ids or (B, S, d) embeddings.
         Returns (logits (B, S, padded vocab) f32, a zero f32 aux),
         differentiable. Each layer runs under ``cfg.remat_policy``;
-        ``params`` may be stacked or ``split_blocks``'s form."""
-        h = _embed_inputs(cfg, params["embed"], inputs)
+        ``params`` may be stacked or ``split_blocks``'s form. Under a
+        policy on DTensors, as the transformer's."""
+        h = embed(params, inputs)
         for i in range(n):
             h = layer(_layer(params["mamba"], i), h)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return (L.unembed_apply(params["embed"], cfg, h),
-                torch.zeros((), dtype=torch.float32, device=h.device))
+        return _logits(cfg, params["embed"], h, policy), _zero_aux(h)
 
     return SimpleNamespace(cfg=cfg, device=device, init=init, axes=axes,
-                           forward=forward, policy=None,
+                           forward=forward, mesh=mesh, parallel=parallel,
+                           policy=policy,
+                           distribute=_distributor(policy, axes),
                            split_blocks=lambda p: _split_mamba(p, n),
                            prefill=prefill, decode=decode,
-                           init_cache=init_cache, kernel_ops=(ssd_ops,))
+                           init_cache=init_cache,
+                           cache_axes=_mamba_cache_axes,
+                           kernel_ops=(ssd_ops,))
+
+
+def _distributor(policy, axes):
+    """``model.distribute``: full params (the same on every rank) as
+    DTensors in the policy's placements, each rank keeping its own slices;
+    None with no policy."""
+    if policy is None:
+        return None
+    return lambda params: policy.distribute_tree(params, axes())
 
 
 def _hybrid_layout(cfg):
@@ -790,19 +1106,23 @@ def _hybrid_layout(cfg):
     return seg, n_apps, cfg.num_layers - n_apps * seg
 
 
-def _build_hybrid(cfg: ModelConfig, device: torch.device):
+def _build_hybrid(cfg: ModelConfig, device: torch.device, mesh=None,
+                  parallel=None, policy=None):
     """Zamba2: ``n_apps`` segments of ``shared_attn_every`` Mamba2 layers,
     each followed by the one shared attention+MLP sub-layer (global
     attention, its params unstacked as in JAX), then the trailing Mamba2
     layers. Caches: (the Mamba stack on the layer axis, the shared block's
     ``{"k", "v"}`` stacked on its applications). No ``prefill_chunk`` or
-    ``decode_verify``, as in JAX."""
+    ``decode_verify``, as in JAX. Under a ``policy`` on ``mesh``, as
+    ``_build_ssm``'s, the shared block as a transformer sub-layer under
+    the policy (its q heads never padded, as in JAX)."""
     dtype = _dtype(cfg)
     n = cfg.num_layers
     seg, n_apps, _ = _hybrid_layout(cfg)
     shared = Sub(0, cfg.rope_theta, "dense")
     segments = [range(a * seg, (a + 1) * seg) for a in range(n_apps)]
     trailing = range(n_apps * seg, n)
+    sub_kw = dict(mesh=mesh, parallel=parallel, policy=policy)
 
     def init(gen: Optional[torch.Generator] = None):
         """Random params with the JAX package's distributions, drawn from
@@ -814,26 +1134,34 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device):
                 "shared": sub_init(gen, cfg, shared, dtype, 0),
                 "final_norm": L.zeros(gen, (cfg.d_model,), dtype)}
 
+    def embed(params, inputs):
+        return _constrain_act(policy, _embed(cfg, params["embed"], inputs,
+                                             policy, mesh, parallel))
+
     def prefill(params, inputs, max_seq: int):
         """inputs: (B, S) token ids or (B, S, d) embeddings. Returns
         (logits of the last position, caches)."""
         _check_prompt(inputs, max_seq)
-        h = _embed_inputs(cfg, params["embed"], inputs)
+        h = embed(params, inputs)
         positions = torch.arange(h.shape[1], device=h.device)[None]
         m_caches, s_caches = [], []
         for layers in segments:
-            h, cs = _mamba_prefill(cfg, params["mamba"], h, layers)
+            h, cs = _mamba_prefill(cfg, params["mamba"], h, layers, policy)
             m_caches += cs
             h, sc = sub_apply(params["shared"], cfg, shared, h, positions,
-                              "prefill", max_seq=max_seq)
+                              "prefill", max_seq=max_seq, **sub_kw)
+            h = _constrain_act(policy, h)
             s_caches.append(sc)
-        h, cs = _mamba_prefill(cfg, params["mamba"], h, trailing)
+        h, cs = _mamba_prefill(cfg, params["mamba"], h, trailing, policy)
         m_caches += cs
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        caches = (_stack_mamba(m_caches),
-                  {k: torch.stack([c[k] for c in s_caches])
-                   for k in ("k", "v")})
-        return L.unembed_apply(params["embed"], cfg, h[:, -1:]), caches
+        if policy is not None:
+            s_stacked = _place_caches(s_caches, policy)
+        else:
+            s_stacked = {k: torch.stack([c[k] for c in s_caches])
+                         for k in ("k", "v")}
+        caches = (_stack_mamba(m_caches, policy), s_stacked)
+        return _logits(cfg, params["embed"], h[:, -1:], policy), caches
 
     def decode(params, caches, inputs, pos):
         """inputs: (B, 1) token ids or (B, 1, d) embeddings at positions
@@ -841,27 +1169,43 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device):
         place; returns (logits, caches)."""
         m_caches, s_caches = caches
         max_seq = s_caches["k"].shape[2]
-        h = _embed_inputs(cfg, params["embed"], inputs)
-        write = _write_index(pos, 1, max_seq, device=h.device)
-        pos = pos.to(h.device)
+        h = embed(params, inputs)
+        if policy is not None:
+            write = _write_index(pos, 1, max_seq)
+            s_local = _local_caches(s_caches)
+            positions = None
+        else:
+            write = _write_index(pos, 1, max_seq, device=h.device)
+            pos = pos.to(h.device)
+            positions = pos[:, None]
         for a, layers in enumerate(segments):
-            h = _mamba_decode(cfg, params["mamba"], m_caches, h, layers)
-            h, _ = sub_apply(params["shared"], cfg, shared, h, pos[:, None],
-                             "decode", cache=_layer(s_caches, a), pos=pos,
-                             max_seq=max_seq, write=write)
-        h = _mamba_decode(cfg, params["mamba"], m_caches, h, trailing)
+            h = _mamba_decode(cfg, params["mamba"], m_caches, h, layers,
+                              policy)
+            sc = s_local(a) if policy is not None else _layer(s_caches, a)
+            h, _ = sub_apply(params["shared"], cfg, shared, h, positions,
+                             "decode", cache=sc, pos=pos, max_seq=max_seq,
+                             write=write, **sub_kw)
+            h = _constrain_act(policy, h)
+        h = _mamba_decode(cfg, params["mamba"], m_caches, h, trailing, policy)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return L.unembed_apply(params["embed"], cfg, h), caches
+        return _logits(cfg, params["embed"], h, policy), caches
 
     def init_cache(batch: int, max_seq: int, cache_device=None):
         """Zeroed caches on ``cache_device`` (default: the model's device);
-        real tensors, since decode writes them in place."""
+        real tensors, since decode writes them in place; under a policy
+        DTensors in its placements (on the meta device whole meta
+        tensors)."""
         dev = cache_device or device
-        return (M.init_mamba_cache(cfg, batch, dtype, dev, n),
+        return (_init_mamba_cache(cfg, batch, dtype, dev, n, policy),
                 init_sub_cache(cfg, shared, n_apps, batch, max_seq, dtype,
-                               dev))
+                               dev, policy))
 
-    layer = _mamba_train_layer(cfg)
+    def cache_axes():
+        """The caches' logical axes, leaf for leaf (JAX's
+        ``init_cache``'s)."""
+        return (_mamba_cache_axes(), _sub_cache_axes())
+
+    layer = _mamba_train_layer(cfg, policy)
 
     def axes():
         """The params' logical axes, leaf for leaf (JAX's ``init``'s)."""
@@ -874,23 +1218,26 @@ def _build_hybrid(cfg: ModelConfig, device: torch.device):
         remat'd (its gradient sums over its applications); the trailing
         layers; the final norm. inputs: (B, S) token ids or (B, S, d)
         embeddings. Returns (logits (B, S, padded vocab) f32, a zero f32
-        aux). ``params`` may be stacked or ``split_blocks``'s form."""
-        h = _embed_inputs(cfg, params["embed"], inputs)
+        aux). ``params`` may be stacked or ``split_blocks``'s form. Under a
+        policy on DTensors, as the transformer's."""
+        h = embed(params, inputs)
         positions = torch.arange(h.shape[1], device=h.device)[None]
         for layers in segments:
             for i in layers:
                 h = layer(_layer(params["mamba"], i), h)
             h, _ = sub_apply(params["shared"], cfg, shared, h, positions,
-                             "train")
+                             "train", **sub_kw)
+            h = _constrain_act(policy, h)
         for i in trailing:
             h = layer(_layer(params["mamba"], i), h)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return (L.unembed_apply(params["embed"], cfg, h),
-                torch.zeros((), dtype=torch.float32, device=h.device))
+        return _logits(cfg, params["embed"], h, policy), _zero_aux(h)
 
     return SimpleNamespace(cfg=cfg, device=device, init=init, axes=axes,
-                           forward=forward, policy=None,
+                           forward=forward, mesh=mesh, parallel=parallel,
+                           policy=policy,
+                           distribute=_distributor(policy, axes),
                            split_blocks=lambda p: _split_mamba(p, n),
                            prefill=prefill, decode=decode,
-                           init_cache=init_cache,
+                           init_cache=init_cache, cache_axes=cache_axes,
                            kernel_ops=(ssd_ops, flash_ops))

@@ -439,6 +439,26 @@ def _ssd_bwd_args(case, gen):
 
 
 # the backward's four grids, by kernel name
+# a rank's shard of mamba2-370m under a (data 1, model 2) policy: 16 of its
+# 32 SSM heads, B and C whole (d_state 128), at sharded_mamba2's prefill
+# (1 x 1024) and training microbatch (2 x 2048), the models' decay range
+SSD_LOCAL_SHARD_CASES = [(1, 1024, 16, 64, 128, 256),
+                         (2, 2048, 16, 64, 128, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,nh,hd,ds,ch", SSD_LOCAL_SHARD_CASES)
+def test_ssd_kernel_at_a_local_shard(b, s, nh, hd, ds, ch):
+    _check_ssd(b, s, nh, hd, ds, ch, wide_decay=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,nh,hd,ds,ch", SSD_LOCAL_SHARD_CASES)
+def test_ssd_backward_at_a_local_shard(b, s, nh, hd, ds, ch):
+    test_ssd_backward_kernel_matches_plain_backward(b, s, nh, hd, ds, ch,
+                                                    wide_decay=True)
+
+
 SSD_BWD_GRIDS = ("bwd_prep_kernel", "bwd_dg_kernel", "bwd_head_kernel",
                  "bwd_dbc_kernel")
 

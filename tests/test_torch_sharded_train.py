@@ -4,10 +4,13 @@ same JAX-initialised params (bridged as numpy), as JAX's
 ``test_sharded_train_step_matches_single_device``: reduced yi-9b on a
 (data 2, model 2) mesh ("heads" mode) and on (data 1, model 4) ("expand":
 4 q heads over 4 ranks, the 2 kv heads replicated and expanded), reduced
-granite-moe on (data 2, model 2) (the MoE expert-parallel); two steps of 2
-microbatches against two single-device steps; and yi with 6 q heads over
-2 kv heads on (data 1, model 4), "expand" with the q heads padded to 8
-(zero wq columns and wo rows, their gradients masked). One spawn of the
+granite-moe on (data 2, model 2) (the MoE expert-parallel); reduced
+mamba2-370m and zamba2-1.2b on both meshes (``d_inner`` and the SSM heads
+over ``model``, the SSD op's forward and backward on each rank's heads;
+zamba2's shared block "heads" at (2, 2), "expand" at (1, 4)); two steps
+of 2 microbatches against two single-device steps; and yi with 6 q heads
+over 2 kv heads on (data 1, model 4), "expand" with the q heads padded to
+8 (zero wq columns and wo rows, their gradients masked). One spawn of the
 ranks for every run (``tests/torch_dist_ranks.py``)."""
 import concurrent.futures
 import dataclasses
@@ -39,9 +42,14 @@ PADDED = {"num_heads": 6, "num_kv_heads": 2}
 # (arch, config overrides, mesh shape, the policy's mode and h_pad)
 RUNS = [("yi-9b", {}, (2, 2), "heads", 4), ("yi-9b", {}, (1, 4), "expand", 4),
         ("yi-9b", PADDED, (1, 4), "expand", 8),
-        ("granite-moe-1b-a400m", {}, (2, 2), "heads", 4)]
+        ("granite-moe-1b-a400m", {}, (2, 2), "heads", 4),
+        ("mamba2-370m", {}, (2, 2), "none", 0),
+        ("mamba2-370m", {}, (1, 4), "none", 0),
+        ("zamba2-1.2b", {}, (2, 2), "heads", 4),
+        ("zamba2-1.2b", {}, (1, 4), "expand", 4)]
 IDS = ["yi-heads-2x2", "yi-expand-1x4", "yi-padded-expand-1x4",
-       "granite-heads-2x2"]
+       "granite-heads-2x2", "mamba2-2x2", "mamba2-1x4", "zamba2-heads-2x2",
+       "zamba2-expand-1x4"]
 
 
 def _batches(vocab, n=2, b=8, s=32):

@@ -98,9 +98,7 @@ def _spec_leaves(tree):
 
 
 def _port_model(cfg, mesh, par, policy):
-    if cfg.family in ("dense", "moe"):
-        return build_model(cfg, "meta", mesh, par, policy)
-    return build_model(cfg, "meta")
+    return build_model(cfg, "meta", mesh, par, policy)
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -1,5 +1,6 @@
 """Rank bodies for the port's multi-rank CPU tests
-(``tests/test_torch_distributed.py``, ``tests/test_torch_sharded_train.py``),
+(``tests/test_torch_distributed.py``, ``tests/test_torch_sharded_train.py``,
+``tests/test_torch_sharded_serving.py``, ``tests/test_torch_sharded_ssm.py``),
 run by ``repro_torch.distributed.spawn.run_ranks`` on 4 gloo ranks. This
 module imports no JAX: every spawned rank imports it. Inputs come in as
 numpy (JAX-initialised params, seeded data), results go back as numpy."""
@@ -298,3 +299,191 @@ def gloo_cuda_collectives(rank, world):
          redist([rep, Shard(0)], [rep, Shard(1)], x),
          full.chunk(world, dim=1)[rank])
     return out
+
+
+# -- prefill and decode under a policy ----------------------------------------
+
+def _full(tree):
+    """A tree of DTensors (or tensors) gathered whole, as numpy copies
+    (decode goes on writing the caches in place)."""
+    from repro_torch.models.params import _map
+    return _map(tree, lambda t: _np(t).copy())
+
+
+def sharded_serve(rank, world, run, refs):
+    """One serving run of ``serving_cases``: the port's prefill of
+    ``run["tokens"]`` (B, S) to ``max_seq`` under a prefill-kind policy on
+    a (data, model) mesh of ``run["mesh"]``, the caches placed for a
+    decode-kind policy's model (``constrain_tree`` into its
+    ``cache_axes()``), then one decode step for each token column of
+    ``run["feed"]`` (B, T) at positions S + t (the last step's row 0 at
+    ``max_seq``, past the end, where it writes nothing). The same steps
+    unsharded, from the same numpy params, on rank 0 only, once for each
+    ``run["ref_key"]`` (kept in ``refs``); and decode from the decode
+    model's ``init_cache`` for two steps. Returns on rank 0 every logits
+    tensor and the caches after prefill and after the last step, both runs,
+    the modes, and the caches' placements against their specs."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import params_from_numpy
+    cfg = _cfg(run["arch"], **run.get("over", {}))
+    mesh = make_test_mesh(run["mesh"], ("data", "model"), device_type="cpu")
+    toks = torch.from_numpy(run["tokens"])
+    feed = torch.from_numpy(run["feed"])
+    b, s = toks.shape
+    max_seq = run["max_seq"]
+    params = params_from_numpy(run["params"], "cpu")
+    pos = [torch.full((b,), s + t) for t in range(feed.shape[1])]
+    pos[-1][0] = max_seq
+
+    def serve(pm, dm, pp, dp, place):
+        out = {}
+        with torch.no_grad():
+            lg, c = pm.prefill(pp, toks, max_seq)
+            out["prefill"] = _np(lg)
+            c = place(c)
+            out["prefill_caches"] = _full(c)
+            steps = []
+            for t in range(feed.shape[1]):
+                lg, c = dm.decode(dp, c, feed[:, t:t + 1], pos[t])
+                steps.append(_np(lg))
+            out["decode"] = steps
+            out["decode_caches"] = _full(c)
+            c0 = dm.init_cache(b, max_seq)
+            fresh = []
+            for t in range(2):
+                lg, c0 = dm.decode(dp, c0, toks[:, t:t + 1],
+                                   torch.full((b,), t))
+                fresh.append(_np(lg))
+            out["from_init"] = fresh
+        return out
+
+    if rank == 0 and run["ref_key"] not in refs:
+        plain = build_model(cfg, "cpu")
+        refs[run["ref_key"]] = serve(plain, plain, params, params,
+                                     lambda c: c)
+    shape_p = ShapeConfig("p", s, b, "prefill")
+    shape_d = ShapeConfig("d", max_seq, b, "decode")
+    pol_p, par = specs.make_policy(cfg, shape_p, mesh)
+    pol_d, _ = specs.make_policy(cfg, shape_d, mesh)
+    mp = build_model(cfg, "cpu", mesh, par, pol_p)
+    md = build_model(cfg, "cpu", mesh, par, pol_d)
+    with _kernel_shapes() as shapes:
+        got = serve(mp, md, mp.distribute(params), md.distribute(params),
+                    lambda c: pol_d.constrain_tree(c, md.cache_axes()))
+    got["kernel_shapes"] = shapes
+    # each kind's model on the other kind's step: the decode-kind model
+    # prefills ("head_dim": q, k, v gathered for flash), the prefill-kind
+    # model decodes its own caches ("expand": the sequence-sharded cache
+    # gathered)
+    with torch.no_grad():
+        lg, _ = md.prefill(md.distribute(params), toks, max_seq)
+        _, c = mp.prefill(mp.distribute(params), toks, max_seq)
+        lg1, _ = mp.decode(mp.distribute(params), c, feed[:, :1], pos[0])
+    got["cross"] = [_np(lg), _np(lg1)]
+    # the decode model's caches sit in abstract_cache's specs
+    caches = md.init_cache(b, max_seq)
+    _, _, want_specs = specs.abstract_cache(md, pol_d, b, max_seq)
+    pairs = list(zip(_leaves(caches), _leaves(want_specs)))
+    got["placed"] = bool(pairs) and all(
+        isinstance(t, DTensor) and tuple(t.placements) == pol_d.placements(sp)
+        for t, sp in pairs)
+    got["modes"] = (pol_p.mode, pol_d.mode, pol_p.h_pad)
+    return {"port": refs[run["ref_key"]], "sharded": got} if rank == 0 \
+        else None
+
+
+class _kernel_shapes:
+    """Records the shapes the flash and SSD ops see (the names the models
+    call), as {op: sorted shapes}, while in the block."""
+    def __enter__(self):
+        from repro_torch.models import layers, mamba2
+        self.mods, self.seen = (layers, mamba2), {"flash": set(),
+                                                  "ssd": set()}
+        self.fa, self.ssd = layers.flash_attention, mamba2.ssd_chunked
+
+        def fa(q, k, v, **kw):
+            self.seen["flash"].add((tuple(q.shape), tuple(k.shape)))
+            return self.fa(q, k, v, **kw)
+
+        def ssd(x, dt, A, B, C, chunk):
+            self.seen["ssd"].add((tuple(x.shape), tuple(B.shape)))
+            return self.ssd(x, dt, A, B, C, chunk)
+        layers.flash_attention, mamba2.ssd_chunked = fa, ssd
+        return self.seen
+
+    def __exit__(self, *exc):
+        layers, mamba2 = self.mods
+        layers.flash_attention, mamba2.ssd_chunked = self.fa, self.ssd
+        for k in self.seen:
+            self.seen[k] = sorted(self.seen[k])
+
+
+def _leaves(tree):
+    """Leaves of a cache tree (dicts by sorted key, lists, tuples) or of
+    its spec tree, whose leaves are specs: tuples of mesh-axis entries."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)) and not all(
+            isinstance(e, (str, tuple, type(None))) for e in tree):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def head_dim_units(rank, world):
+    """The head-dim-sharded pieces against their unsharded versions, on
+    the ``model`` group of a (data 1, model 4) and a (data 2, model 2)
+    mesh: ``apply_rope_head_dim`` (largest difference, expected 0: the
+    same operations on each block), ``head_dim_norms`` (gemma3's qk norm
+    over the whole head dim) and the Mamba2 gated norm on a DTensor whose
+    ``d_inner`` is sharded (DTensor's all-reduce of the sum of squares).
+    Returns on rank 0 {mesh: {check: largest difference}}."""
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.sharding import distribute_full
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(5)
+    b, s, h, kv, hd = 2, 5, 4, 2, 16
+    q, k = (torch.randn(b, s, n, hd, generator=g) for n in (h, kv))
+    qn, kn = (torch.randn(hd, generator=g) * 0.1 for _ in range(2))
+    positions = torch.arange(3, 3 + s)[None]
+    x = torch.randn(b, s, 32, generator=g)
+    w = torch.randn(32, generator=g) * 0.1
+    out = {}
+    for shape in ((1, 4), (2, 2)):
+        mesh = make_test_mesh(shape, ("data", "model"), device_type="cpu")
+        group = comm.axis_group(mesh, "model")
+        tp, r = comm.group_size(group), comm.group_rank(group)
+
+        def block(t):
+            return t.chunk(tp, dim=-1)[r]
+        rq, rk = L.apply_rope_head_dim(block(q), block(k), positions, 1e4,
+                                       group, hd)
+        want_q = L.apply_rope(q, positions, 1e4)
+        want_k = L.apply_rope(k, positions, 1e4)
+        nq, nk = L.head_dim_norms(block(q), block(k), block(qn), block(kn),
+                                  1e-6, group, hd)
+        diffs = {
+            "rope": max(float((a - block(c)).abs().max()) for a, c in
+                        ((rq, want_q), (rk, want_k))),
+            "qk_norm": max(float((a - block(L.rms_norm(c, wn, 1e-6)))
+                                 .abs().max())
+                           for a, c, wn in ((nq, q, qn), (nk, k, kn))),
+        }
+        xd = distribute_full(x, mesh, (Replicate(), Shard(2)))
+        wd = distribute_full(w, mesh, (Replicate(), Shard(0)))
+        diffs["gated_norm"] = float((L.rms_norm(xd, wd).full_tensor()
+                                     - L.rms_norm(x, w)).abs().max())
+        out[shape] = diffs
+    return out if rank == 0 else None
+
+
+def serving_cases(rank, world, runs):
+    """``sharded_serve`` for each run of ``runs`` and ``head_dim_units``,
+    in one process group: (rank 0's run results, rank 0's unit checks)."""
+    refs = {}
+    return ([sharded_serve(rank, world, run, refs) for run in runs],
+            head_dim_units(rank, world))
