@@ -66,7 +66,17 @@ unsharded ones; eight ranks run yi-9b at 2 layers in f32 with an "expand"
 prefill (4 of 32 q heads a rank, the cache's sequence over model) and a
 "head_dim" decode (16 of 128 a rank), greedy tokens equal; each phase with
 its exact launches, staged collectives, peak memory and host ms a call a
-rank, and each local kernel shape against its plain version; each with
+rank, and each local kernel shape against its plain version; then the
+dry-run held to the card (``dryrun_phases``): yi-9b's prefill of 1 x 2048
+at 8 layers, a granite-moe-1b-a400m train step of 2 x 2048 at 4 layers
+and mamba2-370m's prefill of 1 x 2048 at full depth, each counted by
+``repro_torch.launch.op_analysis`` on meta tensors and around the real
+step on the card (FLOPs and kernel calls equal, the card's launches equal
+to the meta calls, the meta peak within 10% of the rise in
+``max_memory_allocated``, the step's ms beside the counted roofline's
+dominant term), and ``python -m repro_torch.launch.dryrun --arch yi-9b
+--shape prefill_32k --mesh single`` on meta under a fake process group in
+a process of its own, off the card, its ``[ok]`` line printed; each with
 exact forward and backward launch counts; full-width (depth 2, float32)
 engine tokens against a reference for yi-9b and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
 same engine on the CPU), and for yi-9b with chunked prefill, the prefix
@@ -133,10 +143,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+# each kernel's analytic cost, shared with the dry-run's count
+from repro_torch.kernels.costs import (attention_bound_ms,  # noqa: E402
+                                       attention_bwd_bound_ms,
+                                       attention_pairs, gmm_bound_ms,
+                                       gmm_bwd_bound_ms, model_flops,
+                                       ssd_bound_ms, ssd_bwd_bound_ms)
 # the H100 SXM data sheet's rates, one place for the port and this check
 from repro_torch.launch.mesh import (H100_BF16_FLOPS,  # noqa: E402
-                                     H100_BYTES_PER_S, H100_F32_FLOPS,
-                                     H100_TF32_FLOPS)
+                                     H100_F32_FLOPS)
 
 # flash attention: the sweep of tests/test_kernels.py, (B, S, H, KV, D,
 # window, softcap), and the serving prefill shapes at full width
@@ -480,96 +495,6 @@ def device_busy_ms(fn) -> float | str:
     return prof.get("device_busy_ms", prof.get("profile"))
 
 
-def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
-    """The least time for the work: the larger of operations over the peak
-    rate for their type and bytes over the memory rate, in ms."""
-    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def attention_bound_ms(b, s, h, kv, d, window, dtype) -> tuple[float, str]:
-    """Causal attention: QK^T and PV on the unmasked (q, k) pairs (2 flops
-    per multiply-add each); q, k, v read once and o written once."""
-    qpos = np.arange(s)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(s, int)
-    pairs = int(np.sum(qpos - lo + 1))
-    flops = 4.0 * d * b * h * pairs
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    nbytes = b * s * (2 * h + 2 * kv) * d * torch.finfo(dtype).bits // 8
-    return bound(flops, nbytes, peak)
-
-
-def attention_pairs(s, window) -> int:
-    """Unmasked (q, k) pairs of causal attention over S positions."""
-    qpos = np.arange(s)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(s, int)
-    return int(np.sum(qpos - lo + 1))
-
-
-def attention_bwd_bound_ms(b, s, h, kv, d, window, dtype) -> tuple[float,
-                                                                   str]:
-    """The flash backward: the five products the gradient needs on the
-    unmasked pairs (S = Q.K^T recomputed, dP = dO.V^T, dV, dK, dQ; 2 flops
-    a multiply-add); q, k, v, o, dO and the f32 lse read once, dq, dk, dv
-    written once."""
-    flops = 10.0 * d * b * h * attention_pairs(s, window)
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    width = torch.finfo(dtype).bits // 8
-    nbytes = b * s * (4 * h + 4 * kv) * d * width + 4 * b * h * s
-    return bound(flops, nbytes, peak)
-
-
-def gmm_bwd_bound_ms(e, c, d, f, dtype) -> tuple[float, str]:
-    """The grouped matmul's backward: dx = dy.w^T and dw = x^T.dy, 4 E C d
-    f flops; x, w, dy read once, dx, dw written once."""
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    nbytes = (2 * e * c * d + 2 * e * d * f + e * c * f) * \
-        torch.finfo(dtype).bits // 8
-    return bound(4.0 * e * c * d * f, nbytes, peak)
-
-
-def gmm_bound_ms(e, c, d, f, dtype) -> tuple[float, str]:
-    """Grouped matmul: 2 E C d f flops; x and w read once, out written
-    once."""
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    nbytes = (e * c * d + e * d * f + e * c * f) * torch.finfo(dtype).bits // 8
-    return bound(2.0 * e * c * d * f, nbytes, peak)
-
-
-def ssd_bound_ms(b, nh, nc, c, hd, ds, peak=H100_TF32_FLOPS,
-                 passes=3) -> tuple[float, str]:
-    """SSD intra-chunk, f32: the least work the function needs. C.B^T on
-    the causal triangle once per (batch, chunk), since B and C are shared
-    by every head; per head, the weighted triangle times xdt and the
-    (ds x hd) state. a, xdt, B, C read once; y and S written once. By
-    default for the kernel's instruction class, split TF32: three TF32
-    products for each f32 one at the TF32 peak; ``peak=H100_F32_FLOPS,
-    passes=1`` gives the bound on the CUDA cores."""
-    pairs = c * (c + 1) // 2
-    flops = (b * nc * 2.0 * pairs * ds
-             + b * nh * nc * (2.0 * pairs * hd + 2.0 * c * ds * hd))
-    nbytes = 4 * (b * nh * nc * c + 2 * b * nh * nc * c * hd
-                  + 2 * b * nc * c * ds + b * nh * nc * ds * hd)
-    return bound(passes * flops, nbytes, peak)
-
-
-def ssd_bwd_bound_ms(b, nh, nc, c, hd, ds) -> tuple[float, str]:
-    """The SSD intra-chunk backward, f32: the least work the gradient
-    needs. C.B^T on the causal triangle once per (batch, chunk); per head
-    dy.xdt^T and M^T.dy on the triangle, B.dS and xdt.dS^T; per (batch,
-    chunk) dC = dG.B and dB = dG^T.C on the triangle. a, xdt, B, C, dy and
-    dS read once; da, dxdt, dB and dC written once. In split TF32, the
-    kernel's instruction class: three TF32 products for each f32 one at
-    the TF32 peak."""
-    pairs = c * (c + 1) // 2
-    flops = (b * nc * 3 * 2.0 * pairs * ds
-             + b * nh * nc * (4.0 * pairs * hd + 4.0 * c * ds * hd))
-    nbytes = 4 * (2 * b * nh * nc * c + 3 * b * nh * nc * c * hd
-                  + 4 * b * nc * c * ds + b * nh * nc * ds * hd)
-    return bound(3 * flops, nbytes, H100_TF32_FLOPS)
-
-
 def ssd_bwd_set_bytes(b, s, nh, hd, ds, ch) -> int:
     """Bytes of one set of the backward's inputs and outputs."""
     nc = s // ch
@@ -617,29 +542,6 @@ def ssd_set_bytes(b, s, nh, hd, ds, ch) -> int:
     nc = s // ch
     return 4 * (b * nh * s + 2 * b * nh * s * hd + 2 * b * s * ds
                 + b * nh * nc * ds * hd)
-
-
-def model_flops(cfg, params, tokens: int, seq: int) -> float:
-    """Model FLOPs of one training step (no recompute counted): 6 per
-    token per weight of every product a token passes through (the tied
-    unembedding included, the embedding lookup not; of an MoE layer's
-    experts the top_k it is routed to) and three times each layer's causal
-    attention products (forward, and the backward's two)."""
-    def weights(tree, moe=False):
-        n = 0
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                n += weights(v, moe or k == "moe")
-            elif v.ndim >= 3:     # stacked matrices, not stacked norms
-                active = moe and k in ("wi", "wg", "wo") and v.ndim == 4
-                n += v.numel() * (cfg.moe.top_k / cfg.moe.num_experts
-                                  if active else 1)
-        return n
-    w = sum(weights(bp) for bp in params["blocks"])
-    w += params["embed"]["tok"].numel()
-    attn = 3 * 4.0 * cfg.head_dim * cfg.num_heads * attention_pairs(seq, 0) \
-        * cfg.num_layers
-    return 6.0 * w * tokens + attn * tokens / seq
 
 
 def reset_launches(ops: dict):
@@ -2289,6 +2191,135 @@ def sharded_phases(smi: str) -> dict:
     return counts
 
 
+# the dry-run held to the card: each cell's step counted on meta tensors
+# and counted around the real run, full width at a depth that fits
+DRYRUN_CELLS = [
+    dict(phase="dryrun_yi9b", arch="yi-9b", layers=8, kind="prefill",
+         batch=1, seq=2048),
+    dict(phase="dryrun_granite", arch="granite-moe-1b-a400m", layers=4,
+         kind="train", batch=2, seq=2048),
+    dict(phase="dryrun_mamba2", arch="mamba2-370m", layers=None,
+         kind="prefill", batch=1, seq=2048),
+]
+DRYRUN_PEAK_REL = 0.10      # predicted peak against the allocator's
+# each kernel's report name in the analysis, and its op in ``ops``
+DRYRUN_KERNELS = {"flash_attention": "flash_attention",
+                  "grouped_matmul": "grouped_matmul",
+                  "ssd_intra_chunk": "ssd"}
+# the production cell the phase also traces on meta in a process of its
+# own, off the card
+DRYRUN_CLI = ["--arch", "yi-9b", "--shape", "prefill_32k", "--mesh",
+              "single"]
+
+
+def dryrun_phases(smi: str, ops: dict) -> dict:
+    """The dry-run against the card (``repro_torch.launch.dryrun``): each
+    of ``DRYRUN_CELLS`` is counted by ``op_analysis`` on meta tensors and
+    again around the real step on the card, after a warm-up step. The
+    FLOPs and the kernel calls must be equal, the card's launch counts must
+    equal the meta calls, and the meta peak must lie within
+    ``DRYRUN_PEAK_REL`` of the change in ``max_memory_allocated``; the
+    step's ms stand beside the counted roofline's dominant term. Meanwhile
+    a process of its own traces the production cell ``DRYRUN_CLI`` on meta
+    under the fake process group (no card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, op_analysis
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    cli = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            *DRYRUN_CLI, "--out", out_dir], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    counts = {}
+    for cell in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        cfg = get_config(cell["arch"])
+        if cell["layers"]:
+            cfg = dataclasses.replace(cfg, num_layers=cell["layers"])
+        step = (cfg, cell["kind"], cell["batch"], cell["seq"])
+        fn, args = dryrun.local_step(*step, "meta")
+        _, meta = op_analysis.analyze_step(fn, *args)
+        del fn, args
+        fn, args = dryrun.local_step(*step, "cuda")
+        fn(*args)                 # fills the caches and cuBLAS's workspace
+        torch.cuda.synchronize()
+        reset_launches(ops)
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        out, card = op_analysis.analyze_step(fn, *args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - m0
+        launched = read_launches(ops)
+        del out
+        ms = host_ms(lambda: fn(*args), iters=3)
+        shape = ShapeConfig(cell["phase"], cell["seq"], cell["batch"],
+                            cell["kind"])
+        roof = dryrun.roofline(meta, cfg, shape, chips=1)
+        dominant_s = roof[roof["dominant"]]
+        calls = meta.kernel_calls
+        want = {}
+        for kernel, name in DRYRUN_KERNELS.items():
+            c = calls.get(kernel, {})
+            want[name] = c.get("fwd", 0)
+            want[f"{name}_bwd"] = sum(v for d, v in c.items() if d != "fwd")
+        got = {k: launched[k] for k in want}
+        predicted = meta.memory["temp_bytes"]
+        line = {
+            "phase": cell["phase"], "arch": cell["arch"],
+            "layers": cfg.num_layers, "kind": cell["kind"],
+            "batch": cell["batch"], "seq": cell["seq"],
+            "flops": {"meta": meta.flops, "card": card.flops},
+            "dot_flops": {"meta": meta.dot_flops, "card": card.dot_flops},
+            "kernel_calls": {"meta": calls, "card": card.kernel_calls},
+            "launches": got, "launches_want": want,
+            "hbm_bytes": {"meta": meta.hbm_bytes, "card": card.hbm_bytes},
+            "peak_bytes": {"meta_temp": predicted,
+                           "card_tracker_temp": card.memory["temp_bytes"],
+                           "max_memory_allocated_delta": peak,
+                           "rel": abs(predicted - peak) / peak},
+            "ms": ms, "roofline": roof, "dominant_ms": 1e3 * dominant_s,
+            "ms_over_dominant": ms / (1e3 * dominant_s),
+            "measured_roofline_fraction": roof["model_flops_per_device"]
+            / H100_BF16_FLOPS / (ms * 1e-3),
+            "nvidia_smi": smi, "seconds": time.perf_counter() - t0}
+        emit(line)
+        if meta.flops != card.flops or meta.dot_flops != card.dot_flops:
+            fail(f"{cell['phase']}: meta counts {meta.flops} FLOPs, the "
+                 f"card {card.flops}")
+        if calls != card.kernel_calls:
+            fail(f"{cell['phase']}: kernel calls on meta {calls}, on the "
+                 f"card {card.kernel_calls}")
+        if got != want or not any(want.values()):
+            fail(f"{cell['phase']}: the card launched {got}, the meta "
+                 f"calls say {want}")
+        if line["peak_bytes"]["rel"] > DRYRUN_PEAK_REL:
+            fail(f"{cell['phase']}: predicted peak {predicted} bytes, the "
+                 f"card's rose by {peak}")
+        counts[cell["phase"]] = got
+        del fn, args
+        release(cell["phase"])
+    out, err = cli.communicate(timeout=300)
+    summary = [ln for ln in out.splitlines() if ln.startswith("[ok]")]
+    if cli.returncode or not summary:
+        fail(f"dryrun {' '.join(DRYRUN_CLI)}: exit {cli.returncode}\n"
+             f"{out[-2000:]}\n{err[-3000:]}")
+    print(summary[0], flush=True)
+    cell = json.loads(next(Path(out_dir).glob("*.json")).read_text())
+    emit({"phase": "dryrun_cli", "args": DRYRUN_CLI, "summary": summary[0],
+          "chips": cell["chips"], "attn_mode": cell["attn_mode"],
+          "roofline": cell["roofline"],
+          "memory_analysis": cell["memory_analysis"],
+          "timings_s": cell["timings_s"],
+          "seconds": time.perf_counter() - t_phase})
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3070,6 +3101,8 @@ def main():
     train_counts.update(distributed_phases(smi))
     # -- 4d. prefill and decode sharded, the SSM and hybrid families -------
     train_counts.update(sharded_phases(smi))
+    # -- 4e. the dry-run's counts against the card --------------------------
+    train_counts.update(dryrun_phases(smi, ops))
 
     # -- 5. full width, depth 2, float32: engine tokens == a reference -----
     def faults(monitor) -> list:

@@ -128,9 +128,16 @@ def send_recv(t, dst: int, src: int, group):
     payload = _to_host(t) if stage else t
     g_dst = dist.get_global_rank(group, dst)
     g_src = dist.get_global_rank(group, src)
-    ops = [dist.P2POp(dist.isend, payload, g_dst, group),
-           dist.P2POp(dist.irecv, out, g_src, group)]
-    for w in dist.batch_isend_irecv(ops):
+    if t.device.type == "meta":
+        # the dry-run's fake group has no backend for a meta batch: the
+        # same pair as two calls
+        works = [dist.isend(payload, g_dst, group),
+                 dist.irecv(out, g_src, group)]
+    else:
+        works = dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, payload, g_dst, group),
+             dist.P2POp(dist.irecv, out, g_src, group)])
+    for w in works:
         w.wait()
     if stage:
         staged["send"] += 1

@@ -9,6 +9,13 @@ forward launches the kernel with each row's log-sum-exp and saves (q, k, v,
 o, lse), its backward launches the backward kernel. ``launches`` counts
 forward launches (serving and training), ``bwd_launches`` backward ones.
 
+Meta tensors (the dry-run: shapes and dtypes, no data) take the CUDA path
+with its checks and allocations, but where the card would launch a kernel
+the op returns the kernel's outputs empty on the meta device; it never
+runs the plain version there. Each call, launched or on meta, is reported
+with its cost (``kernels.costs.attention_cost``, ``attention_bwd_cost``)
+to a recording step analysis; a meta call is not a launch.
+
 The backward of bf16 at head dims 64 and 128 runs on the tensor cores in
 one pass over the scores and sums dQ into an f32 buffer by atomics, so its
 dQ's summation order varies from run to run; f32 (the parity path) and
@@ -22,12 +29,16 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 BWD_HEAD_DIMS = (64, 128, 256)
+# the backward sums dQ into a zeroed f32 buffer for bf16 at these head dims
+# (the library's ``flash_attention_bwd_sums_dq``, which a meta call cannot
+# ask)
+SUMS_DQ_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches in this process, forward and backward; a run resets them
@@ -93,14 +104,28 @@ def _check_cuda(q, k, v, head_dims=HEAD_DIMS):
                          "must start on a 16-byte boundary")
 
 
+def _report(direction: str, q, k, window):
+    if costs.recording():
+        b, s, h, d = q.shape
+        cost = (costs.attention_cost if direction == "fwd"
+                else costs.attention_bwd_cost)
+        costs.report("flash_attention", direction,
+                     (tuple(q.shape), tuple(k.shape)),
+                     cost(b, s, h, k.shape[2], d, window, q.dtype))
+
+
 def _forward(q, k, v, causal, window, softcap, with_lse: bool):
-    """Launch the forward kernel: (out, lse or None)."""
+    """Launch the forward kernel: (out, lse or None); on meta tensors
+    their empty outputs."""
     global launches
     b, s, h, d = q.shape
-    lib = load_library()
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    _report("fwd", q, k, window)
+    if q.device.type == "meta":
+        return out, lse
+    lib = load_library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -120,13 +145,14 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=0,
                         softcap=0.0):
     """Launch the backward kernel: (dq, dk, dv) in q's dtype for the output
     gradient ``dout``, from the forward's ``out`` and ``lse`` (B, H, S) f32.
-    CUDA tensors only; head dims ``BWD_HEAD_DIMS``. The kernels allocate
-    nothing: the wrapper gives them delta's (B, H, S) f32 scratch and,
-    where the library's ``flash_attention_bwd_sums_dq`` says so (bf16 at
-    head dims 64 and 128), the zeroed f32 buffer dQ is summed into."""
+    CUDA tensors (meta tensors: their empty outputs); head dims
+    ``BWD_HEAD_DIMS``. The kernels allocate nothing: the wrapper gives them
+    delta's (B, H, S) f32 scratch and, where the library's
+    ``flash_attention_bwd_sums_dq`` says so (bf16 at head dims
+    ``SUMS_DQ_HEAD_DIMS``), the zeroed f32 buffer dQ is summed into."""
     global bwd_launches
     _check(q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError("the backward kernel runs on cuda tensors; the plain "
                          "backward is ref.attention_ref_bwd")
     _check_cuda(q, k, v, BWD_HEAD_DIMS)
@@ -138,12 +164,17 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=0,
     if lse.shape != (b, h, s) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be (B, H, S) = {(b, h, s)} float32")
     out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
-    lib = load_library()
+    meta = q.device.type == "meta"
+    lib = None if meta else load_library()
+    sums_dq = (q.dtype == torch.bfloat16 and d in SUMS_DQ_HEAD_DIMS) if meta \
+        else lib.flash_attention_bwd_sums_dq(_DTYPE_CODE[q.dtype], d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     dq_acc = (torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-              if lib.flash_attention_bwd_sums_dq(_DTYPE_CODE[q.dtype], d)
-              else None)
+              if sums_dq else None)
+    _report("bwd", q, k, window)
+    if meta:
+        return dq, dk, dv
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -186,14 +217,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q: (B, S, H, D); k/v: (B, S, KV, D). Returns (B, S, H, D) in q's
     dtype. ``window`` > 0 keeps keys with qpos - kpos < window; ``softcap``
     > 0 applies ``tanh(s / cap) * cap`` to the scaled scores.
-    Differentiable: on the card through ``FlashAttention`` (head dims
-    ``BWD_HEAD_DIMS``), on the CPU through the plain version."""
+    Differentiable: on the card (and on meta) through ``FlashAttention``
+    (head dims ``BWD_HEAD_DIMS``), on the CPU through the plain version."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu, cuda or meta, not "
                          f"{q.device.type}")
     _check_cuda(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

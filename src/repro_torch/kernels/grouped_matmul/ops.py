@@ -15,6 +15,13 @@ dy, w and x where they lie (no transposed or padded copy); in f32 (the
 parity path, off the timed path) the f32 kernel on contiguous transposed
 copies. CPU tensors are differentiated through the plain version by
 autograd.
+
+Meta tensors (the dry-run: shapes and dtypes, no data) take the CUDA path
+with its plan and checks, but where the card would launch a kernel the op
+returns its output empty on the meta device; it never runs the plain
+version there. Each launch, on the card or in its place on meta, is
+reported with its cost (``kernels.costs.gmm_cost`` of the product it
+computes) to a recording step analysis; a meta call is not a launch.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu"
@@ -101,11 +108,15 @@ _FUNCTIONS = {"tile": "grouped_matmul_fwd", "f32": "grouped_matmul_fwd",
               "dx": "grouped_matmul_bwd_dx", "dw": "grouped_matmul_bwd_dw"}
 
 
-def _launch(variant, a, b, e, c, d, f):
+def _launch(variant, direction, a, b, e, c, d, f):
     """One launch of ``variant``'s kernel (CUDA tensors, checked by the
     caller) for the product (E, C, d) @ (E, d, f): the product itself (E,
     C, f) from a = x, b = w ("tile", "stream", "f32"), dx (E, C, d) from a
-    = dy, b = w ("dx"), or dw (E, d, f) from a = x, b = dy ("dw")."""
+    = dy, b = w ("dx"), or dw (E, d, f) from a = x, b = dy ("dw").
+    ``direction`` ("fwd", "dx", "dw") counts it as a forward or backward
+    launch and names it in the report. On meta tensors the output empty,
+    reported and not launched."""
+    global launches, bwd_launches
     if a.dtype not in _DTYPE_CODE:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {a.dtype}")
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -114,9 +125,19 @@ def _launch(variant, a, b, e, c, d, f):
     if a.dtype == torch.bfloat16 and (a.data_ptr() % 16 or b.data_ptr() % 16):
         raise ValueError("the bf16 kernels copy 16-byte rows: x, w and dy "
                          "must start on a 16-byte boundary")
-    lib = load_library()
     shape = {"dx": (e, c, d), "dw": (e, d, f)}.get(variant, (e, c, f))
     out = torch.empty(shape, dtype=a.dtype, device=a.device)
+    if costs.recording():
+        # the product the kernel computes: dx is (E, C, f) @ (E, f, d), dw
+        # (E, d, C) @ (E, C, f)
+        dims = {"dx": (e, c, f, d), "dw": (e, d, c, f)}.get(variant,
+                                                            (e, c, d, f))
+        costs.report("grouped_matmul", direction,
+                     (tuple(a.shape), tuple(b.shape)),
+                     costs.gmm_cost(*dims, a.dtype))
+    if a.device.type == "meta":
+        return out
+    lib = load_library()
     dtype = [_DTYPE_CODE[a.dtype]] if variant in ("tile", "f32") else []
     with torch.cuda.device(a.device):
         err = getattr(lib, _FUNCTIONS[variant])(
@@ -127,22 +148,26 @@ def _launch(variant, a, b, e, c, d, f):
                            f"with CUDA error {err} (E={e}, C={c}, d={d}, "
                            f"f={f}, {a.dtype})")
     launches_by_variant[variant] += 1
+    if direction == "fwd":
+        launches += 1
+    else:
+        bwd_launches += 1
     return out
 
 
 def _forward(x, w):
-    """x @ w on the kernel that ``_plan`` picks (CUDA tensors, checked by
-    the caller): (E, C, f) in x's dtype."""
+    """x @ w on the kernel that ``_plan`` picks (CUDA or meta tensors,
+    checked by the caller): (E, C, f) in x's dtype."""
     e, c, d = x.shape
     f = w.shape[2]
     variant = _plan(c, d, f) if x.dtype == torch.bfloat16 else "f32"
-    return _launch(variant, x, w, e, c, d, f)
+    return _launch(variant, "fwd", x, w, e, c, d, f)
 
 
 def _bwd_calls(x, w, dy, need_dx: bool, need_dw: bool) -> dict:
     """The launches of the backward of x (E, C, d) @ w (E, d, f) for the
-    output gradient dy (E, C, f), by gradient: (variant, a, b, (E, C, d,
-    f) of the product the variant computes), ``_launch``'s arguments. bf16
+    output gradient dy (E, C, f), by gradient: (variant, a, b, the (E, C,
+    d, f) that ``_launch`` takes for it). bf16
     takes the tile kernel's "dx" (dy, w) and "dw" (x, dy) variants on the
     tensors themselves; float32, the parity path, takes the f32 kernel on
     w^T and x^T copied contiguous. Raises for bf16 unless d and f are
@@ -167,12 +192,10 @@ def grouped_matmul_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
     (CUDA tensors): dx = dy @ w^T (E, C, d), dw = x^T @ dy (E, d, f), one
     launch each as ``_bwd_calls`` plans them. An output not needed is
     None."""
-    global bwd_launches
     grads = {}
     for g, (variant, a, b, dims) in _bwd_calls(x, w, dy.contiguous(), need_dx,
                                                need_dw).items():
-        grads[g] = _launch(variant, a, b, *dims)
-        bwd_launches += 1
+        grads[g] = _launch(variant, g, a, b, *dims)
     return grads.get("dx"), grads.get("dw")
 
 
@@ -182,11 +205,8 @@ class GroupedMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w):
-        global launches
         ctx.save_for_backward(x, w)
-        out = _forward(x, w)
-        launches += 1
-        return out
+        return _forward(x, w)
 
     @staticmethod
     def backward(ctx, dy):
@@ -196,17 +216,14 @@ class GroupedMatmul(torch.autograd.Function):
 
 def grouped_matmul(x, w):
     """x: (E, C, d); w: (E, d, f). Returns (E, C, f) in x's dtype, summed
-    over d in f32. Differentiable: on the card through ``GroupedMatmul``,
-    on the CPU through the plain version."""
-    global launches
+    over d in f32. Differentiable: on the card (and on meta) through
+    ``GroupedMatmul``, on the CPU through the plain version."""
     _check(x, w)
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"grouped_matmul runs on cpu or cuda, not "
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"grouped_matmul runs on cpu, cuda or meta, not "
                          f"{x.device.type}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return GroupedMatmul.apply(x, w)
-    out = _forward(x, w)
-    launches += 1
-    return out
+    return _forward(x, w)

@@ -13,6 +13,13 @@ heads' dG summed on chip and every sum in a fixed order), so a CUDA result
 never lacks the gradient of the intra-chunk term.
 ``ssd_chunked`` is the counterpart of ``ssd_chunked_pallas``: the kernel for
 the intra-chunk dual form, the short inter-chunk recurrence in torch.
+
+Meta tensors (the dry-run: shapes and dtypes, no data) take the CUDA path
+with its checks and workspaces, but where the card would launch the
+kernels the op returns their outputs empty on the meta device; it never
+runs the plain version there. Each call, launched or on meta, is reported
+with its cost (``kernels.costs.ssd_cost``, ``ssd_bwd_cost``) to a
+recording step analysis; a meta call is not a launch.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
@@ -115,8 +122,8 @@ def _check(a, xdt, B, C):
 
 
 def _check_cuda(a, xdt, B, C):
-    if a.device.type != "cuda":
-        raise ValueError(f"ssd_intra_chunk runs on cpu or cuda, not "
+    if a.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_intra_chunk runs on cpu, cuda or meta, not "
                          f"{a.device.type}")
     hd = xdt.shape[-1]
     if hd not in HEAD_DIMS:
@@ -126,17 +133,30 @@ def _check_cuda(a, xdt, B, C):
                          "contiguous tensors")
 
 
+def _report(direction: str, a, xdt, B):
+    if costs.recording():
+        b, nh, nc, c = a.shape
+        cost = costs.ssd_cost if direction == "fwd" else costs.ssd_bwd_cost
+        costs.report("ssd_intra_chunk", direction,
+                     (tuple(a.shape), tuple(xdt.shape), tuple(B.shape)),
+                     cost(b, nh, nc, c, xdt.shape[-1], B.shape[-1]))
+
+
 def _forward(a, xdt, B, C):
-    """Launch the forward kernels on checked CUDA inputs: (y, S)."""
+    """Launch the forward kernels on checked CUDA inputs: (y, S); on meta
+    inputs their empty outputs."""
     global launches
     b, nh, nc, c = a.shape
     hd, ds = xdt.shape[-1], B.shape[-1]
-    lib = load_library()
     y = torch.empty_like(xdt)
     S = torch.empty((b, nh, nc, ds, hd), dtype=torch.float32, device=a.device)
     # the kernels' workspace: C·Bᵀ (b, nc, c, c), then the cumsums of a
     n_cb = b * nc * c * c
     ws = torch.empty(n_cb + a.numel(), dtype=torch.float32, device=a.device)
+    _report("fwd", a, xdt, B)
+    if a.device.type == "meta":
+        return y, S
+    lib = load_library()
     with torch.cuda.device(a.device):
         err = lib.ssd_intra_chunk_fwd(
             a.data_ptr(), xdt.data_ptr(), B.data_ptr(), C.data_ptr(),
@@ -154,12 +174,12 @@ def _forward(a, xdt, B, C):
 def ssd_intra_chunk_bwd(a, xdt, B, C, dy, dS):
     """Launch the backward kernels: (da, dxdt, dB, dC) for the output
     gradients ``dy`` (b, nh, nc, c, hd) and ``dS`` (b, nh, nc, ds, hd), f32.
-    CUDA tensors only; head dims ``HEAD_DIMS``, chunks up to
-    ``MAX_BWD_CHUNK``. The kernels allocate nothing: the wrapper gives them
-    the workspaces of ``bwd_workspace``."""
+    CUDA tensors (meta tensors: their empty outputs); head dims
+    ``HEAD_DIMS``, chunks up to ``MAX_BWD_CHUNK``. The kernels allocate
+    nothing: the wrapper gives them the workspaces of ``bwd_workspace``."""
     global bwd_launches
     _check(a, xdt, B, C)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError("the backward kernel runs on cuda tensors; the "
                          "plain backward is ref.ssd_intra_chunk_ref_bwd")
     _check_cuda(a, xdt, B, C)
@@ -174,11 +194,14 @@ def ssd_intra_chunk_bwd(a, xdt, B, C, dy, dS):
         raise ValueError(f"the backward kernel takes chunks up to "
                          f"{MAX_BWD_CHUNK}, not {c}")
     dy, dS = dy.contiguous(), dS.contiguous()
-    lib = load_library()
     da, dxdt = torch.empty_like(a), torch.empty_like(xdt)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
     ws = [torch.empty(shape, dtype=torch.float32, device=a.device)
           for shape in bwd_workspace(b, nh, nc, c, ds).values()]
+    _report("bwd", a, xdt, B)
+    if a.device.type == "meta":
+        return da, dxdt, dB, dC
+    lib = load_library()
     with torch.cuda.device(a.device):
         err = lib.ssd_intra_chunk_bwd(
             a.data_ptr(), xdt.data_ptr(), B.data_ptr(), C.data_ptr(),
@@ -214,9 +237,9 @@ class SSDIntraChunk(torch.autograd.Function):
 def ssd_intra_chunk(a, xdt, B, C):
     """a: (b, nh, nc, c) log-decays; xdt: (b, nh, nc, c, hd); B/C:
     (b, nc, c, ds); float32. Returns (y_intra (b, nh, nc, c, hd), S_local
-    (b, nh, nc, ds, hd)), float32. Differentiable: on the card through
-    ``SSDIntraChunk`` (chunks up to ``MAX_BWD_CHUNK``), on the CPU through
-    the plain version."""
+    (b, nh, nc, ds, hd)), float32. Differentiable: on the card (and on
+    meta) through ``SSDIntraChunk`` (chunks up to ``MAX_BWD_CHUNK``), on
+    the CPU through the plain version."""
     _check(a, xdt, B, C)
     if a.device.type == "cpu":
         return ssd_intra_chunk_ref(a, xdt, B, C)

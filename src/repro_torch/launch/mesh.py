@@ -15,8 +15,18 @@ no process group: ``ShardingPolicy`` needs nothing more, so a policy for
 the production meshes is built and tested anywhere (JAX's
 ``jax.sharding.AbstractMesh``).
 
+``make_fake_mesh`` builds a mesh of any size in one process over
+``torch.distributed``'s fake process group (every collective returns at
+once and moves nothing): the dry-run traces each production mesh's
+per-rank program on meta tensors with it (``launch.dryrun``).
+
 The roofline constants are the H100's (SXM5, 80 GB HBM3) data-sheet rates,
-one card; ``chip_smoke.py`` takes its bounds from them.
+one card; ``chip_smoke.py`` takes its bounds from them, and the dry-run its
+roofline. ``H100_NVLINK_BYTES_PER_S`` is one card's NVLink 4 rate in one
+direction, which the collective term divides the ring model's wire bytes
+by: NVLink joins the eight cards of a node, so on a mesh axis that crosses
+nodes (over the network between them) collectives run slower, and the term
+is a lower bound there.
 """
 from __future__ import annotations
 
@@ -27,6 +37,8 @@ H100_BF16_FLOPS = 989e12      # bf16 tensor-core peak
 H100_TF32_FLOPS = 495e12      # TF32 tensor-core peak
 H100_F32_FLOPS = 67e12        # f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12    # HBM3
+H100_HBM_BYTES = 80e9         # HBM3 capacity
+H100_NVLINK_BYTES_PER_S = 450e9   # NVLink 4, one direction (900 GB/s both)
 
 
 class AbstractMesh:
@@ -76,3 +88,23 @@ def make_test_mesh(shape=(2, 2), axes=("data", "model"),
                    device_type: str = "cuda"):
     """A small mesh over every rank of the process group."""
     return _device_mesh(shape, axes, device_type)
+
+
+def make_fake_mesh(shape, axes, device_type: str = "cpu"):
+    """A DeviceMesh of ``prod(shape)`` ranks with axis names ``axes`` in this
+    one process, over ``torch.distributed``'s fake process group (this
+    process is rank 0; a collective returns at once and moves nothing).
+    Raises if a process group is already started: the fake group is this
+    process's only one."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a process group ({dist.get_backend()}, world size "
+            f"{dist.get_world_size()}) is already started; a fake mesh "
+            f"needs a process of its own")
+    n = math.prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))

@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.distributed import comm
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -243,9 +243,43 @@ def expand_kv(k, head_map):
 
 
 def _proj(x, w):
-    """einsum("bsd,dhk->bshk"): one matmul over the flattened (h, k) axes."""
+    """einsum("bsd,dhk->bshk"): one matmul over the flattened (h, k) axes.
+    On DTensors whose product DTensor could split inside a head
+    (``_cuts_heads``), as a local region (``_proj_whole_heads``)."""
+    if isinstance(w, DTensor) and _cuts_heads(w):
+        return _proj_whole_heads(x, w)
     return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
                                                    *w.shape[1:])
+
+
+def _cuts_heads(w) -> bool:
+    """Whether a mesh dim replicates w (D, heads, hd) but does not divide
+    its heads (8 kv heads over a 16-rank ``model`` axis in ``"expand"``
+    mode). DTensor may shard such a product over the replicated weight's
+    columns, a free local slice, and then neither the view into heads nor
+    the weight's gradient can take the split."""
+    return any(p.is_replicate() and w.shape[1] % w.device_mesh.size(i)
+               for i, p in enumerate(w.placements))
+
+
+def _proj_whole_heads(x, w):
+    """``_proj`` as a local region: w gathered whole, each rank's rows of x
+    times it, the product placed as x. w's gradient is summed over the mesh
+    dims that split x's rows (each rank's rows give their part of it) and
+    is the same on the rest."""
+    mesh = w.device_mesh
+    if any(p.is_shard(x.ndim - 1) or p.is_partial() for p in x.placements):
+        raise ValueError(f"x placed {x.placements}: the local projection "
+                         f"takes x split by rows only")
+    wl = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if p.is_shard() else Replicate()
+                         for p in x.placements])
+    xl = x.to_local()
+    y = (xl @ wl.reshape(wl.shape[0], -1)).reshape(*xl.shape[:-1],
+                                                   *wl.shape[1:])
+    shape = (*x.shape[:-1], *w.shape[1:])
+    return DTensor.from_local(y, mesh, x.placements, shape=shape,
+                              stride=contiguous_strides(shape))
 
 
 def qkv_proj(p, cfg, x, positions, theta: float, head_dim_group=None):
@@ -304,22 +338,48 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+def attention_fused_proxy(cfg, q, k, v, *, window: int = 0):
+    """DRY-RUN lowering proxy (JAX's ``attention_fused_proxy``, see
+    ``ModelConfig.attn_impl``): the products of flash attention with the
+    same dimensions and FLOPs, the score tiles in q's dtype with no softmax
+    chain. Not a numerical attention implementation."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = _group(q, kvh)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k) * torch.tensor(
+        _scale(cfg), dtype=q.dtype, device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    s = torch.where(mask[None, None, None], s,
+                    torch.zeros((), dtype=q.dtype, device=q.device))
+    out = torch.einsum("bkgst,btkh->bskgh", s, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def _attention_core(cfg, q, k, v, window: int):
+    if cfg.attn_impl == "fused_proxy":
+        return attention_fused_proxy(cfg, q, k, v, window=window)
+    return flash_attention(q, k, v, causal=True, window=window,
+                           softcap=cfg.attn_softcap)
+
+
 def attention(cfg, q, k, v, *, window: int = 0):
-    """Full-sequence causal attention (prefill): the flash attention op. On
-    DTensors (batch and heads sharded, as the policy's constraints leave
-    them), the op runs on each rank's local batch rows and heads: contiguous
-    plain tensors, no collective."""
+    """Full-sequence causal attention (prefill and train): the flash
+    attention op, or ``attention_fused_proxy`` where ``cfg.attn_impl`` asks
+    for it (JAX's dispatch). On DTensors (batch and heads sharded, as the
+    policy's constraints leave them), it runs on each rank's local batch
+    rows and heads: contiguous plain tensors, no collective."""
     if isinstance(q, DTensor):
-        out = flash_attention(*(_ContiguousGrad.apply(t.to_local())
-                                for t in (q, k, v)),
-                              causal=True, window=window,
-                              softcap=cfg.attn_softcap)
+        out = _attention_core(cfg, *(_ContiguousGrad.apply(t.to_local())
+                                     for t in (q, k, v)), window)
         # the plain version's output is a strided view; the kernel's is not
         return DTensor.from_local(out.contiguous(), q.device_mesh,
                                   q.placements, shape=q.shape,
                                   stride=contiguous_strides(q.shape))
-    return flash_attention(q, k, v, causal=True, window=window,
-                           softcap=cfg.attn_softcap)
+    return _attention_core(cfg, q, k, v, window)
 
 
 def masked_attention(cfg, q, k_cache, v_cache, valid, scores_sum=None):

@@ -22,9 +22,10 @@ over the ranks (GSPMD's all-reduce in JAX), ``out_proj``'s partial sums
 are all-reduced, and the inputs every rank shares take their gradients'
 sums.
 
-Not ported: ``ssd_fused_proxy``, a dry-run lowering, which comes with the
-dry-run tools (ROADMAP A.8b.1, the dry-run's ``fused_proxy`` variants);
-``mamba_block`` raises on a config that asks for it.
+``ssd_fused_proxy`` is JAX's dry-run lowering proxy: the chunked SSD's
+products without its decay chains, taken by ``mamba_block`` where
+``cfg.ssd_impl == "fused_proxy"`` (the dry-run's ``ssdproxy`` variant), as
+JAX's is. It is not a numerical SSD.
 """
 from __future__ import annotations
 
@@ -150,6 +151,34 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
 # ---------------------------------------------------------------------------
 
 
+def ssd_fused_proxy(x, dt, A, B, C, chunk: int):
+    """DRY-RUN lowering proxy (JAX's ``ssd_fused_proxy``, see
+    ``ModelConfig.ssd_impl``): the chunked SSD's products with the same
+    dimensions and FLOPs, without the decay and segment-sum chains, all in
+    x's dtype. Not a numerical SSD: ``dt`` and ``A`` are not read, and the
+    chunks' states decay by 0.9. x: (b, s, nh, hd), s a multiple of
+    ``chunk``; B/C: (b, s, ds). Returns (y (b, s, nh, hd), final state
+    (b, nh, hd, ds) f32)."""
+    b, s, nh, hd = x.shape
+    ds = B.shape[-1]
+    nc = s // chunk
+    xc = x.reshape(b, nc, chunk, nh, hd)
+    Bc = B.reshape(b, nc, chunk, ds)
+    Cc = C.reshape(b, nc, chunk, ds)
+    scores = torch.einsum("bncs,bnks->bnck", Cc, Bc)
+    y_intra = torch.einsum("bnck,bnkhp->bnchp", scores, xc)
+    s_loc = torch.einsum("bncs,bnchp->bnhps", Bc, xc)
+    decay = torch.tensor(0.9, dtype=x.dtype, device=x.device)
+    state = torch.zeros((b, nh, hd, ds), dtype=x.dtype, device=x.device)
+    prev = []
+    for n in range(nc):
+        prev.append(state)
+        state = state * decay + s_loc[:, n]
+    s_prev = torch.stack(prev)                           # (nc, b, nh, hd, ds)
+    y_inter = torch.einsum("bncs,nbhps->bnchp", Cc, s_prev)
+    return (y_intra + y_inter).reshape(b, s, nh, hd), state.float()
+
+
 class _Whole:
     """The collectives of an unsharded block: none."""
     @staticmethod
@@ -231,7 +260,11 @@ def _run(p, cfg, h, r, states: bool):
     dt = F.softplus(dt + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = x.reshape(b, s, -1, hd)
-    y, final = ssd_chunked(xh, dt, A, B, C, s_cfg.chunk_size)
+    if not states and cfg.ssd_impl == "fused_proxy" and \
+            s % s_cfg.chunk_size == 0:
+        y, final = ssd_fused_proxy(xh, dt, A, B, C, s_cfg.chunk_size)
+    else:
+        y, final = ssd_chunked(xh, dt, A, B, C, s_cfg.chunk_size)
     if states:
         cache["ssd"] = final
     return _out(p, cfg, y, xh, z, r), cache
@@ -305,11 +338,8 @@ def mamba_block(p, cfg, h, policy=None):
     Every length runs the chunked SSD op, a tail short of a chunk padded
     with dt = 0 inside it; the JAX package runs its sequential scan
     instead when S is not a chunk multiple, with the same values and
-    gradients."""
-    if cfg.ssd_impl == "fused_proxy":
-        raise ValueError(f"{cfg.name}: ssd_impl 'fused_proxy' is a dry-run "
-                         f"lowering, not ported (ROADMAP A.8b.1, the "
-                         f"dry-run's fused_proxy variants)")
+    gradients. ``cfg.ssd_impl == "fused_proxy"`` takes ``ssd_fused_proxy``
+    where S is a chunk multiple (JAX's dispatch)."""
     if policy is None:
         return _run(p, cfg, h, _WHOLE, states=False)[0]
     lp, r = _local(p, cfg, policy)

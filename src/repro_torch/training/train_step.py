@@ -31,6 +31,7 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import comm
+from repro_torch.launch.op_analysis import trips
 from repro_torch.models.layers import replicated_like
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_map
@@ -242,7 +243,10 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig,
         flat = adamw.leaves(split)
         with torch.enable_grad():
             tot, (loss, aux) = loss_fn(split, inputs, labels)
-            grads = torch.autograd.grad(tot, flat)
+            # a param the loss does not reach gets zeros, as from jax.grad
+            # (the dry-run's SSD proxy reads no dt)
+            grads = torch.autograd.grad(tot, flat, allow_unused=True,
+                                        materialize_grads=True)
         it = iter([_like_param(g, p) for g, p in zip(grads, flat)])
         del grads, flat
         return (tree_map(lambda _: next(it), split), _plain(loss.detach()),
@@ -257,7 +261,9 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: adamw.OptimizerConfig,
         dev = adamw.leaves(params)[0].device
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
         aux_acc = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(n):
+        # a dry-run that weights loops traces two microbatches, the second
+        # counted n - 1 times (``op_analysis.trips``)
+        for i in trips(n):
             g, loss, aux = grad(params, mbs["inputs"][i], mbs["labels"][i])
             acc_split = model.split_blocks(g_acc)
             tree_map(lambda a, gi: a.add_(gi.to(adt) / n), acc_split, g)

@@ -585,3 +585,18 @@ def test_kernel_wrappers_refuse_a_strided_local_shard():
     w = torch.randn(4, 32, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         gmm_ops.grouped_matmul(x, w)
+
+
+@pytest.mark.gpu
+def test_flash_backward_sums_dq_where_the_meta_rule_says():
+    """A meta call (the dry-run) cannot ask the library whether the
+    backward sums dQ into a zeroed f32 buffer, so the wrapper allocates it
+    by ``SUMS_DQ_HEAD_DIMS``: the library's answer, at every head dim and
+    dtype the kernel takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    lib = ops.load_library()
+    for dtype, code in ops._DTYPE_CODE.items():
+        for d in ops.BWD_HEAD_DIMS:
+            want = dtype == torch.bfloat16 and d in ops.SUMS_DQ_HEAD_DIMS
+            assert bool(lib.flash_attention_bwd_sums_dq(code, d)) == want

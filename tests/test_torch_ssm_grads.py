@@ -252,8 +252,17 @@ def test_mamba_block_output_and_param_grads_match_jax(block, s):
 
 
 def test_mamba_block_refuses_the_dry_run_lowering(block):
-    _, tcfg, jp = block
+    """Named for the refusal this test held until the dry-run's lowering
+    was ported: ``ssd_impl="fused_proxy"`` now makes ``mamba_block`` take
+    ``ssd_fused_proxy`` on the chunk grid, as JAX's does, with JAX's
+    values."""
+    jcfg, tcfg, jp = block
     cfg = dataclasses.replace(tcfg, ssd_impl="fused_proxy")
     tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
-    with pytest.raises(ValueError, match=r"A\.8"):
-        m.mamba_block(tp, cfg, torch.zeros((1, 8, tcfg.d_model)))
+    h = np.random.default_rng(6).standard_normal(
+        (1, 2 * cfg.ssm.chunk_size, cfg.d_model), np.float32) * 0.5
+    want = jax_m.mamba_block(jp, dataclasses.replace(
+        jcfg, ssd_impl="fused_proxy"), jnp.asarray(h))
+    got = m.mamba_block(tp, cfg, torch.from_numpy(h))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
