@@ -18,13 +18,17 @@ bf16 grouped-matmul backward may launch only its dx and dw products, the
 SSD backward only its four grids, each once, with their device ms at both
 training shapes) and the flash backward's run-to-run spread of dQ (summed
 by atomics; the SSD backward's two calls equal bit for bit); the build
-requires warpgroup products (HGMMA) in the flash, grouped-matmul and SSD
-backward kernels; the training path: yi-9b at full
+requires warpgroup products (HGMMA) in the flash (at every head dim),
+grouped-matmul and SSD backward kernels; the training path: yi-9b at full
 width cut to 16 layers on one fixed 4 x 2048 batch (10 steps: finite and
 falling losses, step ms, tokens/s, the model FLOPs' share of the bf16 peak,
 peak memory, flash launches 2 x 16 a step under remat and backward
-launches 16), yi-9b at depth 2 in f32 on the card against the CPU from the
-same params (3 steps: losses and params), ``python -m
+launches 16), gemma3-12b at full width cut to 12 of 48 layers (10 layers
+with its 1024 window, 2 global; the flash backward at head dim 256) on one
+fixed 2 x 2048 batch (6 steps, the same gates and numbers, flash launches
+2 x 12 a step and backward launches 12, one profiled step with the flash
+backward's share of the busy time), yi-9b at depth 2 in f32 on the card
+against the CPU from the same params (3 steps: losses and params), ``python -m
 repro_torch.launch.train`` for granite-moe-1b-a400m at full width and
 depth (10 steps in 2 microbatches, saved every 5, resumed for 5 more; the
 restored state equal to the saved one leaf for leaf) and a VRE's
@@ -225,10 +229,13 @@ YI_TRAIN_ATTN = (4, 2048, 32, 4, 128, 0, 0.0)      # train_yi9b's batch
 GRANITE_TRAIN_ATTN = (4, 2048, 16, 8, 64, 0, 0.0)  # train_granite's microbatch
 GEMMA3_TRAIN_ATTN = (1, 2048, 16, 8, 256, 1024, 0.0)  # gemma3-12b's local
 GEMMA3_UNWINDOWED_ATTN = (1, 2048, 16, 8, 256, 0, 0.0)  # the same, no window
+# train_gemma3's batch of 2, its local layers' and its global layers'
+GEMMA3_BATCH_ATTN = [(2, 2048, 16, 8, 256, 1024, 0.0),
+                     (2, 2048, 16, 8, 256, 0, 0.0)]
 FLASH_BWD = [YI_TRAIN_ATTN, (2, 2048, 32, 4, 128, 0, 0.0), GRANITE_TRAIN_ATTN,
              (1, 1024, 32, 16, 128, 4096, 50.0),
              (2, 1000, 8, 2, 128, 0, 0.0), (1, 1000, 8, 4, 64, 256, 0.0),
-             GEMMA3_TRAIN_ATTN, GEMMA3_UNWINDOWED_ATTN]
+             GEMMA3_TRAIN_ATTN, GEMMA3_UNWINDOWED_ATTN, *GEMMA3_BATCH_ATTN]
 # q's scale in a softcap case: unit-scale inputs give scaled scores of about
 # N(0, 1), where tanh(s / 50) * 50 is s to within 1%; at 8 (a power of two,
 # exact in bf16) they reach a sizable share of the cap, and the plain
@@ -237,31 +244,39 @@ FLASH_BWD = [YI_TRAIN_ATTN, (2, 2048, 32, 4, 128, 0, 0.0), GRANITE_TRAIN_ATTN,
 SOFTCAP_Q_SCALE = 8.0
 GMM_BWD = [(32, 2560, 1024, 512), (32, 2560, 512, 1024), (32, 157, 1024, 512)]
 # the backward kernels that must issue warpgroup products (HGMMA), by
-# library: flash attention's one-pass kernel (each instantiation), the
-# grouped matmul's dx and dw, and the SSD backward's four grids
+# library: flash attention's one-pass kernels (head dims 64 and 128, and
+# 256; each instantiation), the grouped matmul's dx and dw, and the SSD
+# backward's four grids
 SSD_BWD_GRIDS = {"bwd::bwd_prep_kernel": "prep: C.B^T, cumsums",
                  "bwd::bwd_dg_kernel": "over the heads: dG, P's sums, head "
                                        "term parts",
                  "bwd::bwd_head_kernel": "per head: dxdt, da",
                  "bwd::bwd_dbc_kernel": "dB, dC"}
-WGMMA_KERNELS = {"flash_attention": ("bwd_wg::bwd_kernel",),
+WGMMA_KERNELS = {"flash_attention": ("bwd_wg::bwd_kernel",
+                                     "bwd_wg::bwd_d256_kernel"),
                  "grouped_matmul": ("gmm_dx_kernel", "gmm_dw_kernel"),
                  "ssd": tuple(SSD_BWD_GRIDS)}
 # the earlier design's times of the backward kernels (the mma.sync flash
-# backward, the grouped matmul on transposed copies, bf16; the SSD
-# backward's four grids on the CUDA cores, f32, cold; ms, PERF.md's table,
-# H100 80GB HBM3 at 700 W) beside this run's: flash attention's at
-# train_yi9b's and train_granite's shapes, the grouped matmul's at
+# backward, and at head dim 256 the CUDA-core one, the grouped matmul on
+# transposed copies, bf16; the SSD backward's four grids on the CUDA cores,
+# f32, cold; ms, PERF.md's table, H100 80GB HBM3 at 700 W) beside this
+# run's: flash attention's at train_yi9b's and train_granite's shapes and
+# at gemma3-12b's with its window and without, the grouped matmul's at
 # granite's wi/wg and wo, the SSD backward's at the training microbatches
 # of train_mamba2 and train_zamba2
 EARLIER_MS = {(4, 2048, 32, 4, 128, 0, 0.0): 3.552,
               (4, 2048, 16, 8, 64, 0, 0.0): 1.073,
+              GEMMA3_TRAIN_ATTN: 7.729, GEMMA3_UNWINDOWED_ATTN: 10.741,
               (32, 2560, 1024, 512): 1.248, (32, 2560, 512, 1024): 0.901,
               (4, 2048, 32, 64, 128, 256): 1.353,
               (4, 2048, 64, 64, 64, 256): 2.241}
 # train_yi9b: full width cut to 16 of 48 layers (all 48 need ~103 GB of bf16
 # params and grads and f32 moments), one fixed 4 x 2048 batch
 YI_TRAIN = dict(layers=16, batch=4, seq=2048, steps=10)
+# train_gemma3: full width cut to 12 of 48 layers (two super-blocks of 5
+# windowed layers and a global one; all 48 need ~141 GB of train state),
+# one fixed 2 x 2048 batch
+GEMMA3_TRAIN = dict(layers=12, batch=2, seq=2048, steps=6)
 # train_granite: launch/train.py at full width and depth
 GRANITE_TRAIN = ["--arch", "granite-moe-1b-a400m", "--global-batch", "8",
                  "--seq-len", "2048", "--microbatches", "2"]
@@ -438,10 +453,12 @@ def host_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t) / iters * 1e3
 
 
-def step_profile(fn, top: int = 12) -> dict:
+def step_profile(fn, top: int = 12, shares: dict = None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its host ms, the summed
-    device time of the kernels and copies on the card, and the ``top``
-    kernels by device time (ms, calls). "not measured" where the profiler
+    device time of the kernels and copies on the card, the ``top`` kernels
+    by device time (ms, calls) and, for each ``label: needle`` of
+    ``shares``, the device ms of the kernels whose name holds the needle
+    and their share of the busy time. "not measured" where the profiler
     records no device activity or fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -465,10 +482,15 @@ def step_profile(fn, top: int = 12) -> dict:
     if busy <= 0:
         return {"profile": "not measured (no device events)"}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"host_ms_profiled": host_ms, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1 - busy / host_ms),
-            "top_kernels": [{"name": n[:120], "ms": ms, "calls": c}
-                            for n, (ms, c) in ranked]}
+    out = {"host_ms_profiled": host_ms, "device_busy_ms": busy,
+           "idle_share": max(0.0, 1 - busy / host_ms),
+           "top_kernels": [{"name": n[:120], "ms": ms, "calls": c}
+                           for n, (ms, c) in ranked]}
+    for label, needle in (shares or {}).items():
+        ms = sum(m for n, (m, _) in by_name.items() if needle in n)
+        out[f"{label}_ms"] = ms
+        out[f"{label}_share_of_busy"] = ms / busy
+    return out
 
 
 def device_kernels(fn) -> dict:
@@ -701,9 +723,81 @@ def launch_train_resumed(smi: str, ops: dict, phase: str, argv: list,
     return got
 
 
+def train_fixed_batch(smi: str, ops: dict, phase: str, cfg, run: dict,
+                      want: dict, top: int = 12, shares: dict = None,
+                      extra: dict = None) -> dict:
+    """``cfg`` trained on the card (random weights from seed 0, f32
+    moments) for ``run["steps"]`` steps on one fixed ``run["batch"]`` x
+    ``run["seq"]`` batch, then one step more under the profiler
+    (``step_profile``, with ``shares``). Gates: finite and falling losses
+    and grad norms, launches equal to ``want``. Emits ``phase``'s line (ms
+    a step, the median from step 3; tokens/s; for a transformer the model
+    FLOPs' share of the bf16 peak; peak memory; ``extra``) and
+    ``{phase}_profile``; returns the launch counts."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import OptimizerConfig, leaves
+    from repro_torch.training.train_step import (TrainStepConfig, init_state,
+                                                 make_train_step)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda")
+    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
+    state = init_state(model, opt_cfg,
+                       torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=run["seq"],
+                                      global_batch=run["batch"]))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0).items()}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, norms, step_ms = [], [], []
+    reset_launches(ops)
+    for _ in range(run["steps"]):
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))     # waits for the step
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        norms.append(float(metrics["grad_norm"]))
+    got = read_launches(ops)
+    tokens = run["batch"] * run["seq"]
+    median_ms = float(np.median(step_ms[2:]))
+    line = {"phase": phase, "layers": cfg.num_layers, **(extra or {}),
+            "d_model": cfg.d_model, "params": n_params, "dtype": cfg.dtype,
+            "moments": "float32", "remat_policy": cfg.remat_policy,
+            "batch": run["batch"], "seq": run["seq"], "losses": losses,
+            "grad_norms": norms, "step_ms": step_ms,
+            f"step_ms_median_3_{run['steps']}": median_ms,
+            "tokens_per_s": tokens / median_ms * 1e3}
+    if "blocks" in state["params"]:      # a transformer
+        flops = model_flops(cfg, state["params"], tokens, run["seq"])
+        line.update(model_flops_per_step=flops,
+                    model_flops_share_of_bf16_peak=flops
+                    / (median_ms * 1e-3) / H100_BF16_FLOPS)
+    emit({**line, "launches": got, "expected_launches": want,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "init_seconds": init_s, "card": smi,
+          "seconds": time.perf_counter() - t0})
+    check_losses(phase, losses, norms)
+    if {k: got[k] for k in want} != want:
+        fail(f"{phase}: launches {got}, expected {want}")
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], batch)
+    emit({"phase": f"{phase}_profile", "step": run["steps"] + 1,
+          **step_profile(one_step, top=top, shares=shares), "card": smi})
+    del model, state, step_fn, batch, metrics, holder
+    release(phase)
+    return got
+
+
 def training_phases(smi: str, ops: dict) -> dict:
-    """The training path on the card: yi-9b at full width (16 layers) on
-    one fixed batch; yi-9b at depth 2 in float32 on the card against the
+    """The training path on the card: yi-9b at full width (16 layers) and
+    gemma3-12b at full width (12 layers) on one fixed batch each; yi-9b at
+    depth 2 in float32 on the card against the
     CPU (the port's plain versions) from the same params;
     ``repro_torch.launch.train`` for granite-moe-1b-a400m at full width and
     depth, saved and resumed; a VRE's ``lm-trainer`` across a destroy and
@@ -723,63 +817,32 @@ def training_phases(smi: str, ops: dict) -> dict:
     counts = {}
 
     # -- train_yi9b: full width, 16 of 48 layers, bf16, f32 moments -------
-    t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config("yi-9b"),
                               num_layers=YI_TRAIN["layers"],
                               remat_policy="full")
-    torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg, device="cuda")
-    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
-    state = init_state(model, opt_cfg,
-                       torch.Generator(device="cuda").manual_seed(0))
-    n_params = sum(t.numel() for t in leaves(state["params"]))
-    step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
-    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
-                                      seq_len=YI_TRAIN["seq"],
-                                      global_batch=YI_TRAIN["batch"]))
-    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0).items()}
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    losses, norms, step_ms = [], [], []
-    reset_launches(ops)
-    for _ in range(YI_TRAIN["steps"]):
-        t1 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        losses.append(float(metrics["loss"]))     # waits for the step
-        step_ms.append((time.perf_counter() - t1) * 1e3)
-        norms.append(float(metrics["grad_norm"]))
-    counts["train_yi9b"] = got = read_launches(ops)
     steps, layers = YI_TRAIN["steps"], YI_TRAIN["layers"]
-    want = {"flash_attention": 2 * layers * steps,
-            "flash_attention_bwd": layers * steps, "grouped_matmul": 0,
-            "grouped_matmul_bwd": 0, "ssd": 0}
-    tokens = YI_TRAIN["batch"] * YI_TRAIN["seq"]
-    median_ms = float(np.median(step_ms[2:]))
-    flops = model_flops(cfg, state["params"], tokens, YI_TRAIN["seq"])
-    emit({"phase": "train_yi9b", "layers": layers, "d_model": cfg.d_model,
-          "params": n_params, "dtype": cfg.dtype, "moments": "float32",
-          "remat_policy": cfg.remat_policy, "batch": YI_TRAIN["batch"],
-          "seq": YI_TRAIN["seq"], "losses": losses, "grad_norms": norms,
-          "step_ms": step_ms, "step_ms_median_3_10": median_ms,
-          "tokens_per_s": tokens / median_ms * 1e3,
-          "model_flops_per_step": flops,
-          "model_flops_share_of_bf16_peak": flops / (median_ms * 1e-3)
-          / H100_BF16_FLOPS,
-          "launches": got, "expected_launches": want,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "init_seconds": init_s, "card": smi,
-          "seconds": time.perf_counter() - t0})
-    check_losses("train_yi9b", losses, norms)
-    if {k: got[k] for k in want} != want:
-        fail(f"train_yi9b: launches {got}, expected {want}")
-    holder = [state]
+    counts["train_yi9b"] = train_fixed_batch(
+        smi, ops, "train_yi9b", cfg, YI_TRAIN,
+        {"flash_attention": 2 * layers * steps,
+         "flash_attention_bwd": layers * steps, "grouped_matmul": 0,
+         "grouped_matmul_bwd": 0, "ssd": 0})
 
-    def one_step():
-        holder[0], _ = step_fn(holder[0], batch)
-    emit({"phase": "train_yi9b_profile", "step": YI_TRAIN["steps"] + 1,
-          **step_profile(one_step), "card": smi})
-    del model, state, step_fn, batch, metrics, holder
-    release("train_yi9b")
+    # -- train_gemma3: full width, 12 of 48 layers (two super-blocks: 10
+    # windowed layers, 2 global), bf16, f32 moments: the flash backward at
+    # head dim 256, with its window and without
+    cfg = dataclasses.replace(get_config("gemma3-12b"),
+                              num_layers=GEMMA3_TRAIN["layers"],
+                              remat_policy="full")
+    steps, layers = GEMMA3_TRAIN["steps"], GEMMA3_TRAIN["layers"]
+    lp, gp = cfg.local_global_pattern
+    counts["train_gemma3"] = train_fixed_batch(
+        smi, ops, "train_gemma3", cfg, GEMMA3_TRAIN,
+        {"flash_attention": 2 * layers * steps,
+         "flash_attention_bwd": layers * steps, "grouped_matmul": 0,
+         "grouped_matmul_bwd": 0, "ssd": 0},
+        shares={"flash_attention_bwd": "bwd_d256_kernel"},
+        extra={"windowed_layers": layers // (lp + gp) * lp,
+               "window": cfg.sliding_window})
 
     # -- train_parity_f32: depth 2, f32, the card against the CPU ---------
     t0 = time.perf_counter()
@@ -976,62 +1039,17 @@ def training_phases(smi: str, ops: dict) -> dict:
          "grouped_matmul": 0, "grouped_matmul_bwd": 0}, top=16)
 
     # -- train_zamba2: full width and depth, one fixed 4 x 2048 batch -----
-    t0 = time.perf_counter()
     cfg = get_config("zamba2-1.2b")
-    torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg, device="cuda")
-    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
-    state = init_state(model, opt_cfg,
-                       torch.Generator(device="cuda").manual_seed(0))
-    n_params = sum(t.numel() for t in leaves(state["params"]))
-    step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
-    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
-                                      seq_len=ZAMBA2_TRAIN["seq"],
-                                      global_batch=ZAMBA2_TRAIN["batch"]))
-    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0).items()}
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    losses, norms, step_ms = [], [], []
-    reset_launches(ops)
-    for _ in range(ZAMBA2_TRAIN["steps"]):
-        t1 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        losses.append(float(metrics["loss"]))     # waits for the step
-        step_ms.append((time.perf_counter() - t1) * 1e3)
-        norms.append(float(metrics["grad_norm"]))
-    counts["train_zamba2"] = got = read_launches(ops)
     steps, layers = ZAMBA2_TRAIN["steps"], cfg.num_layers
     apps = layers // cfg.shared_attn_every
     # Mamba2 layers remat'd (SSD forward twice), the shared block not
-    want = {"ssd": 2 * layers * steps, "ssd_bwd": layers * steps,
-            "flash_attention": apps * steps,
-            "flash_attention_bwd": apps * steps, "grouped_matmul": 0,
-            "grouped_matmul_bwd": 0}
-    tokens = ZAMBA2_TRAIN["batch"] * ZAMBA2_TRAIN["seq"]
-    median_ms = float(np.median(step_ms[2:]))
-    emit({"phase": "train_zamba2", "layers": layers,
-          "shared_block_applications": apps, "d_model": cfg.d_model,
-          "params": n_params, "dtype": cfg.dtype, "moments": "float32",
-          "remat_policy": cfg.remat_policy, "batch": ZAMBA2_TRAIN["batch"],
-          "seq": ZAMBA2_TRAIN["seq"], "losses": losses, "grad_norms": norms,
-          "step_ms": step_ms, "step_ms_median_3_10": median_ms,
-          "tokens_per_s": tokens / median_ms * 1e3,
-          "launches": got, "expected_launches": want,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "init_seconds": init_s, "card": smi,
-          "seconds": time.perf_counter() - t0})
-    check_losses("train_zamba2", losses, norms)
-    if {k: got[k] for k in want} != want:
-        fail(f"train_zamba2: launches {got}, expected {want}")
-    # one more step under the profiler
-    holder = [state]
-
-    def one_step():
-        holder[0], _ = step_fn(holder[0], batch)
-    emit({"phase": "train_zamba2_profile", **step_profile(one_step, top=16),
-          "card": smi})
-    del model, state, holder, step_fn, batch, metrics
-    release("train_zamba2")
+    counts["train_zamba2"] = train_fixed_batch(
+        smi, ops, "train_zamba2", cfg, ZAMBA2_TRAIN,
+        {"ssd": 2 * layers * steps, "ssd_bwd": layers * steps,
+         "flash_attention": apps * steps,
+         "flash_attention_bwd": apps * steps, "grouped_matmul": 0,
+         "grouped_matmul_bwd": 0}, top=16,
+        extra={"shared_block_applications": apps})
     return counts
 
 
@@ -2970,37 +2988,44 @@ def main():
         fail(f"grouped_matmul_bwd launched more than its two products: "
              f"{names}")
     del x, w, dy
-    b, s, h, kv, d, win, cap = YI_TRAIN_ATTN
-    q, k, v = (randn((b, s, n, d), dtype, gen) for n in (h, kv, kv))
-    dout = randn((b, s, h, d), dtype, gen)
-    out, lse = fa_ops._forward(q, k, v, True, win, cap, with_lse=True)
-    names = {n: calls for n, (_, calls) in device_kernels(
-        lambda: fa_ops.flash_attention_bwd(
-            q, k, v, out, dout, lse, window=win, softcap=cap)).items()}
-    roles = {n: "D" if "delta_kernel" in n else
-             "main" if "bwd_wg::bwd_kernel" in n else
-             "dQ cast" if "dq_cast_kernel" in n else
-             "dQ buffer zeroed" if "Memset" in n or "FillFunctor" in n
-             else None for n in names}
-    ok = sorted(map(str, roles.values())) == sorted(
-        ["D", "main", "dQ cast", "dQ buffer zeroed"])
-    emit({"phase": "profiled_bwd", "kernel": "flash_attention_bwd",
-          "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
-          "dtype": "bfloat16", "device_kernels": names,
-          "roles": list(roles.values()), "ok": ok})
-    if not ok:
-        fail(f"flash_attention_bwd launched {names}")
+
+    def flash_bwd_inputs(case):
+        """bf16 q, k, v, dO and the forward's output and log-sum-exp."""
+        b, s, h, kv, d, win, cap = case
+        q, k, v = (randn((b, s, n, d), dtype, gen) for n in (h, kv, kv))
+        dout = randn((b, s, h, d), dtype, gen)
+        out, lse = fa_ops._forward(q, k, v, True, win, cap, with_lse=True)
+        return q, k, v, dout, out, lse
+
+    # head dims 64 and 128 (bwd_kernel) and 256 (bwd_d256_kernel)
+    for case in (YI_TRAIN_ATTN, GEMMA3_UNWINDOWED_ATTN):
+        b, s, h, kv, d, win, cap = case
+        q, k, v, dout, out, lse = flash_bwd_inputs(case)
+        names = {n: calls for n, (_, calls) in device_kernels(
+            lambda: fa_ops.flash_attention_bwd(
+                q, k, v, out, dout, lse, window=win, softcap=cap)).items()}
+        roles = {n: "D" if "delta_kernel" in n else
+                 "main" if "bwd_wg::bwd_kernel" in n
+                 or "bwd_wg::bwd_d256_kernel" in n else
+                 "dQ cast" if "dq_cast_kernel" in n else
+                 "dQ buffer zeroed" if "Memset" in n or "FillFunctor" in n
+                 else None for n in names}
+        ok = sorted(map(str, roles.values())) == sorted(
+            ["D", "main", "dQ cast", "dQ buffer zeroed"])
+        emit({"phase": "profiled_bwd", "kernel": "flash_attention_bwd",
+              "shape": {"B": b, "S": s, "H": h, "KV": kv, "D": d},
+              "dtype": "bfloat16", "device_kernels": names,
+              "roles": list(roles.values()), "ok": ok})
+        if not ok:
+            fail(f"flash_attention_bwd launched {names}")
     # dQ is summed by f32 atomics, in an order that varies from run to
     # run: two calls on the same inputs, dK and dV equal bit for bit, dQ
     # within the bf16 tolerance of the checks (0.02 of its largest
     # magnitude)
     spread = {}
-    for case in (YI_TRAIN_ATTN, GRANITE_TRAIN_ATTN):
-        if case != YI_TRAIN_ATTN:
-            b, s, h, kv, d, win, cap = case
-            q, k, v = (randn((b, s, n, d), dtype, gen) for n in (h, kv, kv))
-            dout = randn((b, s, h, d), dtype, gen)
-            out, lse = fa_ops._forward(q, k, v, True, win, cap, with_lse=True)
+    for case in (YI_TRAIN_ATTN, GRANITE_TRAIN_ATTN, GEMMA3_UNWINDOWED_ATTN):
+        b, s, h, kv, d, win, cap = case
+        q, k, v, dout, out, lse = flash_bwd_inputs(case)
         one, two = (fa_ops.flash_attention_bwd(q, k, v, out, dout, lse,
                                                window=win, softcap=cap)
                     for _ in range(2))

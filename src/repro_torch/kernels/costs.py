@@ -163,7 +163,8 @@ def model_flops(cfg, params, tokens: int, seq: int) -> float:
     token per weight of every product a token passes through (the tied
     unembedding included, the embedding lookup not; of an MoE layer's
     experts the top_k it is routed to) and three times each layer's causal
-    attention products (forward, and the backward's two). ``params`` is
+    attention products (forward, and the backward's two), a local layer's
+    (``local_global_pattern``) on the pairs its window leaves. ``params`` is
     the transformer's tree (whole tensors, DTensors or meta tensors: only
     shapes are read)."""
     def weights(tree, moe=False):
@@ -178,8 +179,13 @@ def model_flops(cfg, params, tokens: int, seq: int) -> float:
         return n
     w = sum(weights(bp) for bp in params["blocks"])
     w += params["embed"]["tok"].numel()
-    attn = 3 * 4.0 * cfg.head_dim * cfg.num_heads * attention_pairs(seq, 0) \
-        * cfg.num_layers
+    local = 0
+    if cfg.local_global_pattern:
+        lp, gp = cfg.local_global_pattern
+        local = cfg.num_layers // (lp + gp) * lp
+    pairs = local * attention_pairs(seq, cfg.sliding_window) + \
+        (cfg.num_layers - local) * attention_pairs(seq, 0)
+    attn = 3 * 4.0 * cfg.head_dim * cfg.num_heads * pairs
     return 6.0 * w * tokens + attn * tokens / seq
 
 

@@ -1,6 +1,7 @@
 // Flash attention forward and backward for Hopper (sm_90a), plain C
 // interface for ctypes. The forward optionally writes each row's
-// log-sum-exp, which the backward (namespace bwd, below) reads.
+// log-sum-exp, which the backward (namespaces bwd and bwd_wg, below)
+// reads.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_kernel, body _flash_kernel): causal attention with an
@@ -578,9 +579,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace bf16wg
 
 // ---------------------------------------------------------------------------
-// Backward, f32 (and bf16 at head dim 256): f32 FMAs on the CUDA cores,
-// three grids; bf16 at head dims 64 and 128 runs one pass on the tensor
-// cores (namespace bwd_wg, below).
+// Backward, f32 (the parity runs, where TF32 products would change the
+// results): f32 FMAs on the CUDA cores, three grids; bf16 runs one pass on
+// the tensor cores (namespace bwd_wg, below), and shares only delta_kernel.
 //
 // The TPU kernel has no backward (JAX differentiates the jnp attention
 // under jax.checkpoint, recomputing the scores), so this one follows the
@@ -603,8 +604,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // What bounds it on this card: 7 products of the attention's (q, k) pairs
 // (S and dP twice, dV, dK, dQ), ~3.5x the forward's operations, against
 // q, k, v, o, dO read and dq, dk, dv written: bound by operations. Here
-// they run as f32 FMAs on the CUDA cores (bf16 loads widened to f32 in
-// shared memory), far above the tensor-core bound.
+// they run as f32 FMAs on the CUDA cores, far above the tensor-core bound.
 namespace bwd {
 
 constexpr int TPR = 16;         // threads per tile row/column (16 x 16)
@@ -626,24 +626,15 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// ROWS x D rows s0.. of a tensor whose rows are `stride` elements apart,
-// widened to f32, into dst with a row pitch of D + 1; rows past S are 0
-template <typename T, int ROWS, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+// ROWS x D rows s0.. of a tensor whose rows are `stride` elements apart
+// into dst with a row pitch of D + 1; rows past S are 0
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long stride, int s0, int S,
                                           int tid) {
   for (int i = tid; i < ROWS * D; i += NT) {
     const int r = i / D, c = i % D, s = s0 + r;
-    dst[r * (D + 1) + c] = s < S ? to_f32(src[long(s) * stride + c]) : 0.f;
+    dst[r * (D + 1) + c] = s < S ? src[long(s) * stride + c] : 0.f;
   }
 }
 
@@ -730,13 +721,13 @@ __device__ __forceinline__ void scores(const float* sQ, const float* sO,
 
 // One block per (kv tile, b * KV + kv head): dK and dV of its rows, summed
 // over the group's q heads and every q tile that sees them.
-template <typename T, int D, bool SOFTCAP>
+template <int D, bool SOFTCAP>
 __global__ void __launch_bounds__(NT)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV,
-            float scale, int causal, int window, float softcap) {
+            float* __restrict__ dk, float* __restrict__ dv, int S, int H,
+            int KV, float scale, int causal, int window, float softcap) {
   constexpr int BT = tile<D>();
   constexpr int LD = D + 1, LP = BT + 1, RI = BT / TPR, DJ = D / TPR;
   extern __shared__ float smem[];
@@ -753,10 +744,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * BT;   // the longest causal blocks first
   const int b = blockIdx.y / KV, kvh = blockIdx.y % KV, G = H / KV;
   const long q_stride = long(H) * D, kv_stride = long(KV) * D;
-  load_rows<T, BT, D>(sK, k + (long(b) * S * KV + kvh) * D, kv_stride, k0, S,
-                      tid);
-  load_rows<T, BT, D>(sV, v + (long(b) * S * KV + kvh) * D, kv_stride, k0, S,
-                      tid);
+  load_rows<BT, D>(sK, k + (long(b) * S * KV + kvh) * D, kv_stride, k0, S,
+                   tid);
+  load_rows<BT, D>(sV, v + (long(b) * S * KV + kvh) * D, kv_stride, k0, S,
+                   tid);
 
   float acc_k[RI][DJ], acc_v[RI][DJ];
 #pragma unroll
@@ -773,10 +764,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long bh = long(b) * H + h;
     for (int q0 = (q_begin / BT) * BT; q0 < q_end; q0 += BT) {
       __syncthreads();   // the last tile's sQ/sO/sP/sS reads are done
-      load_rows<T, BT, D>(sQ, q + (long(b) * S * H + h) * D, q_stride, q0, S,
-                          tid);
-      load_rows<T, BT, D>(sO, dout + (long(b) * S * H + h) * D, q_stride, q0,
-                          S, tid);
+      load_rows<BT, D>(sQ, q + (long(b) * S * H + h) * D, q_stride, q0, S,
+                       tid);
+      load_rows<BT, D>(sO, dout + (long(b) * S * H + h) * D, q_stride, q0,
+                       S, tid);
       if (tid < BT) {
         const int s = q0 + tid;
         sL[tid] = s < S ? lse[bh * S + s] : 0.f;
@@ -808,8 +799,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  T* dkb = dk + (long(b) * S * KV + kvh) * D;
-  T* dvb = dv + (long(b) * S * KV + kvh) * D;
+  float* dkb = dk + (long(b) * S * KV + kvh) * D;
+  float* dvb = dv + (long(b) * S * KV + kvh) * D;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int s = k0 + ty + TPR * i;
@@ -817,21 +808,21 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int c = tx + TPR * j;
-      dkb[long(s) * kv_stride + c] = from_f32<T>(acc_k[i][j] * scale);
-      dvb[long(s) * kv_stride + c] = from_f32<T>(acc_v[i][j]);
+      dkb[long(s) * kv_stride + c] = acc_k[i][j] * scale;
+      dvb[long(s) * kv_stride + c] = acc_v[i][j];
     }
   }
 }
 
 // One block per (q tile, b * H + h): dQ of its rows over every key tile
 // they see.
-template <typename T, int D, bool SOFTCAP>
+template <int D, bool SOFTCAP>
 __global__ void __launch_bounds__(NT)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int S, int H, int KV, float scale, int causal,
-          int window, float softcap) {
+          float* __restrict__ dq, int S, int H, int KV, float scale,
+          int causal, int window, float softcap) {
   constexpr int BT = tile<D>();
   constexpr int LD = D + 1, LP = BT + 1, RI = BT / TPR, DJ = D / TPR;
   extern __shared__ float smem[];
@@ -848,12 +839,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long bh = blockIdx.y;
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KV);
   const long q_stride = long(H) * D, kv_stride = long(KV) * D;
-  const T* kb = k + (long(b) * S * KV + kvh) * D;
-  const T* vb = v + (long(b) * S * KV + kvh) * D;
-  load_rows<T, BT, D>(sQ, q + (long(b) * S * H + h) * D, q_stride, q0, S,
-                      tid);
-  load_rows<T, BT, D>(sO, dout + (long(b) * S * H + h) * D, q_stride, q0, S,
-                      tid);
+  const float* kb = k + (long(b) * S * KV + kvh) * D;
+  const float* vb = v + (long(b) * S * KV + kvh) * D;
+  load_rows<BT, D>(sQ, q + (long(b) * S * H + h) * D, q_stride, q0, S, tid);
+  load_rows<BT, D>(sO, dout + (long(b) * S * H + h) * D, q_stride, q0, S,
+                   tid);
   if (tid < BT) {
     const int s = q0 + tid;
     sL[tid] = s < S ? lse[bh * S + s] : 0.f;
@@ -872,8 +862,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int k0 = (kv_begin / BT) * BT; k0 < kv_end; k0 += BT) {
     __syncthreads();   // the last tile's sK/sS reads are done
-    load_rows<T, BT, D>(sK, kb, kv_stride, k0, S, tid);
-    load_rows<T, BT, D>(sV, vb, kv_stride, k0, S, tid);
+    load_rows<BT, D>(sK, kb, kv_stride, k0, S, tid);
+    load_rows<BT, D>(sV, vb, kv_stride, k0, S, tid);
     __syncthreads();
     scores<D, SOFTCAP>(sQ, sO, sK, sV, sL, sDl, nullptr, sS, q0, k0, S,
                        scale, causal, window, softcap, tx, ty);
@@ -892,18 +882,18 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  T* dqb = dq + (long(b) * S * H + h) * D;
+  float* dqb = dq + (long(b) * S * H + h) * D;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int s = q0 + ty + TPR * i;
     if (s >= S) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      dqb[long(s) * q_stride + tx + TPR * j] = from_f32<T>(acc[i][j] * scale);
+      dqb[long(s) * q_stride + tx + TPR * j] = acc[i][j] * scale;
   }
 }
 
-template <typename T, int D, bool SOFTCAP>
+template <int D, bool SOFTCAP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int S,
@@ -911,8 +901,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   constexpr int BT = tile<D>();
-  auto k_dkdv = dkdv_kernel<T, D, SOFTCAP>;
-  auto k_dq = dq_kernel<T, D, SOFTCAP>;
+  auto k_dkdv = dkdv_kernel<D, SOFTCAP>;
+  auto k_dq = dq_kernel<D, SOFTCAP>;
   cudaError_t e = cudaFuncSetAttribute(
       k_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
@@ -921,23 +911,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return e;
   if (B * H > 65535) return cudaErrorInvalidValue;
   const float scale = float(1.0 / sqrt(double(D)));
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
   const int rows = B * S * H;
-  delta_kernel<T><<<(rows + 7) / 8, 256, 0, stream>>>(
-      static_cast<const T*>(o), tdo, delta, rows, S, H, D);
+  delta_kernel<float><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const float*>(o), tdo, delta, rows, S, H, D);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int n_t = (S + BT - 1) / BT;
   k_dkdv<<<dim3(n_t, B * KV), NT, smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, H, KV, scale, causal, window, softcap);
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), S, H, KV, scale, causal, window, softcap);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   k_dq<<<dim3(n_t, B * H), NT, smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, KV, scale,
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), S, H, KV, scale,
       causal, window, softcap);
   return cudaGetLastError();
 }
@@ -945,13 +935,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace bwd
 
 // ---------------------------------------------------------------------------
-// Backward, bf16 at head dims 64 and 128: FlashAttention-3's schedule on
-// the warpgroup tensor cores, with namespace bwd's D = rowsum(dO * O)
-// kernel and arithmetic (the masks, the softcap's derivative, the scale
-// applied once to dQ and dK), the probabilities exp(x - lse) taken as
-// 2^((x - lse) log2 e) on the special-function unit (ex2.approx, as the
-// forward's: about 5% faster than expf at yi-9b's shape on an H100; P is
-// rounded to bf16 after).
+// Backward, bf16 (head dims 64, 128 and, in bwd_d256_kernel below, 256):
+// FlashAttention-3's schedule on the warpgroup tensor cores, with
+// namespace bwd's D = rowsum(dO * O) kernel and arithmetic (the masks,
+// the softcap's derivative, the scale applied once to dQ and dK), the
+// probabilities exp(x - lse) taken as 2^((x - lse) log2 e) on the
+// special-function unit (ex2.approx, as the forward's: about 5% faster than
+// expf at yi-9b's shape on an H100; P is rounded to bf16 after).
 //
 // What bounds it: the five products the gradient needs on the unmasked
 // (q, k) pairs, S = Q.K^T, dP = dO.V^T, dV, dK and dQ: at train_yi9b's
@@ -1030,6 +1020,33 @@ __device__ __forceinline__ void wgmma_rows(float (&d)[D / 2],
                                            uint64_t desc_b) {
   if constexpr (D == 64) wgmma_rs_n64(d, a, desc_b);
   else wgmma_rs_n128(d, a, desc_b);
+}
+
+// dQ's sums of one warp's 16 query rows (row0 .. row0 + 15, the rows of
+// a wgmma accumulator fragment `dq` of N floats a thread: N / 4 n8 blocks
+// of columns) added into the f32 buffer whose row s starts at base + s *
+// stride, rows past S skipped. 16-byte vector reds (sm_90): lanes t and
+// t ^ 1 trade halves, so the even lane adds columns 4 (t / 2) .. + 3 of an
+// n8 block in row row0 + g and the odd lane the same columns of row row0 +
+// g + 8.
+template <int N>
+__device__ __forceinline__ void add_dq(const float (&dq)[N], float* base,
+                                       int row0, int S, long stride, int g,
+                                       int t) {
+  const bool odd = t & 1;
+  const int qpos = row0 + g + (odd ? 8 : 0);
+  float* row = base + long(qpos) * stride + 4 * (t / 2);
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float c0 = dq[4 * j], c1 = dq[4 * j + 1];
+    const float c2 = dq[4 * j + 2], c3 = dq[4 * j + 3];
+    const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c0 : c2, 1);
+    const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c1 : c3, 1);
+    if (qpos < S)
+      atomicAdd(reinterpret_cast<float4*>(row + 8 * j),
+                odd ? make_float4(r0, r1, c2, c3)
+                    : make_float4(c0, c1, r0, r1));
+  }
 }
 
 // One block per (b * KV + kv head, key tile); warpgroup w owns keys
@@ -1229,24 +1246,8 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(dq);
     fence_regs(p);     // P^T's and dS^T's registers were read until here
     fence_regs(ds);
-    // 16-byte vector reds (sm_90): lanes t and t ^ 1 trade halves, so the
-    // even lane adds columns 4 (t / 2) .. + 3 of an n8 block in row qrow
-    // and the odd lane the same columns of row qrow + 8
-    const bool odd = t & 1;
-    const int qpos = q0 + warp * 16 + g + (odd ? 8 : 0);
-    float* row = dq_acc + ((long(b) * S + qpos) * H + h) * D + wg * 64 +
-                 4 * (t / 2);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float c0 = dq[4 * j], c1 = dq[4 * j + 1];
-      const float c2 = dq[4 * j + 2], c3 = dq[4 * j + 3];
-      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c0 : c2, 1);
-      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c1 : c3, 1);
-      if (qpos < S)
-        atomicAdd(reinterpret_cast<float4*>(row + 8 * j),
-                  odd ? make_float4(r0, r1, c2, c3)
-                      : make_float4(c0, c1, r0, r1));
-    }
+    add_dq(dq, dq_acc + (long(b) * S * H + h) * D + wg * 64, q0 + warp * 16,
+           S, long(H) * D, g, t);
   }
   fence_regs(acc_k);
   fence_regs(acc_v);
@@ -1261,6 +1262,270 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (kpos >= S) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      const long off = long(kpos) * kv_stride + j * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dkb + off) =
+          pack_bf16(acc_k[4 * j + 2 * r] * scale,
+                    acc_k[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + off) =
+          pack_bf16(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// Head dim 256. bwd_kernel's shape does not stretch to it: a warpgroup's
+// 64 keys x the whole head dim of dK and dV are 256 f32 registers a
+// thread, and K and V for its 256 keys 256 KB of shared memory (a block
+// has 227 KB). So here one block of two warpgroups owns 64 keys of one
+// (b, kv head), and the warpgroups split the head dim: warpgroup w owns
+// columns 128 w .. 128 w + 127 of dK, dV and dQ (128 f32 registers a
+// thread for dK and dV). Per walked q tile of 64:
+//   * S^T = K.Q^T (warpgroup 0) and dP^T = V.dO^T (warpgroup 1), each a
+//     64 x 64 product reduced over all 256 columns (both operands K-major
+//     in shared memory). The two accumulators have one layout, so thread i
+//     of one warpgroup holds the (key, query) pairs that thread i of the
+//     other holds: each hands the other the half of its fragment on the
+//     other's 32 queries (f32, through shared memory), and each warpgroup
+//     then forms P^T and dS^T for its own 32 queries (the same arithmetic
+//     as bwd_kernel) and stores them to shared memory in bf16;
+//   * dV[:, half] += P^T.dO[:, half] and dK[:, half] += dS^T.Q[:, half]
+//     (A from shared memory, B MN-major, N = 128 across two swizzle
+//     blocks), and dQ_tile[:, half] = dS.K[:, half] (dS^T read MN-major),
+//     in two products of 64 columns, each added into the f32 buffer by
+//     16-byte reds as it completes (one product of 128 columns needs 64
+//     more registers a thread and spilled).
+// dK and dV sum over the GQA group in registers; the walk, the order of
+// the blocks and the ring of two Q/dO stages are bwd_kernel's. Shared
+// memory: K and V 64 KB, two stages of Q and dO 128 KB, P^T and dS^T 16 KB,
+// the exchanged halves 16 KB, lse and D 1 KB: 226 KB with the alignment.
+// On an H100 the exchange measured faster than computing S^T and dP^T in
+// both warpgroups (seven products' work for five, no exchange), and the
+// dQ reds are the largest cost after the products: the adds (the group's
+// q heads x 64 queries x 256 columns a block and q tile, ~0.55 GB at
+// gemma3-12b's (1, 2048, 16, 8, 256)) sum in the L2 and overlap little
+// with the products.
+namespace wide {
+
+constexpr int D = 256, NT = 256, BKV = 64;
+constexpr int KTILE = BKV * D, QTILE = BQ * D;
+constexpr int HALF = BQ / 4;    // accumulator floats of 32 queries a thread
+
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) * (size_t(2 * BKV + 4 * BQ) * D + 2 * BKV * BQ) +
+         sizeof(float) * (2 * HALF * 128 + 4 * BQ) + 1024;
+}
+static_assert(smem_bytes() <= 232448, "a block's shared memory on sm_90");
+
+}  // namespace wide
+
+// One block per (b * KV + kv head, key tile of 64); warp u of warpgroup w
+// holds keys k0 + 16 u + g and + 8 (lane (g, t)) in S^T / dP^T, dK and dV
+// (columns 128 w ..), and queries q0 + 16 u + g and + 8 in dQ.
+template <bool SOFTCAP>
+__global__ void __launch_bounds__(wide::NT, 1)
+bwd_d256_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, int S, int H, int KV, float scale,
+                int causal, int window, float softcap) {
+  using namespace wide;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* sV = sK + KTILE;          // [4][BKV][64], as K
+  bf16* sQ = sV + KTILE;          // [2][4][BQ][64]
+  bf16* sO = sQ + 2 * QTILE;      // dO, as Q
+  bf16* sP = sO + 2 * QTILE;      // P^T, [BKV][BQ]
+  bf16* sDS = sP + BKV * BQ;      // dS^T, [BKV][BQ]
+  float* sX = reinterpret_cast<float*>(sDS + BKV * BQ);   // [2][HALF][128]
+  float* sL = sX + 2 * HALF * 128;                        // [2][BQ]
+  float* sDl = sL + 2 * BQ;                               // [2][BQ]
+
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int warp = wt / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV, G = H / KV;
+  const int k0 = blockIdx.y * BKV;
+  const long q_stride = long(H) * D, kv_stride = long(KV) * D;
+  load_tile<BKV, D, NT>(sK, k + (long(b) * S * KV + kvh) * D, kv_stride, k0,
+                        S, tid);
+  load_tile<BKV, D, NT>(sV, v + (long(b) * S * KV + kvh) * D, kv_stride, k0,
+                        S, tid);
+
+  // the walk of bwd_kernel
+  const int k_last = min(k0 + BKV, S) - 1;
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(S, k_last + window) : S;  // exclusive
+  const int qt_last = (q_end - 1) / BQ;
+  const int n_it = G * (qt_last - q_begin / BQ + 1);
+  auto load_q = [&](int it, int st) {
+    const int h = kvh * G + (it + blockIdx.y) % G;
+    const int q0 = (qt_last - it / G) * BQ;
+    const long row0 = long(b) * S * H + h;
+    load_tile<BQ, D, NT>(sQ + st * QTILE, q + row0 * D, q_stride, q0, S,
+                         tid);
+    load_tile<BQ, D, NT>(sO + st * QTILE, dout + row0 * D, q_stride, q0, S,
+                         tid);
+    if (tid < 2 * BQ) {
+      const int r = tid % BQ, qpos = q0 + r;
+      const bool ok = qpos < S;
+      const long i = ok ? (long(b) * H + h) * S + qpos : 0;
+      if (tid < BQ) cp_async4(sL + st * BQ + r, lse + i, ok);
+      else cp_async4(sDl + st * BQ + r, delta + i, ok);
+    }
+  };
+  load_q(0, 0);
+  cp_async_commit();
+
+  float acc_k[64], acc_v[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const int krow = warp * 16 + g;            // and krow + 8, in the tile
+  const bf16* sA = wg == 0 ? sK : sV;        // S^T's or dP^T's A operand
+  float* x_out = sX + wg * HALF * 128 + wt;  // the half handed over
+  const float* x_in = sX + (1 - wg) * HALF * 128 + wt;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    const int h = kvh * G + (it + blockIdx.y) % G;
+    const int q0 = (qt_last - it / G) * BQ;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();   // tile it has landed; every thread is done with it - 1
+    if (it + 1 < n_it) {
+      load_q(it + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const bf16* cQ = sQ + st * QTILE;
+    const bf16* cO = sO + st * QTILE;
+    const float* cL = sL + st * BQ;
+    const float* cDl = sDl + st * BQ;
+
+    // S^T = K.Q^T (warpgroup 0) or dP^T = V.dO^T (warpgroup 1); x is
+    // zeroed here so that its registers are free between its last read
+    // and the next tile (dQ's fragment takes them)
+    const bf16* cB = wg == 0 ? cQ : cO;
+    float x[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) x[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(
+          x, gmma_desc(sA + (kk / 4) * BKV * 64 + (kk % 4) * 16, 16, 1024),
+          gmma_desc(cB + (kk / 4) * BQ * 64 + (kk % 4) * 16, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+
+    // warpgroup 0 keeps queries 0 .. 31 (n8 blocks 0-3, x[0 .. 15]) and
+    // hands over 32 .. 63; warpgroup 1 the other way round
+#pragma unroll
+    for (int j = 0; j < HALF; ++j)
+      x_out[j * 128] = wg == 0 ? x[HALF + j] : x[j];
+    __syncthreads();
+
+    // P^T and dS^T (without the scale) of this warpgroup's queries: keys
+    // krow and krow + 8, queries q0 + 8 nb + 2 t (+ 1), into shared memory
+    // (bf16, 128-byte swizzled [key][query]: the 8 rows of a store sit on
+    // 8 different 16-byte chunks)
+    const bool inside = q0 + BQ <= S && k0 + BKV <= S &&
+                        (!causal || q0 >= k0 + BKV - 1) &&
+                        (window <= 0 || q0 + BQ - 1 - k0 < window);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int nb = 4 * wg + n;
+      float pr[4], dd[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 4 * n + i;
+        const float kept = wg == 0 ? x[j] : x[HALF + j];
+        const float got = x_in[j * 128];
+        const float sc = wg == 0 ? kept : got, dpv = wg == 0 ? got : kept;
+        const int c = nb * 8 + 2 * t + (i & 1);
+        const int qpos = q0 + c, kpos = k0 + krow + (i >> 1) * 8;
+        bool ok = true;
+        if (!inside) {
+          ok = qpos < S && kpos < S;
+          if (causal) ok = ok && qpos >= kpos;
+          if (window > 0) ok = ok && qpos - kpos < window;
+        }
+        float xs = sc * scale, th = 0.f;
+        if constexpr (SOFTCAP) {
+          th = tanhf(xs / softcap);
+          xs = th * softcap;
+        }
+        pr[i] = ok ? exp2_ftz((xs - cL[c]) * bf16wg::LOG2E) : 0.f;
+        dd[i] = pr[i] * (dpv - cDl[c]);
+        if constexpr (SOFTCAP) dd[i] *= 1.f - th * th;
+      }
+      *reinterpret_cast<uint32_t*>(sP + sw128(krow, nb) + 2 * t) =
+          pack_bf16(pr[0], pr[1]);
+      *reinterpret_cast<uint32_t*>(sP + sw128(krow + 8, nb) + 2 * t) =
+          pack_bf16(pr[2], pr[3]);
+      *reinterpret_cast<uint32_t*>(sDS + sw128(krow, nb) + 2 * t) =
+          pack_bf16(dd[0], dd[1]);
+      *reinterpret_cast<uint32_t*>(sDS + sw128(krow + 8, nb) + 2 * t) =
+          pack_bf16(dd[2], dd[3]);
+    }
+    fence_proxy_async();   // the P^T and dS^T stores, for wgmma's reads
+    __syncthreads();
+
+    // dV[:, half] += P^T.dO[:, half], dK[:, half] += dS^T.Q[:, half]: A
+    // (keys x queries) K-major, B the dO or Q tile's column blocks 2 wg and
+    // 2 wg + 1, MN-major (its rows run along the reduced queries)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_ss_n128<0, 1>(acc_v, gmma_desc(sP + kk * 16, 16, 1024),
+                          gmma_desc(cO + 2 * wg * BQ * 64 + kk * 16 * 64,
+                                    BQ * 64 * sizeof(bf16), 1024),
+                          1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_ss_n128<0, 1>(acc_k, gmma_desc(sDS + kk * 16, 16, 1024),
+                          gmma_desc(cQ + 2 * wg * BQ * 64 + kk * 16 * 64,
+                                    BQ * 64 * sizeof(bf16), 1024),
+                          1);
+    wgmma_commit();
+
+    // dQ's columns 128 wg + 64 part .. + 63 (queries x 64) = dS.K: A =
+    // dS^T MN-major (its rows are the reduced keys), B = K's column block
+    // 2 wg + part, MN-major
+    float* dq_rows = dq_acc + (long(b) * S * H + h) * D;
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      const int col0 = 128 * wg + 64 * part;
+      float dq[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        wgmma_ss_n64<1, 1>(
+            dq, gmma_desc(sDS + kk * 16 * 64, BKV * 64 * sizeof(bf16), 1024),
+            gmma_desc(sK + (col0 / 64) * BKV * 64 + kk * 16 * 64,
+                      BKV * 64 * sizeof(bf16), 1024),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();   // and dV, dK above
+      fence_regs(dq);
+      add_dq(dq, dq_rows + col0, q0 + warp * 16, S, q_stride, g, t);
+    }
+  }
+  fence_regs(acc_k);
+  fence_regs(acc_v);
+
+  // dK (times the scale) and dV of this warpgroup's columns; rows past S
+  // skipped
+  bf16* dkb = dk + (long(b) * S * KV + kvh) * D + 128 * wg;
+  bf16* dvb = dv + (long(b) * S * KV + kvh) * D + 128 * wg;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = k0 + krow + 8 * r;
+    if (kpos >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
       const long off = long(kpos) * kv_stride + j * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dkb + off) =
           pack_bf16(acc_k[4 * j + 2 * r] * scale,
@@ -1296,12 +1561,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int B, int S, int H, int KV, int causal, int window,
                    float softcap, cudaStream_t stream) {
   if (dq_acc == nullptr) return cudaErrorInvalidValue;
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = bwd_kernel<D, SOFTCAP>;
+  constexpr bool WIDE = D == 256;
+  constexpr size_t smem = WIDE ? wide::smem_bytes() : smem_bytes<D>();
+  constexpr int nt = WIDE ? wide::NT : threads<D>();
+  constexpr int bkv = WIDE ? wide::BKV : key_tile<D>();
+  auto kernel = [] {
+    if constexpr (D == 256) return bwd_d256_kernel<SOFTCAP>;
+    else return bwd_kernel<D, SOFTCAP>;
+  }();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
-  const int n_kv = (S + key_tile<D>() - 1) / key_tile<D>();
+  const int n_kv = (S + bkv - 1) / bkv;
   if (n_kv > 65535) return cudaErrorInvalidValue;
   const float scale = float(1.0 / sqrt(double(D)));
   const bf16* tdo = static_cast<const bf16*>(dout);
@@ -1310,7 +1581,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(o), tdo, delta, rows, S, H, D);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(B * KV, n_kv), threads<D>(), smem, stream>>>(
+  kernel<<<dim3(B * KV, n_kv), nt, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), tdo, lse, delta, dq_acc,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, KV, scale,
@@ -1326,14 +1597,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace bwd_wg
 
 // Whether the backward of (dtype, D) runs on the tensor cores (bwd_wg: bf16
-// at D 64 and 128) and so sums dQ into the caller's f32 buffer dq_acc; f32,
-// and bf16 at D 256, run on the CUDA cores (bwd), dq_acc unused. The
+// at every head dim the backward takes) and so sums dQ into the caller's
+// f32 buffer dq_acc; f32 runs on the CUDA cores (bwd), dq_acc unused. The
 // wrapper asks flash_attention_bwd_sums_dq, below, so the rule lives here
 __host__ __device__ constexpr bool on_bwd_wg(int dtype, int D) {
-  return dtype == 1 && (D == 64 || D == 128);
+  return dtype == 1 && (D == 64 || D == 128 || D == 256);
 }
 
-// The backward for one head dim, on bwd_wg or bwd as on_bwd_wg says
+// The backward for one head dim: bf16 on bwd_wg, f32 on bwd
 template <int D, bool SOFTCAP>
 cudaError_t launch_bwd_cap(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const float* lse,
@@ -1342,18 +1613,13 @@ cudaError_t launch_bwd_cap(const void* q, const void* k, const void* v,
                            int causal, int window, float softcap,
                            cudaStream_t st) {
   if (dtype == 0)
-    return bwd::launch<float, D, SOFTCAP>(q, k, v, o, dout, lse, delta, dq,
-                                          dk, dv, B, S, H, KV, causal,
-                                          window, softcap, st);
+    return bwd::launch<D, SOFTCAP>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   B, S, H, KV, causal, window, softcap, st);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (on_bwd_wg(1, D))
-    return bwd_wg::launch<D, SOFTCAP>(q, k, v, o, dout, lse, delta, dq_acc,
-                                      dq, dk, dv, B, S, H, KV, causal,
-                                      window, softcap, st);
-  else
-    return bwd::launch<__nv_bfloat16, D, SOFTCAP>(
-        q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal,
-        window, softcap, st);
+  static_assert(on_bwd_wg(1, D), "bf16 runs on the tensor cores");
+  return bwd_wg::launch<D, SOFTCAP>(q, k, v, o, dout, lse, delta, dq_acc, dq,
+                                    dk, dv, B, S, H, KV, causal, window,
+                                    softcap, st);
 }
 
 template <int D>

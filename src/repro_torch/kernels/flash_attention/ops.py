@@ -16,11 +16,10 @@ runs the plain version there. Each call, launched or on meta, is reported
 with its cost (``kernels.costs.attention_cost``, ``attention_bwd_cost``)
 to a recording step analysis; a meta call is not a launch.
 
-The backward of bf16 at head dims 64 and 128 runs on the tensor cores in
-one pass over the scores and sums dQ into an f32 buffer by atomics, so its
-dQ's summation order varies from run to run; f32 (the parity path) and
-head dim 256 run on the CUDA cores, deterministic. The library says which
-(``flash_attention_bwd_sums_dq``).
+The backward of bf16 runs on the tensor cores in one pass over the scores
+and sums dQ into an f32 buffer by atomics, so its dQ's summation order
+varies from run to run; f32 (the parity path) runs on the CUDA cores,
+deterministic. The library says which (``flash_attention_bwd_sums_dq``).
 """
 from __future__ import annotations
 
@@ -38,7 +37,7 @@ BWD_HEAD_DIMS = (64, 128, 256)
 # the backward sums dQ into a zeroed f32 buffer for bf16 at these head dims
 # (the library's ``flash_attention_bwd_sums_dq``, which a meta call cannot
 # ask)
-SUMS_DQ_HEAD_DIMS = (64, 128)
+SUMS_DQ_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches in this process, forward and backward; a run resets them

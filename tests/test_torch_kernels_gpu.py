@@ -217,9 +217,9 @@ def test_chunked_prefill_on_the_card_matches_the_whole_prompt_path():
 # (B, S, H, KV, D, window, softcap) for the backward kernel: the training
 # shapes of granite (D 64) and a gemma2-like softcap + window at D 128, S
 # off the 64-row tile, a window that bites, non-causal-free GQA, and D 256
-# at the 32-row tile; then the tensor-core kernel's edges: S = 1000 (off
-# the 64-key tile) at GQA groups of 2 and 8, with a window that bites and
-# with softcap 50
+# off the 64-key tile and with a window and softcap; then the tensor-core
+# kernel's edges: S = 1000 (off the 64-key tile) at GQA groups of 2 and 8,
+# with a window that bites and with softcap 50
 BWD_CASES = [
     (2, 128, 4, 2, 64, 0, 0.0),
     (1, 200, 4, 1, 128, 0, 0.0),
@@ -237,6 +237,12 @@ BWD_CASES = [
     # (GQA ratio 1, 24 heads of 64) and internvl2-26b's 48/8 heads of 128
     (4, 2048, 24, 24, 64, 0, 0.0),
     (2, 2048, 48, 8, 128, 0, 0.0),
+    # gemma3-12b's training batch (16 q over 8 kv heads of 256), its local
+    # layers' 1024 window and its global layers; and head dim 256 with S
+    # off the 64-row tile at GQA ratio 1
+    (2, 2048, 16, 8, 256, 1024, 0.0),
+    (2, 2048, 16, 8, 256, 0, 0.0),
+    (1, 1000, 4, 4, 256, 300, 0.0),
 ]
 
 
@@ -340,7 +346,8 @@ def test_grouped_matmul_backward_matches_plain_backward(e, c, d, f, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,h,kv,d", [(2, 1024, 8, 2, 128),
                                         (2, 1000, 16, 8, 64),
-                                        (4, 2048, 24, 24, 64)])
+                                        (4, 2048, 24, 24, 64),
+                                        (2, 2048, 16, 8, 256)])
 def test_flash_backward_runs_agree(b, s, h, kv, d):
     """Two bf16 backward calls on the same inputs: dK and dV (summed in
     registers) are equal bit for bit; dQ (summed by f32 atomics, in an order

@@ -1,7 +1,8 @@
 """The port's training path against the JAX package's, float32 on the CPU:
 the loss, the microbatch pick, the gradients of the flash op's and the
 grouped matmul's plain paths, five train steps of reduced yi-9b,
-granite-moe and gemma2, and of musicgen and internvl2 on (B, S, d)
+granite-moe, gemma2 and gemma3 (its 5:1 local:global pattern, qk-norm,
+post-norm and two rope thetas), and of musicgen and internvl2 on (B, S, d)
 embedding batches (each block remat'd), from bridged params at 1 and 2
 microbatches, and the remat policies. The SSM and hybrid are in
 test_torch_ssm_training.py."""
@@ -35,7 +36,10 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.adamw import OptimizerConfig  # noqa: E402
 from repro_torch.training import train_step as tts  # noqa: E402
 
-TRANSFORMERS = ["yi-9b", "granite-moe-1b-a400m", "gemma2-27b"]
+TRANSFORMERS = ["yi-9b", "granite-moe-1b-a400m", "gemma2-27b", "gemma3-12b"]
+# gemma3 trains on 64 tokens, so that its reduced 32-token window bites in
+# the local layers (JAX's attention_local takes its naive path at this size)
+SEQ = {"gemma3-12b": 64}
 # the embeddings input mode, each super-block under remat "full" on both
 # sides: the blocks' input (the batch) needs no gradient, and the first
 # block's params get theirs all the same
@@ -174,11 +178,11 @@ def test_train_step_matches_jax_over_five_steps(arch, mb):
     jcfg, jstate, jstep, tstate, tstep = _jax_and_port(
         arch, mb, **({"remat_policy": "full"} if embeddings else {}))
     d = jcfg.d_model if embeddings else 0
-    for batch in _batches(jcfg.vocab_size, 5, d=d):
+    for batch in _batches(jcfg.vocab_size, 5, s=SEQ.get(arch, 32), d=d):
         jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))
         tstate, tm = tstep(tstate, _tb(batch))
-        # f32 both sides: the loss over 128 tokens and the grad norm over
-        # every param, summed in other orders
+        # f32 both sides: the loss over 128 or 256 tokens and the grad norm
+        # over every param, summed in other orders
         for key, rtol in (("loss", 1e-5), ("aux_loss", 1e-5),
                           ("grad_norm", 1e-5), ("lr", 1e-6)):
             np.testing.assert_allclose(float(tm[key]), float(jm[key]),
