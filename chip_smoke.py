@@ -28,30 +28,33 @@ with its 1024 window, 2 global; the flash backward at head dim 256) on one
 fixed 2 x 2048 batch (6 steps, the same gates and numbers, flash launches
 2 x 12 a step and backward launches 12, one profiled step with the flash
 backward's share of the busy time), yi-9b at depth 2 in f32 on the card
-against the CPU from the same params (3 steps: losses and params), ``python -m
-repro_torch.launch.train`` for granite-moe-1b-a400m at full width and
-depth (10 steps in 2 microbatches, saved every 5, resumed for 5 more; the
+against the CPU from the same params (3 steps: losses and params; the CPU
+halves of these f32 runs go on in a process of their own from the start,
+beside the build and the kernel checks), ``repro_torch.launch.train``'s
+``run`` for granite-moe-1b-a400m at full width cut to 8 of 24 layers (10
+steps in 2 microbatches, saved at the 10th, resumed for 5 more; the
 restored state equal to the saved one leaf for leaf) and a VRE's
 ``lm-trainer`` on provider h100 across a destroy and re-instantiation;
 mamba2-370m (2 layers) and zamba2-1.2b (one segment of 6 and the shared
 block) in f32 on the card against the CPU (3 steps: losses, grad norms and
-params); ``python -m repro_torch.launch.train`` for mamba2-370m at full
-width and depth (8 x 2048 in 2 microbatches, 10 steps saved every 5,
-resumed for 5, the restored state equal leaf for leaf) with one profiled
-step; zamba2-1.2b at full width and depth on one fixed 4 x 2048 batch (10
+params); ``launch.train`` for mamba2-370m at full width cut to 16 of 48
+layers (8 x 2048 in 2 microbatches, 10 steps saved at the 10th, resumed
+for 5, the restored state equal leaf for leaf) with one profiled step;
+zamba2-1.2b at full width and depth on one fixed 4 x 2048 batch (10
 steps) with one profiled step; then the ``embeddings`` input mode
 (musicgen-medium and internvl2-26b, fed (B, S, d) embeddings): the flash
 kernels forward and backward against their plain versions and timed at
 their shapes (musicgen's 24 heads of 64, internvl2's 48/8 heads of 128),
 musicgen-medium at 2 layers in f32 on the card against the CPU (logits,
-prefill + decode against the forward, 3 steps), ``python -m
-repro_torch.launch.train --arch musicgen-medium`` at full width and depth
-(8 x 2048 in 2 microbatches, 10 steps saved every 5, resumed for 5, the
-restored state equal leaf for leaf) with one profiled step,
+prefill + decode against the forward, 3 steps), ``launch.train`` for
+musicgen-medium at full width cut to 12 of 48 layers
+(8 x 2048 in 2 microbatches, 10 steps saved at the 10th, resumed for 5,
+the restored state equal leaf for leaf) with one profiled step,
 internvl2-26b at full width and depth (prefill + decode against its
 forward), internvl2-26b at full width cut to 4 layers (3 steps) and a
 VRE's ``data`` and ``lm-trainer`` on musicgen-medium (3 steps); then the
-distributed layer (``distributed_granite``): two ranks share the card over
+distributed layer (``distributed_granite``; one spawn of two ranks runs it
+and the two-rank sharded phases after it): two ranks share the card over
 gloo (``repro_torch.distributed.spawn``; every collective staged through
 pinned host memory, counted by op) on a (data 1, model 2) mesh, granite at
 full width and 12 of 24 layers in bf16 ("heads" mode: 8 of 16 q heads, 4
@@ -60,10 +63,11 @@ sharded train steps against the same steps unsharded (losses, every param
 gathered), then at 2 layers in f32 at the CPU tests' tolerances, with each
 rank's kernel launches, ms a step and peak memory, and each local kernel
 shape against its plain version; then prefill and decode under a policy
-(``sharded_phases``): two ranks serve yi-9b (full depth bf16, "heads"),
-granite-moe-1b-a400m (full depth bf16, the MoE expert-parallel in prefill
-and decode), mamba2-370m (full depth bf16, 16 of 32 SSM heads a rank) and
-zamba2-1.2b (8 of 38 layers), each prefilling and decoding 16 steps fed
+(``sharded_phases``): two ranks serve yi-9b (bf16, "heads"),
+granite-moe-1b-a400m (bf16, the MoE expert-parallel in prefill and
+decode), mamba2-370m (bf16, 16 of 32 SSM heads a rank) and zamba2-1.2b,
+each at full width cut to 8 layers (the logit tolerance scaled to that
+depth), each prefilling and decoding 16 steps fed
 the unsharded model's greedy tokens, logits held to the unsharded ones in
 the same run, mamba2 and zamba2 also taking 2 sharded train steps against
 unsharded ones; eight ranks run yi-9b at 2 layers in f32 with an "expand"
@@ -80,7 +84,8 @@ to the meta calls, the meta peak within 10% of the rise in
 ``max_memory_allocated``, the step's ms beside the counted roofline's
 dominant term), and ``python -m repro_torch.launch.dryrun --arch yi-9b
 --shape prefill_32k --mesh single`` on meta under a fake process group in
-a process of its own, off the card, its ``[ok]`` line printed; each with
+a process of its own, off the card, started before the training phases,
+its ``[ok]`` line printed; each with
 exact forward and backward launch counts; full-width (depth 2, float32)
 engine tokens against a reference for yi-9b and mamba2-370m (the card's greedy oracle) and granite-moe-1b-a400m (the
 same engine on the CPU), and for yi-9b with chunked prefill, the prefix
@@ -118,7 +123,18 @@ at 8 layers, one shared-block application), then gemma2-27b, gemma3-12b
 served in bf16 as above, each freed before the next. Then flash attention
 (both dtypes) and the SSD op against their plain versions again at every
 shape the engine runs above launched that was not checked before (the
-served 4-16 token prompts give flash (4, 16)), one line with every kernel's
+served 4-16 token prompts give flash (4, 16)); then the port's five
+examples (``examples/torch_*.py``) through their ``main`` at their card
+defaults: the workflow pipeline through a straggler and a dead worker, the
+quickstart VRE training granite-moe-1b-a400m, the elastic restart of
+mamba2-370m at 4 x 32 (the SSD kernels on one padded 256-token chunk),
+batched serving of gemma2-27b at 8 layers in float32 held to the greedy
+oracle, and ``torch_train_e2e``'s card default, its ``--full`` config (a
+137.8M-param model, 300 steps of 8 x 512, saved every 100: tokens/s and the
+model FLOPs' share of the bf16 peak over the 300 steps, the median ms a
+step, the checkpoint bytes written, one profiled step), each with its exact launches
+and peak memory, then every kernel against its plain version at the
+examples' shapes, forward and backward; one line with every kernel's
 numbers and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, and prints no result line, without a card, outside a full
@@ -132,6 +148,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -277,9 +294,12 @@ YI_TRAIN = dict(layers=16, batch=4, seq=2048, steps=10)
 # windowed layers and a global one; all 48 need ~141 GB of train state),
 # one fixed 2 x 2048 batch
 GEMMA3_TRAIN = dict(layers=12, batch=2, seq=2048, steps=6)
-# train_granite: launch/train.py at full width and depth
+# train_granite: launch/train.py at full width, cut to 8 of 24 layers (the
+# 1200 s limit: a save and a restore of its whole state are most of the
+# phase, and the checks do not depend on the depth)
 GRANITE_TRAIN = ["--arch", "granite-moe-1b-a400m", "--global-batch", "8",
                  "--seq-len", "2048", "--microbatches", "2"]
+GRANITE_LAYERS = 8
 
 # the SSD backward at the training microbatches of train_mamba2 (8 x 2048
 # in 2 microbatches) and train_zamba2 (4 x 2048), each gradient within the
@@ -288,18 +308,20 @@ GRANITE_TRAIN = ["--arch", "granite-moe-1b-a400m", "--global-batch", "8",
 MAMBA2_TRAIN_SSD = (4, 2048, 32, 64, 128, 256)
 ZAMBA2_TRAIN_SSD = (4, 2048, 64, 64, 64, 256)
 SSD_BWD_TOL = dict(atol_of_max=5e-4, rtol=5e-3)
-# train_mamba2: launch/train.py at full width and depth; train_zamba2: full
-# width and depth, one fixed batch
+# train_mamba2: launch/train.py at full width cut to 16 of 48 layers (the
+# time limit); train_zamba2: full width and depth, one fixed batch
 MAMBA2_TRAIN = ["--arch", "mamba2-370m", "--global-batch", "8",
                 "--seq-len", "2048", "--microbatches", "2"]
+MAMBA2_LAYERS = 16
 ZAMBA2_TRAIN = dict(batch=4, seq=2048, steps=10)
 
 # the embeddings input mode: the flash shapes of musicgen-medium's training
 # microbatch (MHA, 24 heads of 64: a head count off the powers of two, GQA
 # ratio 1) and of internvl2-26b's training batch and forward (48 q over 8
 # kv heads of 128), each held against the plain versions before a model
-# phase runs it; musicgen trained through launch/train.py at full width and
-# depth; internvl2 at full width and depth for prefill + decode against its
+# phase runs it; musicgen trained through launch/train.py at full width cut
+# to 12 of 48 layers (the time limit); internvl2 at full width and depth for
+# prefill + decode against its
 # forward, and cut to 4 of 48 layers for training (all 48 need ~309 GB of
 # train state)
 MUSICGEN_TRAIN_ATTN = (4, 2048, 24, 24, 64, 0, 0.0)
@@ -309,6 +331,7 @@ EMBEDDINGS_ATTN = [MUSICGEN_TRAIN_ATTN, INTERNVL2_TRAIN_ATTN,
                    INTERNVL2_FORWARD_ATTN]
 MUSICGEN_TRAIN = ["--arch", "musicgen-medium", "--global-batch", "8",
                   "--seq-len", "2048", "--microbatches", "2"]
+MUSICGEN_LAYERS = 12
 INTERNVL2_FULL = dict(batch=2, seq=1024)
 INTERNVL2_TRAIN = dict(layers=4, batch=2, seq=2048, steps=3)
 # prefill(S-1) + decode(1) against forward(S), the largest difference
@@ -470,12 +493,14 @@ def step_profile(fn, top: int = 12, shares: dict = None) -> dict:
             fn()
             torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1e3
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+        # the raw records: ``prof.events()`` would first build the tree of
+        # every host op, tens of seconds for a step of ~30,000 launches
         by_name = {}
-        for e in events:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA:
+                continue
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     except Exception as exc:          # a measurement aid, not a check
         return {"profile": f"not measured ({type(exc).__name__}: {exc})"}
     busy = sum(ms for ms, _ in by_name.values())
@@ -597,16 +622,19 @@ def check_losses(label, losses, norms=None):
 
 
 def launch_train_resumed(smi: str, ops: dict, phase: str, argv: list,
-                         want: dict, want_variants: dict = None,
+                         layers: int, want: dict, want_variants: dict = None,
                          top: int = 12) -> dict:
-    """``python -m repro_torch.launch.train`` with ``argv`` for 10 steps
-    saved every 5 (checkpoints in a temp dir, deleted after), then a new run
-    resumed from step 10 for 5, then one step of the same shape under the
-    profiler after a warm one. Gates: finite and falling losses, the
-    restored state equal to the saved one leaf for leaf, the resumed run
-    restoring step 10, and exact launch counts, ``want`` (and the grouped
-    matmul's ``want_variants``) in the first run, half of each in the
-    resumed one. Emits ``phase``'s lines; returns the first run's counts."""
+    """``repro_torch.launch.train``'s run of ``argv`` (``run(args,
+    cfg=...)``, the arch's config cut to ``layers``: the time limit) for
+    10 steps saved at the 10th (checkpoints in a temp dir, deleted after;
+    one save, for the time limit: the examples' ``torch_train_e2e`` saves
+    while it trains), then a new run resumed from step 10 for 5, then one
+    step of the same shape under the profiler after a warm one. Gates:
+    finite and falling losses, the restored state equal to the saved one
+    leaf for leaf, the resumed run restoring step 10, and exact launch
+    counts, ``want`` (and the grouped matmul's ``want_variants``) in the
+    first run, half of each in the resumed one. Emits ``phase``'s lines;
+    returns the first run's counts."""
     import shutil
 
     from repro_torch.checkpoint.store import CheckpointStore
@@ -623,28 +651,29 @@ def launch_train_resumed(smi: str, ops: dict, phase: str, argv: list,
     ckpt = Path(tempfile.mkdtemp(prefix=f"{phase}_"))
     try:
         args = train_driver.parse_args(argv + [
-            "--steps", "10", "--ckpt-every", "5", "--ckpt-dir", str(ckpt)])
+            "--steps", "10", "--ckpt-every", "10", "--ckpt-dir", str(ckpt)])
+        cfg = dataclasses.replace(get_config(args.arch), num_layers=layers)
         torch.cuda.reset_peak_memory_stats()
         reset_launches(ops)
         t1 = time.perf_counter()
         out = io.StringIO()
         mon = Monitor(name="train")
         with contextlib.redirect_stdout(out):
-            losses1, state1 = train_driver.run(args, monitor=mon)
+            losses1, state1 = train_driver.run(args, monitor=mon, cfg=cfg)
         run1_s = time.perf_counter() - t1
         got = read_launches(ops)
         peak1 = torch.cuda.max_memory_allocated() / 1e9
         step_ms = [1e3 * e["seconds"] for e in mon.events("train")
                    if e["event"] == "step.done"]
-        cfg = get_config(args.arch)
         tokens = args.global_batch * args.seq_len
         median_ms = float(np.median(step_ms[2:]))
         line = {"phase": phase, "layers": cfg.num_layers,
+                "full_layers": get_config(args.arch).num_layers,
                 "params": sum(t.numel() for t in leaves(state1["params"])),
                 "d_model": cfg.d_model, "dtype": cfg.dtype,
                 "input_mode": cfg.input_mode, "moments": "float32",
                 "remat_policy": cfg.remat_policy,
-                "argv": argv + ["--steps", "10", "--ckpt-every", "5"]}
+                "argv": argv + ["--steps", "10", "--ckpt-every", "10"]}
         if "blocks" in state1["params"]:      # a transformer
             flops = model_flops(cfg, state1["params"], tokens, args.seq_len)
             line.update(model_flops_per_step=flops,
@@ -663,9 +692,9 @@ def launch_train_resumed(smi: str, ops: dict, phase: str, argv: list,
         reset_launches(ops)
         t1 = time.perf_counter()
         with contextlib.redirect_stdout(out2):
-            losses2 = train_driver.main(argv + [
+            losses2 = train_driver.run(train_driver.parse_args(argv + [
                 "--steps", "5", "--ckpt-every", "5", "--resume",
-                "--ckpt-dir", str(ckpt)])
+                "--ckpt-dir", str(ckpt)]), cfg=cfg)[0]
         run2_s = time.perf_counter() - t1
         got2 = read_launches(ops)
         want2 = {k: v // 2 for k, v in want.items()}
@@ -794,26 +823,163 @@ def train_fixed_batch(smi: str, ops: dict, phase: str, cfg, run: dict,
     return got
 
 
-def training_phases(smi: str, ops: dict) -> dict:
+# the f32 parity runs, the card against the CPU from the same params, (arch,
+# config overrides, batch, seq), 3 train steps each: yi-9b at depth 2
+# (train_parity_f32), mamba2-370m at 2 layers and zamba2-1.2b at one
+# segment of 6 and the shared block (train_parity_ssm_f32). Their CPU
+# halves run in a process of their own from the script's start, beside the
+# build and the kernel checks, on PARITY_THREADS of the host's threads (the
+# time limit: about a minute of CPU work)
+PARITY_RUNS = [("yi-9b", dict(num_layers=2), 2, 128),
+               ("mamba2-370m", dict(num_layers=2), 2, 512),
+               ("zamba2-1.2b", dict(num_layers=6), 1, 512)]
+PARITY_STEPS = 3
+PARITY_THREADS = 4
+
+
+def _parity_cfg(arch, over):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), dtype="float32", **over)
+
+
+def _parity_steps(model, cfg, state, batch, seq):
+    """PARITY_STEPS train steps of ``state`` on the synthetic stream's
+    first batches: (losses, grad norms, the state)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.training.train_step import (TrainStepConfig,
+                                                 make_train_step)
+    step_fn = make_train_step(model, cfg, OptimizerConfig(
+        warmup_steps=2, total_steps=10), TrainStepConfig())
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                      global_batch=batch))
+    losses, norms = [], []
+    for i in range(PARITY_STEPS):
+        b = {k: torch.as_tensor(v).to(model.device)
+             for k, v in data.batch(i).items()}
+        state, m = step_fn(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, state
+
+
+def cpu_parity_worker(out_dir: str):
+    """The CPU halves of PARITY_RUNS, in a process of their own (started by
+    ``CpuParity``): run ``i``'s params, drawn on the CPU from seed 0, go to
+    ``{i}.init.pt`` before its steps, and its losses, grad norms and final
+    params to ``{i}.done.pt`` after them, each file renamed into place
+    whole."""
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import OptimizerConfig, leaves
+    from repro_torch.training.train_step import init_state
+    torch.set_num_threads(PARITY_THREADS)
+    out = Path(out_dir)
+
+    def put(obj, name):
+        torch.save(obj, out / f"{name}.part")
+        os.replace(out / f"{name}.part", out / name)
+    for i, (arch, over, batch, seq) in enumerate(PARITY_RUNS):
+        t0 = time.perf_counter()
+        cfg = _parity_cfg(arch, over)
+        model = build_model(cfg, device="cpu")
+        state = init_state(model, OptimizerConfig(warmup_steps=2,
+                                                  total_steps=10),
+                           torch.Generator().manual_seed(0))
+        put(state["params"], f"{i}.init.pt")
+        losses, norms, state = _parity_steps(model, cfg, state, batch, seq)
+        put({"losses": losses, "norms": norms,
+             "params": leaves(state["params"]),
+             "seconds": time.perf_counter() - t0}, f"{i}.done.pt")
+        del model, state
+
+
+class CpuParity:
+    """``cpu_parity_worker`` in a spawned process, started at once (no
+    card); ``load(name)`` waits for one of its files, failing if the
+    process ends without it; ``close`` joins the process and removes its
+    files."""
+
+    def __init__(self):
+        import multiprocessing
+        self.dir = Path(tempfile.mkdtemp(prefix="cpu_parity_"))
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=cpu_parity_worker, args=(str(self.dir),), daemon=True)
+        self.proc.start()
+
+    def load(self, name: str, timeout: float = 600.0):
+        """(the file's object, seconds waited for it)."""
+        path, t0 = self.dir / name, time.perf_counter()
+        while not path.exists():
+            if self.proc.exitcode is not None and not path.exists():
+                fail(f"cpu_parity_worker ended (exit {self.proc.exitcode}) "
+                     f"without writing {name}")
+            if time.perf_counter() - t0 > timeout:
+                fail(f"cpu_parity_worker wrote no {name} in {timeout} s")
+            time.sleep(0.1)
+        return torch.load(path), time.perf_counter() - t0
+
+    def close(self):
+        import shutil
+        self.proc.join(timeout=60)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _parity_card(ops: dict, parity: CpuParity, i: int):
+    """PARITY_RUNS[i] on the card from the CPU process's params: (losses,
+    grad norms, the final state, the card's launches, the CPU run's
+    results with ``wait``, the seconds waited for them)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import to_device
+    from repro_torch.optim import adamw
+    arch, over, batch, seq = PARITY_RUNS[i]
+    cfg = _parity_cfg(arch, over)
+    params, waited = parity.load(f"{i}.init.pt")
+    params = to_device(params, "cuda")           # the same params
+    model = build_model(cfg, device="cuda")
+    state = {"params": params, "opt": adamw.init(params, adamw.OptimizerConfig(
+        warmup_steps=2, total_steps=10))}
+    del params
+    reset_launches(ops)
+    losses, norms, state = _parity_steps(model, cfg, state, batch, seq)
+    launched = read_launches(ops)
+    host, w = parity.load(f"{i}.done.pt")
+    host["wait"] = waited + w
+    return losses, norms, state, launched, host
+
+
+def _parity_params(state, host: dict, ok: bool):
+    """(the largest |card - CPU| over the params, ``ok`` and every param
+    within atol 5e-5 + rtol 5e-4 of the CPU's)."""
+    from repro_torch.optim.adamw import leaves
+    worst = 0.0
+    for a, b in zip(leaves(state["params"]), host["params"]):
+        b = b.to(a.device)
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()))
+        ok = ok and bool((diff <= 5e-5 + 5e-4 * b.abs()).all())
+    return worst, ok
+
+
+def training_phases(smi: str, ops: dict, parity: CpuParity) -> dict:
     """The training path on the card: yi-9b at full width (16 layers) and
     gemma3-12b at full width (12 layers) on one fixed batch each; yi-9b at
     depth 2 in float32 on the card against the
-    CPU (the port's plain versions) from the same params;
-    ``repro_torch.launch.train`` for granite-moe-1b-a400m at full width and
-    depth, saved and resumed; a VRE's ``lm-trainer`` across a destroy and
-    re-instantiation. Each run's launch counts are set to 0 just before it
-    and read just after; returns them by run."""
+    CPU (the port's plain versions, run by ``parity``) from the same params;
+    ``repro_torch.launch.train`` for granite-moe-1b-a400m at full width cut
+    to GRANITE_LAYERS, saved and resumed; a VRE's ``lm-trainer`` across a
+    destroy and re-instantiation; mamba2 and zamba2 in float32 against the
+    CPU likewise; mamba2 through ``launch.train``, cut to MAMBA2_LAYERS;
+    zamba2 at full width and depth. Each run's launch counts are set to 0
+    just before it and read just after; returns them by run."""
     import shutil
 
     import repro_torch.core.services  # noqa: F401 (registers the services)
     from repro_torch.configs import get_config
     from repro_torch.core.vre import VirtualResearchEnvironment, VREConfig
-    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
-    from repro_torch.models.model import build_model
-    from repro_torch.models.params import to_device
-    from repro_torch.optim.adamw import OptimizerConfig, leaves
-    from repro_torch.training.train_step import (TrainStepConfig, init_state,
-                                                 make_train_step)
+    from repro_torch.optim.adamw import leaves
     counts = {}
 
     # -- train_yi9b: full width, 16 of 48 layers, bf16, f32 moments -------
@@ -846,58 +1012,34 @@ def training_phases(smi: str, ops: dict) -> dict:
 
     # -- train_parity_f32: depth 2, f32, the card against the CPU ---------
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=2,
-                              dtype="float32")
-    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=10)
-    cpu_model = build_model(cfg, device="cpu")
-    cpu_state = init_state(cpu_model, opt_cfg,
-                           torch.Generator().manual_seed(0))
-    card_model = build_model(cfg, device="cuda")
-    card_state = to_device(cpu_state, "cuda")     # the same params
-    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
-                                      global_batch=2))
-    runs = {}
-    for label, model, st in (("cuda", card_model, card_state),
-                             ("cpu", cpu_model, cpu_state)):
-        step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
-        reset_launches(ops)
-        ls = []
-        for i in range(3):
-            b = {k: torch.as_tensor(v).to(model.device)
-                 for k, v in data.batch(i).items()}
-            st, m = step_fn(st, b)
-            ls.append(float(m["loss"]))
-        runs[label] = (ls, st, read_launches(ops))
-    (cl, cst, ccounts), (hl, hst, _) = runs["cuda"], runs["cpu"]
+    cl, _, cst, ccounts, host = _parity_card(ops, parity, 0)
+    hl = host["losses"]
     # f32 on both: summation orders (the kernels', the CPU's); params to
     # tests/test_training.py's accumulation tolerance
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(cl, hl))
-    worst, ok = 0.0, loss_rel <= 1e-4
-    for a, b in zip(leaves(cst["params"]), leaves(hst["params"])):
-        diff = (a.cpu() - b).abs()
-        worst = max(worst, float(diff.max()))
-        ok = ok and bool((diff <= 5e-5 + 5e-4 * b.abs()).all())
+    worst, ok = _parity_params(cst, host, loss_rel <= 1e-4)
     want = {"flash_attention": 2 * 2 * 3, "flash_attention_bwd": 2 * 3}
     emit({"phase": "train_parity_f32", "layers": 2, "batch": 2, "seq": 128,
           "losses_cuda": cl, "losses_cpu": hl, "loss_max_rel_diff": loss_rel,
           "loss_rtol": 1e-4, "params_max_abs_diff": worst,
           "params_tol": {"atol": 5e-5, "rtol": 5e-4},
           "launches_cuda": ccounts, "ok": ok, "card": smi,
+          "cpu_seconds": host["seconds"], "cpu_wait_seconds": host["wait"],
           "seconds": time.perf_counter() - t0})
     if not ok or {k: ccounts[k] for k in want} != want:
         fail(f"train_parity_f32: card and CPU disagree (losses {cl} vs {hl},"
              f" params {worst}) or launches {ccounts} != {want}")
-    del cpu_model, cpu_state, card_model, card_state, runs, cst, hst, st
+    del cst, host
     release("train_parity_f32")
 
-    # -- train_granite: launch/train.py, full width and depth, resumed ----
-    layers, steps, mbs = get_config("granite-moe-1b-a400m").num_layers, 10, 2
+    # -- train_granite: launch/train.py, full width, resumed ---------------
+    layers, steps, mbs = GRANITE_LAYERS, 10, 2
     # every layer MoE: 3 expert products a forward, run twice under remat,
     # and dx, dw for each in the backward; flash likewise; capacity 2560:
     # the tile kernel for the forward, its dx and dw variants for the
     # backward
     counts["train_granite"] = launch_train_resumed(
-        smi, ops, "train_granite", GRANITE_TRAIN,
+        smi, ops, "train_granite", GRANITE_TRAIN, layers,
         {"flash_attention": 2 * layers * mbs * steps,
          "flash_attention_bwd": layers * mbs * steps,
          "grouped_matmul": 6 * layers * mbs * steps,
@@ -969,42 +1111,18 @@ def training_phases(smi: str, ops: dict) -> dict:
     # one segment of 6 and the shared block), f32, the card against the
     # CPU from the same params: the SSD backward's gradients reach the
     # params (a dropped intra-chunk term shows here)
-    for arch, over, batch, seq in (
-            ("mamba2-370m", dict(num_layers=2), 2, 512),
-            ("zamba2-1.2b", dict(num_layers=6), 1, 512)):
+    for i in (1, 2):
         t0 = time.perf_counter()
-        cfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
-        opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=10)
-        cpu_model = build_model(cfg, device="cpu")
-        cpu_state = init_state(cpu_model, opt_cfg,
-                               torch.Generator().manual_seed(0))
-        card_model = build_model(cfg, device="cuda")
-        card_state = to_device(cpu_state, "cuda")     # the same params
-        data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
-                                          seq_len=seq, global_batch=batch))
-        runs = {}
-        for label, model, st in (("cuda", card_model, card_state),
-                                 ("cpu", cpu_model, cpu_state)):
-            step_fn = make_train_step(model, cfg, opt_cfg, TrainStepConfig())
-            reset_launches(ops)
-            ls, ns = [], []
-            for i in range(3):
-                b = {k: torch.as_tensor(v).to(model.device)
-                     for k, v in data.batch(i).items()}
-                st, m = step_fn(st, b)
-                ls.append(float(m["loss"]))
-                ns.append(float(m["grad_norm"]))
-            runs[label] = (ls, ns, st, read_launches(ops))
-        (cl, cn, cst, ccounts), (hl, hn, hst, _) = runs["cuda"], runs["cpu"]
+        arch, _, batch, seq = PARITY_RUNS[i]
+        cfg = _parity_cfg(*PARITY_RUNS[i][:2])
+        cl, cn, cst, ccounts, host = _parity_card(ops, parity, i)
+        hl, hn = host["losses"], host["norms"]
         # f32 on both: summation orders (the kernels', the CPU's); params
         # to tests/test_training.py's accumulation tolerance
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(cl, hl))
         norm_rel = max(abs(a - b) / abs(b) for a, b in zip(cn, hn))
-        worst, ok = 0.0, loss_rel <= 1e-4 and norm_rel <= 1e-3
-        for a, b in zip(leaves(cst["params"]), leaves(hst["params"])):
-            diff = (a.cpu() - b).abs()
-            worst = max(worst, float(diff.max()))
-            ok = ok and bool((diff <= 5e-5 + 5e-4 * b.abs()).all())
+        worst, ok = _parity_params(cst, host,
+                                   loss_rel <= 1e-4 and norm_rel <= 1e-3)
         n = cfg.num_layers
         apps = n // cfg.shared_attn_every if cfg.shared_attn_every else 0
         # remat "full": each Mamba2 layer's forward twice a step; the
@@ -1020,20 +1138,23 @@ def training_phases(smi: str, ops: dict) -> dict:
               "params_max_abs_diff": worst,
               "params_tol": {"atol": 5e-5, "rtol": 5e-4},
               "launches_cuda": ccounts, "expected_launches": want, "ok": ok,
-              "card": smi, "seconds": time.perf_counter() - t0})
+              "card": smi, "cpu_seconds": host["seconds"],
+              "cpu_wait_seconds": host["wait"],
+              "seconds": time.perf_counter() - t0})
         if not ok or {k: ccounts[k] for k in want} != want:
             fail(f"train_parity_ssm_f32 {arch}: card and CPU disagree "
                  f"(losses {cl} vs {hl}, grad norms {cn} vs {hn}, params "
                  f"{worst}) or launches {ccounts} != {want}")
-        del cpu_model, cpu_state, card_model, card_state, runs, cst, hst, st
+        del cst, host
         release(f"train_parity_ssm_f32 {arch}")
+    parity.close()
 
-    # -- train_mamba2: launch/train.py, full width and depth, resumed -----
+    # -- train_mamba2: launch/train.py, full width, resumed ----------------
     # remat "full": each layer's SSD forward twice a microbatch, its
     # backward once
-    layers, steps, mbs = get_config("mamba2-370m").num_layers, 10, 2
+    layers, steps, mbs = MAMBA2_LAYERS, 10, 2
     counts["train_mamba2"] = launch_train_resumed(
-        smi, ops, "train_mamba2", MAMBA2_TRAIN,
+        smi, ops, "train_mamba2", MAMBA2_TRAIN, layers,
         {"ssd": 2 * layers * mbs * steps, "ssd_bwd": layers * mbs * steps,
          "flash_attention": 0, "flash_attention_bwd": 0,
          "grouped_matmul": 0, "grouped_matmul_bwd": 0}, top=16)
@@ -1058,9 +1179,10 @@ def embeddings_phases(smi: str, ops: dict) -> dict:
     (B, S, d) float embeddings in place of token ids: musicgen-medium at
     full width cut to 2 layers in float32, the card against the CPU from
     the same params (forward logits, prefill(S-1) + decode(1) against
-    forward(S), 3 train steps); ``python -m repro_torch.launch.train --arch
-    musicgen-medium`` at full width and depth (8 x 2048 in 2 microbatches,
-    10 steps saved every 5, resumed for 5) with one profiled step;
+    forward(S), 3 train steps); ``repro_torch.launch.train``'s run for
+    musicgen-medium at full width cut to MUSICGEN_LAYERS (8 x 2048 in 2
+    microbatches, 10 steps saved at the 10th, resumed for 5) with one
+    profiled step;
     internvl2-26b at full width and depth in bf16, prefill + decode against
     its forward; internvl2-26b cut to 4 layers, 3 train steps; and a VRE's
     ``data`` and ``lm-trainer`` on musicgen-medium. Each run's launch counts
@@ -1201,12 +1323,12 @@ def embeddings_phases(smi: str, ops: dict) -> dict:
     del cpu_model, cpu_state, card_model, card_state, runs, card, host, st
     release("embeddings_parity_f32")
 
-    # -- train_musicgen: launch/train.py, full width and depth, resumed ---
+    # -- train_musicgen: launch/train.py, full width, resumed --------------
     # remat "full": each layer's flash forward twice a microbatch, its
     # backward once
-    layers, steps, mbs = get_config("musicgen-medium").num_layers, 10, 2
+    layers, steps, mbs = MUSICGEN_LAYERS, 10, 2
     counts["train_musicgen"] = launch_train_resumed(
-        smi, ops, "train_musicgen", MUSICGEN_TRAIN,
+        smi, ops, "train_musicgen", MUSICGEN_TRAIN, layers,
         {"flash_attention": 2 * layers * mbs * steps,
          "flash_attention_bwd": layers * mbs * steps, "grouped_matmul": 0,
          "grouped_matmul_bwd": 0, "ssd": 0, "ssd_bwd": 0})
@@ -1605,20 +1727,60 @@ def distributed_rank(rank, world, run):
     return out
 
 
-def distributed_phases(smi: str) -> dict:
-    """distributed_granite: ``distributed_rank`` on two ranks that share
-    the card, at full width and depth in bf16, then at 2 layers in f32;
-    fails on a rank's error, a kernel that disagrees with its plain
-    version at a local shape, launches off the exact count, or sharded
-    steps off the unsharded ones. Returns the bf16 run's launches a rank."""
-    from repro_torch.distributed.spawn import run_ranks
-    counts = {}
-    for label, run in (("distributed_granite", DIST_GRANITE),
-                       ("distributed_granite_f32", DIST_GRANITE_F32)):
+DIST_RUNS = [("distributed_granite", DIST_GRANITE),
+             ("distributed_granite_f32", DIST_GRANITE_F32)]
+
+
+def pair_rank(rank, world, dist_runs, sharded_runs):
+    """The two ranks' body, in one process group (one spawn for both
+    phases, for the time limit): ``distributed_rank`` for each of
+    ``dist_runs``, each timed and freed before the next, then
+    ``sharded_rank`` of ``sharded_runs``."""
+    import torch.distributed as dist
+    outs = []
+    for run in dist_runs:
         t0 = time.perf_counter()
-        outs = run_ranks(distributed_rank, 2, backend="gloo",
-                         device_type="cuda", args=(dict(run, device="cuda"),),
-                         timeout=600, threads=0)
+        out = distributed_rank(rank, world, run)
+        out["seconds"] = time.perf_counter() - t0
+        outs.append(out)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return outs, sharded_rank(rank, world, sharded_runs)
+
+
+def rank_phases(smi: str) -> dict:
+    """``distributed_phases`` and ``sharded_phases``: two ranks sharing the
+    card run DIST_RUNS and then SHARDED_PAIR (``pair_rank``), then eight
+    run SHARDED_MODES. Returns each phase's launches a rank."""
+    from repro_torch.distributed.spawn import run_ranks
+    t0 = time.perf_counter()
+    outs = run_ranks(pair_rank, 2, backend="gloo", device_type="cuda",
+                     args=([dict(r, device="cuda") for _, r in DIST_RUNS],
+                           SHARDED_PAIR), timeout=1200, threads=0)
+    spawn_s = time.perf_counter() - t0
+    counts = distributed_phases(smi, [[o[0][i] for o in outs]
+                                      for i in range(len(DIST_RUNS))],
+                                spawn_s)
+    counts.update(sharded_phases(smi, SHARDED_PAIR, 2, [o[1] for o in outs],
+                                 spawn_s))
+    t0 = time.perf_counter()
+    outs = run_ranks(sharded_rank, 8, backend="gloo", device_type="cuda",
+                     args=(SHARDED_MODES,), timeout=900, threads=0)
+    counts.update(sharded_phases(smi, SHARDED_MODES, 8, outs,
+                                 time.perf_counter() - t0))
+    return counts
+
+
+def distributed_phases(smi: str, outs_by_run: list, spawn_s: float) -> dict:
+    """distributed_granite's lines from ``distributed_rank``'s results on
+    two ranks that share the card (``outs_by_run``, DIST_RUNS' order): at
+    full width cut to 12 of 24 layers in bf16, then at 2 layers in f32;
+    fails on a kernel that disagrees with its plain version at a local
+    shape, launches off the exact count, or sharded steps off the unsharded
+    ones. Returns the bf16 run's launches a rank."""
+    counts = {}
+    for (label, run), outs in zip(DIST_RUNS, outs_by_run):
         r0 = outs[0]
         layers, steps, mbs = r0["layers"], run["steps"], run["microbatches"]
         # remat "full": the forward kernels twice a layer a microbatch
@@ -1665,7 +1827,8 @@ def distributed_phases(smi: str) -> dict:
               "launches_a_rank": [o["launches"] for o in outs],
               "expected_launches_a_rank": want,
               "local_shapes": r0["local_shapes"], "kernel_checks": checks,
-              "card": smi, "seconds": time.perf_counter() - t0})
+              "card": smi, "seconds": r0["seconds"],
+              "spawn_seconds": spawn_s})
         bad = [c for c in checks if not c["ok"]]
         if bad:
             fail(f"{label}: kernels disagree with their plain versions at "
@@ -1694,17 +1857,19 @@ def distributed_phases(smi: str) -> dict:
 # the same run; the SSM phases also take sharded train steps against
 # unsharded ones, as distributed_granite does.
 SERVE_2K = dict(prompt=1024, steps=16, max_seq=2048)
+# each model cut to 8 layers at full width (the time limit: the host-staged
+# collectives of a full-depth model cost seconds a decode step)
 SHARDED_PAIR = [
-    dict(phase="sharded_serve_yi9b", arch="yi-9b", layers=None,
+    dict(phase="sharded_serve_yi9b", arch="yi-9b", layers=8,
          dtype="bfloat16", serve=dict(SERVE_2K, batch=2)),
     # at data 1 each rank routes the whole batch: the unsharded capacity
     dict(phase="sharded_serve_granite", arch="granite-moe-1b-a400m",
-         layers=None, dtype="bfloat16", serve=dict(SERVE_2K, batch=1)),
-    dict(phase="sharded_mamba2", arch="mamba2-370m", layers=None,
+         layers=8, dtype="bfloat16", serve=dict(SERVE_2K, batch=1)),
+    dict(phase="sharded_mamba2", arch="mamba2-370m", layers=8,
          dtype="bfloat16", serve=dict(SERVE_2K, batch=1),
          train=dict(batch=4, seq=2048, microbatches=2, steps=2)),
-    # zamba2 cut from 38 layers to 8: one segment of 6 with the shared
-    # block after it, and the 2 trailing layers (the time limit)
+    # zamba2's 8: one segment of 6 with the shared block after it, and 2
+    # trailing layers
     dict(phase="sharded_zamba2", arch="zamba2-1.2b", layers=8,
          dtype="bfloat16", serve=dict(SERVE_2K, batch=1),
          train=dict(batch=4, seq=2048, microbatches=2, steps=2))]
@@ -1717,7 +1882,11 @@ SHARDED_MODES = [dict(phase="sharded_modes_yi9b", arch="yi-9b", layers=2,
 # logit: bf16 through the full depth, the ranks' partial sums rounded in
 # another order, 2e-2; bf16 MoE 1e-1, where that rounding can move a near
 # tie in the top-8-of-32 routing and so one expert's share of a token; f32
-# at 2 layers 1e-4
+# at 2 layers 1e-4. A bf16 model cut in depth is held to its full depth's
+# tolerance times sqrt(layers / full layers), the rounding differences
+# adding up as a random walk over the layers: at 8 layers 8.2e-3 for yi-9b
+# and mamba2-370m, 9.2e-3 for zamba2-1.2b and 5.8e-2 for granite (one bf16
+# step at the largest logit is 2^-8 = 3.9e-3 of it)
 SHARDED_LOGITS_REL = {"bfloat16": 2e-2, "moe_bfloat16": 1e-1,
                       "float32": 1e-4}
 
@@ -2103,109 +2272,107 @@ def _expected_launches(run, cfg) -> dict:
     return {"serve": serve, "train": train}
 
 
-def sharded_phases(smi: str) -> dict:
-    """The sharded serving phases: ``sharded_rank`` on two ranks sharing
-    the card for SHARDED_PAIR, then on eight for SHARDED_MODES; one line a
-    phase; fails on a rank's error, a kernel that disagrees with its plain
-    version at a local shape, launches off the exact count a rank, logits
-    past SHARDED_LOGITS_REL of the unsharded ones, f32 greedy tokens that
-    differ, or sharded train steps off the unsharded ones. Returns each
-    phase's launches a rank (serving and training summed)."""
-    from repro_torch.distributed.spawn import run_ranks
+def sharded_phases(smi: str, runs: list, world: int, outs: list,
+                   spawn_s: float) -> dict:
+    """The sharded serving phases' lines from ``sharded_rank``'s results
+    ``outs`` on ``world`` ranks sharing the card (SHARDED_PAIR on two,
+    SHARDED_MODES on eight), one a phase; fails on a kernel that disagrees
+    with its plain version at a local shape, launches off the exact count
+    a rank, logits past SHARDED_LOGITS_REL of the unsharded ones, f32
+    greedy tokens that differ, or sharded train steps off the unsharded
+    ones. Returns each phase's launches a rank (serving and training
+    summed)."""
+    from repro_torch.configs import get_config
     counts = {}
-    for runs, world in ((SHARDED_PAIR, 2), (SHARDED_MODES, 8)):
-        if not runs:
-            continue
-        t0 = time.perf_counter()
-        outs = run_ranks(sharded_rank, world, backend="gloo",
-                         device_type="cuda", args=(runs,), timeout=900,
-                         threads=0)
-        spawn_s = time.perf_counter() - t0
-        for i, run in enumerate(runs):
-            cfg = _dist_config(run)
-            per_rank = [o[i] for o in outs]
-            r0 = per_rank[0]
-            want = _expected_launches(run, cfg)
-            sv = [o["serve"] for o in per_rank]
-            rel_tol = SHARDED_LOGITS_REL[
-                ("moe_" if cfg.family == "moe" else "") + cfg.dtype
-                if cfg.dtype == "bfloat16" else cfg.dtype]
-            line = {"phase": run["phase"], "arch": run["arch"],
-                    "layers": cfg.num_layers, "dtype": cfg.dtype,
-                    "ranks": world, "mesh": {"data": 1, "model": world},
-                    "backend": r0["backend"],
-                    "staging": "every collective of a CUDA tensor through "
-                               "pinned host memory (gloo takes none)",
-                    "modes": r0["serve"]["modes"], "serve": run["serve"],
-                    "logits_rel": r0["serve"]["logits_rel"],
-                    "logits_rel_tol": rel_tol,
-                    "greedy_equal": r0["serve"]["greedy_equal"],
-                    "serve_launches_a_rank": [o["launches"] for o in sv],
-                    "expected_serve_launches": want["serve"],
-                    "serve_host_ms": [o["host_ms"] for o in sv],
-                    "serve_peak_memory_gb_a_rank":
-                        [o["peak_memory_gb"] for o in sv],
-                    "serve_staged_by_op": [o["staged"] for o in sv],
-                    "serve_host_staged_bytes":
-                        [o["host_staged_bytes"] for o in sv],
-                    "serve_local_shapes": r0["serve"]["local_shapes"],
-                    "cache_placements": r0["serve"]["cache_placements"],
-                    "kernel_checks": [c for o in per_rank
-                                      for c in o["kernel_checks"]],
-                    "card": smi, "seconds": r0["seconds"]}
-            bad = []
-            if any(x > rel_tol for x in line["logits_rel"]):
-                bad.append(f"logits {line['logits_rel']} past {rel_tol}")
-            if cfg.dtype == "float32" and not line["greedy_equal"]:
-                bad.append("greedy tokens differ")
-            if any({k: o["launches"][k] for k in want["serve"]}
-                   != want["serve"] for o in sv):
-                bad.append(f"serve launches {line['serve_launches_a_rank']}"
-                           f", expected {want['serve']}")
-            total = dict(want["serve"])
-            if run.get("train"):
-                tr = [o["train"] for o in per_rank]
-                t0r = r0["train"]
-                loss_rtol = 1e-2 if cfg.dtype == "bfloat16" else 1e-4
-                line.update(
-                    train=run["train"], train_mode=t0r["mode"],
-                    losses=t0r["losses"],
-                    unsharded_losses=t0r["unsharded_losses"],
-                    loss_rtol=loss_rtol, param_diff=t0r["param_diff"],
-                    sharded_ms_a_step=[o["ms"] for o in tr],
-                    unsharded_ms_a_step=t0r["unsharded_ms"],
-                    train_launches_a_rank=[o["launches"] for o in tr],
-                    expected_train_launches=want["train"],
-                    train_peak_memory_gb_a_rank=[o["peak_memory_gb"]
-                                                 for o in tr],
-                    train_staged_by_op=[o["staged"] for o in tr],
-                    train_host_staged_bytes=[o["host_staged_bytes"]
+    for i, run in enumerate(runs):
+        cfg = _dist_config(run)
+        per_rank = [o[i] for o in outs]
+        r0 = per_rank[0]
+        want = _expected_launches(run, cfg)
+        sv = [o["serve"] for o in per_rank]
+        full_tol = SHARDED_LOGITS_REL[
+            ("moe_" if cfg.family == "moe" else "") + cfg.dtype
+            if cfg.dtype == "bfloat16" else cfg.dtype]
+        rel_tol = full_tol * math.sqrt(
+            cfg.num_layers / get_config(run["arch"]).num_layers) \
+            if cfg.dtype == "bfloat16" else full_tol
+        line = {"phase": run["phase"], "arch": run["arch"],
+                "layers": cfg.num_layers, "dtype": cfg.dtype,
+                "ranks": world, "mesh": {"data": 1, "model": world},
+                "backend": r0["backend"],
+                "staging": "every collective of a CUDA tensor through "
+                           "pinned host memory (gloo takes none)",
+                "modes": r0["serve"]["modes"], "serve": run["serve"],
+                "logits_rel": r0["serve"]["logits_rel"],
+                "logits_rel_tol": rel_tol,
+                "logits_rel_tol_full_depth": full_tol,
+                "greedy_equal": r0["serve"]["greedy_equal"],
+                "serve_launches_a_rank": [o["launches"] for o in sv],
+                "expected_serve_launches": want["serve"],
+                "serve_host_ms": [o["host_ms"] for o in sv],
+                "serve_peak_memory_gb_a_rank":
+                    [o["peak_memory_gb"] for o in sv],
+                "serve_staged_by_op": [o["staged"] for o in sv],
+                "serve_host_staged_bytes":
+                    [o["host_staged_bytes"] for o in sv],
+                "serve_local_shapes": r0["serve"]["local_shapes"],
+                "cache_placements": r0["serve"]["cache_placements"],
+                "kernel_checks": [c for o in per_rank
+                                  for c in o["kernel_checks"]],
+                "card": smi, "seconds": r0["seconds"]}
+        bad = []
+        if any(x > rel_tol for x in line["logits_rel"]):
+            bad.append(f"logits {line['logits_rel']} past {rel_tol}")
+        if cfg.dtype == "float32" and not line["greedy_equal"]:
+            bad.append("greedy tokens differ")
+        if any({k: o["launches"][k] for k in want["serve"]}
+               != want["serve"] for o in sv):
+            bad.append(f"serve launches {line['serve_launches_a_rank']}"
+                       f", expected {want['serve']}")
+        total = dict(want["serve"])
+        if run.get("train"):
+            tr = [o["train"] for o in per_rank]
+            t0r = r0["train"]
+            loss_rtol = 1e-2 if cfg.dtype == "bfloat16" else 1e-4
+            line.update(
+                train=run["train"], train_mode=t0r["mode"],
+                losses=t0r["losses"],
+                unsharded_losses=t0r["unsharded_losses"],
+                loss_rtol=loss_rtol, param_diff=t0r["param_diff"],
+                sharded_ms_a_step=[o["ms"] for o in tr],
+                unsharded_ms_a_step=t0r["unsharded_ms"],
+                train_launches_a_rank=[o["launches"] for o in tr],
+                expected_train_launches=want["train"],
+                train_peak_memory_gb_a_rank=[o["peak_memory_gb"]
                                              for o in tr],
-                    train_local_shapes=t0r["local_shapes"])
-                if not all(abs(a - b) <= loss_rtol * abs(b) for a, b in zip(
-                        t0r["losses"], t0r["unsharded_losses"])) or not \
-                        all(np.isfinite(t0r["losses"])):
-                    bad.append(f"losses {t0r['losses']} against "
-                               f"{t0r['unsharded_losses']}")
-                if t0r["param_diff"]["past_tol"]:
-                    bad.append(f"params {t0r['param_diff']}")
-                if any({k: o["launches"][k] for k in want["train"]}
-                       != want["train"] for o in tr):
-                    bad.append(f"train launches "
-                               f"{line['train_launches_a_rank']}, expected "
-                               f"{want['train']}")
-                total = {k: total[k] + want["train"][k] for k in total}
-            if not all(c["ok"] for c in line["kernel_checks"]):
-                bad.append("kernels disagree with their plain versions at "
-                           "local shapes: " + str(
-                               [c for c in line["kernel_checks"]
-                                if not c["ok"]]))
-            line["spawn_seconds"] = spawn_s
-            emit(line)
-            if bad:
-                fail(f"{run['phase']}: " + "; ".join(bad))
-            counts[run["phase"]] = dict(total, grouped_matmul_by_variant=r0[
-                "serve"]["launches"]["grouped_matmul_by_variant"])
+                train_staged_by_op=[o["staged"] for o in tr],
+                train_host_staged_bytes=[o["host_staged_bytes"]
+                                         for o in tr],
+                train_local_shapes=t0r["local_shapes"])
+            if not all(abs(a - b) <= loss_rtol * abs(b) for a, b in zip(
+                    t0r["losses"], t0r["unsharded_losses"])) or not \
+                    all(np.isfinite(t0r["losses"])):
+                bad.append(f"losses {t0r['losses']} against "
+                           f"{t0r['unsharded_losses']}")
+            if t0r["param_diff"]["past_tol"]:
+                bad.append(f"params {t0r['param_diff']}")
+            if any({k: o["launches"][k] for k in want["train"]}
+                   != want["train"] for o in tr):
+                bad.append(f"train launches "
+                           f"{line['train_launches_a_rank']}, expected "
+                           f"{want['train']}")
+            total = {k: total[k] + want["train"][k] for k in total}
+        if not all(c["ok"] for c in line["kernel_checks"]):
+            bad.append("kernels disagree with their plain versions at "
+                       "local shapes: " + str(
+                           [c for c in line["kernel_checks"]
+                            if not c["ok"]]))
+        line["spawn_seconds"] = spawn_s
+        emit(line)
+        if bad:
+            fail(f"{run['phase']}: " + "; ".join(bad))
+        counts[run["phase"]] = dict(total, grouped_matmul_by_variant=r0[
+            "serve"]["launches"]["grouped_matmul_by_variant"])
     return counts
 
 
@@ -2230,28 +2397,39 @@ DRYRUN_CLI = ["--arch", "yi-9b", "--shape", "prefill_32k", "--mesh",
               "single"]
 
 
-def dryrun_phases(smi: str, ops: dict) -> dict:
+def start_dryrun_cli():
+    """``python -m repro_torch.launch.dryrun`` of the production cell
+    ``DRYRUN_CLI`` on meta under the fake process group, in a process of
+    its own (no card), started now and read by ``dryrun_phases``: (the
+    process, its output directory, the time it started)."""
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    # its output to files, not pipes that nobody reads until it ends
+    with open(Path(out_dir) / "stdout.txt", "w") as out, \
+            open(Path(out_dir) / "stderr.txt", "w") as err:
+        cli = subprocess.Popen([sys.executable, "-m",
+                                "repro_torch.launch.dryrun", *DRYRUN_CLI,
+                                "--out", out_dir], env=env, stdout=out,
+                               stderr=err)
+    return cli, out_dir, time.perf_counter()
+
+
+def dryrun_phases(smi: str, ops: dict, started) -> dict:
     """The dry-run against the card (``repro_torch.launch.dryrun``): each
     of ``DRYRUN_CELLS`` is counted by ``op_analysis`` on meta tensors and
     again around the real step on the card, after a warm-up step. The
     FLOPs and the kernel calls must be equal, the card's launch counts must
     equal the meta calls, and the meta peak must lie within
     ``DRYRUN_PEAK_REL`` of the change in ``max_memory_allocated``; the
-    step's ms stand beside the counted roofline's dominant term. Meanwhile
-    a process of its own traces the production cell ``DRYRUN_CLI`` on meta
-    under the fake process group (no card)."""
+    step's ms stand beside the counted roofline's dominant term. Then the
+    production cell's trace, ``started`` by ``start_dryrun_cli`` well
+    before (the time limit), must have printed its ``[ok]`` line."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun, op_analysis
 
-    t_phase = time.perf_counter()
-    out_dir = tempfile.mkdtemp(prefix="dryrun_")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
-    cli = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
-                            *DRYRUN_CLI, "--out", out_dir], env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                           text=True)
+    cli, out_dir, t_cli = started
     counts = {}
     for cell in DRYRUN_CELLS:
         t0 = time.perf_counter()
@@ -2320,7 +2498,11 @@ def dryrun_phases(smi: str, ops: dict) -> dict:
         counts[cell["phase"]] = got
         del fn, args
         release(cell["phase"])
-    out, err = cli.communicate(timeout=300)
+    t_wait = time.perf_counter()
+    cli.wait(timeout=300)
+    waited = time.perf_counter() - t_wait
+    out, err = (Path(out_dir, f).read_text()
+                for f in ("stdout.txt", "stderr.txt"))
     summary = [ln for ln in out.splitlines() if ln.startswith("[ok]")]
     if cli.returncode or not summary:
         fail(f"dryrun {' '.join(DRYRUN_CLI)}: exit {cli.returncode}\n"
@@ -2332,9 +2514,255 @@ def dryrun_phases(smi: str, ops: dict) -> dict:
           "roofline": cell["roofline"],
           "memory_analysis": cell["memory_analysis"],
           "timings_s": cell["timings_s"],
-          "seconds": time.perf_counter() - t_phase})
+          "seconds": time.perf_counter() - t_cli, "wait_seconds": waited})
     import shutil
     shutil.rmtree(out_dir, ignore_errors=True)
+    return counts
+
+
+# the port's examples (examples/torch_*.py), in this order, each at its
+# card default; torch_train_e2e's is its --full config, saved every 100 of
+# its 300 steps here, not every 10 (27 fewer saves of its 1.38 GB state:
+# the time limit)
+EXAMPLES = [("torch_workflow_pipeline", []), ("torch_quickstart", []),
+            ("torch_elastic_restart", []), ("torch_serve_batched", []),
+            ("torch_train_e2e", ["--ckpt-every", "100"])]
+
+
+def _example_launches(name: str, out: dict) -> dict:
+    """The kernel launches ``name``'s card default must make, from its
+    result: under remat "full" each layer's forward runs twice a step."""
+    from repro_torch.configs import get_config
+    zero = dict.fromkeys(("flash_attention", "flash_attention_bwd",
+                          "grouped_matmul", "grouped_matmul_bwd", "ssd",
+                          "ssd_bwd"), 0)
+    if name == "torch_quickstart":        # granite: 5 steps, every layer MoE
+        n = get_config(out["arch"]).num_layers * len(out["losses"])
+        # capacity _capacity(4 * 32, 8, 32, 1.25) = 40: the tile kernel
+        return {**zero, "flash_attention": 2 * n, "flash_attention_bwd": n,
+                "grouped_matmul": 6 * n, "grouped_matmul_bwd": 6 * n,
+                "grouped_matmul_by_variant": {"tile": 6 * n, "stream": 0,
+                                              "dx": 3 * n, "dw": 3 * n,
+                                              "f32": 0}}
+    if name == "torch_elastic_restart":   # mamba2: 6 + 6 steps
+        n = get_config(out["arch"]).num_layers * (len(out["losses1"])
+                                                  + len(out["losses2"]))
+        return {**zero, "ssd": 2 * n, "ssd_bwd": n}
+    if name == "torch_serve_batched":     # every prefill group, the oracle's
+        calls = sum(m["prefills"] for m in out["metrics"].values()) + 1
+        return {**zero, "flash_attention": out["layers"] * calls}
+    if name == "torch_train_e2e":
+        n = 12 * out["microbatches"] * out["steps"]
+        return {**zero, "flash_attention": 2 * n, "flash_attention_bwd": n}
+    return zero
+
+
+def examples_phases(smi: str, ops: dict, check_flash, check_flash_bwd,
+                    check_gmm_bwd, misses: list) -> dict:
+    """Each of the port's examples (``EXAMPLES``) through its ``main`` in
+    this process at its card default, ``torch_train_e2e``'s with its
+    checkpoints in a temp dir (its bytes counted, then deleted): one line
+    each with its wall seconds, its own numbers and printed lines, each
+    kernel's launches against ``_example_launches`` and its peak memory;
+    for ``torch_train_e2e`` also tokens/s and the model FLOPs' share of the
+    bf16 peak over all its steps, the median ms a step (steps 3-300) and
+    one profiled step. Then
+    each kernel against its plain version at every shape the examples
+    launched it (logged by shims over the models' kernel calls), forward
+    and, where the call was differentiated, backward; the SSD op at
+    mamba2's 32 tokens padded to one 256-token chunk against the
+    sequential scan, gradients included. Returns the launch counts by
+    example."""
+    import importlib
+    import shutil
+
+    import repro_torch.models.layers as layers
+    import repro_torch.models.mamba2 as mamba2
+    import repro_torch.models.moe as moe
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMData,
+                                           device_batch)
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    from repro_torch.launch.specs import MetaGenerator
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.training.train_step import (TrainStepConfig, init_state,
+                                                 make_train_step)
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    from torch_train_e2e import full_config
+    fa_ops, gmm_ops, ssd_ops = (ops[k] for k in ("flash_attention",
+                                                  "grouped_matmul", "ssd"))
+    # each kernel's shapes in the examples, and whether a call at the shape
+    # was differentiated
+    seen = {"flash": {}, "gmm": {}, "ssd": {}}
+    wrapped = (layers.flash_attention, moe.grouped_matmul,
+               mamba2.ssd_chunked)
+
+    def log(kind, key, *ts):
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+        seen[kind][key] = seen[kind].get(key, False) or grad
+
+    def flash_logged(q, k, v, *, causal=True, window=0, softcap=0.0):
+        b, s, h, d = q.shape
+        log("flash", ((b, s, h, k.shape[2], d, window, float(softcap)),
+                      q.dtype), q, k, v)
+        return wrapped[0](q, k, v, causal=causal, window=window,
+                          softcap=softcap)
+
+    def gmm_logged(x, w):
+        log("gmm", (tuple(x.shape) + (w.shape[-1],), x.dtype), x, w)
+        return wrapped[1](x, w)
+
+    def ssd_logged(x, dt, A, B, C, chunk):
+        log("ssd", (*x.shape, B.shape[-1], chunk), x, dt, A, B, C)
+        return wrapped[2](x, dt, A, B, C, chunk)
+
+    counts = {}
+    layers.flash_attention, moe.grouped_matmul, mamba2.ssd_chunked = (
+        flash_logged, gmm_logged, ssd_logged)
+    try:
+        for name, argv in EXAMPLES:
+            t0 = time.perf_counter()
+            ckpt = None
+            if name == "torch_train_e2e":
+                ckpt = Path(tempfile.mkdtemp(prefix="train_e2e_"))
+                argv = argv + ["--ckpt-dir", str(ckpt)]
+            printed = io.StringIO()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(ops)
+            try:
+                with contextlib.redirect_stdout(printed):
+                    out = importlib.import_module(name).main(argv)
+                torch.cuda.synchronize()
+            except Exception as exc:
+                fail(f"example {name} {argv}: {type(exc).__name__}: {exc}\n"
+                     f"{printed.getvalue()[-3000:]}")
+            finally:
+                ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                                 if f.is_file()) if ckpt else 0
+                if ckpt:
+                    shutil.rmtree(ckpt, ignore_errors=True)
+            seconds = time.perf_counter() - t0
+            counts[name] = got = read_launches(ops)
+            want = _example_launches(name, out)
+            line = {"phase": "example", "example": name, "argv": argv,
+                    "seconds": seconds, "result": out,
+                    "printed": printed.getvalue().splitlines(),
+                    "launches": got, "expected_launches": want,
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if name == "torch_train_e2e":
+                cfg = full_config()
+                tokens = out["global_batch"] * out["seq_len"]
+                median_ms = 1e3 * float(np.median(out["step_s"][2:]))
+                meta = build_model(cfg, device="meta").init(MetaGenerator())
+                flops = model_flops(cfg, meta, tokens, out["seq_len"])
+                losses = out["losses"]
+                steps_s = float(sum(out["step_s"]))   # every step's time
+                line.update(
+                    mode=out["mode"], params=out["params"],
+                    steps_seconds=steps_s,
+                    tokens_per_s=tokens * len(out["step_s"]) / steps_s,
+                    model_flops_per_step=flops,
+                    model_flops_share_of_bf16_peak=flops
+                    * len(out["step_s"]) / steps_s / H100_BF16_FLOPS,
+                    step_ms_median_3_300=median_ms,
+                    tokens_per_s_at_median_step=tokens / median_ms * 1e3,
+                    checkpoint_gb_written=ckpt_bytes / 1e9)
+                if not (out["mode"] == "full" and out["steps"] == 300
+                        and len(losses) == out["steps"]
+                        and losses[-1] < losses[0]
+                        and all(np.isfinite(losses))):
+                    fail(f"{name}: losses {losses[:3]} ... {losses[-3:]} "
+                         f"not {out['steps']} finite and falling")
+            emit({**line, "card": smi})
+            if {k: got[k] for k in want} != want:
+                fail(f"example {name}: launches {got}, expected {want}")
+            del out
+            release(name)
+    finally:
+        layers.flash_attention, moe.grouped_matmul, mamba2.ssd_chunked = \
+            wrapped
+
+    # one profiled step of train_e2e --full's config, after a warm one
+    cfg = full_config()
+    model = build_model(cfg, device="cuda")
+    opt_cfg = OptimizerConfig(warmup_steps=5, total_steps=300)
+    holder = [init_state(model, opt_cfg,
+                         torch.Generator(device="cuda").manual_seed(0))]
+    step_fn = make_train_step(model, cfg, opt_cfg,
+                              TrainStepConfig(microbatches=2))
+    batch = device_batch(SyntheticLMData(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=512, global_batch=8)).batch(0),
+        "cuda")
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], batch)
+    one_step()
+    emit({"phase": "example_profile", "example": "torch_train_e2e",
+          **step_profile(one_step, shares={"flash": "flash"}), "card": smi})
+    del model, holder, step_fn, batch
+    release("example_profile")
+
+    # each kernel against its plain version at the examples' shapes
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for (case, dtype), grad in sorted(seen["flash"].items(), key=str):
+        check_flash(case, dtype, phase="kernel_vs_plain_examples")
+        if grad:
+            check_flash_bwd(case, dtype)
+    for ((e, c, d, f), dtype), grad in sorted(seen["gmm"].items(), key=str):
+        x = randn((e, c, d), dtype, gen, 0.3)
+        w = randn((e, d, f), dtype, gen, 0.3)
+        tol = 3e-4 if dtype == torch.float32 else 3e-2
+        err, ok = close(gmm_ops.grouped_matmul(x, w),
+                        grouped_matmul_ref(x, w), tol)
+        emit({"phase": "kernel_vs_plain_examples", "kernel":
+              "grouped_matmul", "shape": {"E": e, "C": c, "d": d, "f": f},
+              "dtype": str(dtype).removeprefix("torch."),
+              "max_abs_err": err, "tol": tol, "ok": ok})
+        if not ok:
+            misses.append(("grouped_matmul", (e, c, d, f), str(dtype)))
+        if grad:
+            check_gmm_bwd((e, c, d, f), dtype)
+    for (b, s, nh, hd, ds, ch), grad in sorted(seen["ssd"].items()):
+        ins = [t.requires_grad_() for t in ssd_inputs(b, s, nh, hd, ds, gen,
+                                                      wide_decay=True)]
+        before = (ssd_ops.launches, ssd_ops.bwd_launches)
+        y, st = ssd_ops.ssd_chunked(*ins, ch)
+        dy, dst = randn(y.shape, y.dtype, gen), randn(st.shape, st.dtype, gen)
+        grads = torch.autograd.grad((y, st), ins, (dy, dst))
+        torch.cuda.synchronize()
+        launched = (ssd_ops.launches - before[0],
+                    ssd_ops.bwd_launches - before[1])
+        ref_ins = [t.detach().requires_grad_() for t in ins]
+        ry, rst = mamba2.ssd_ref(*ref_ins)
+        refs = torch.autograd.grad((ry, rst), ref_ins, (dy, dst))
+        errs, tops, ok = {}, {}, launched == (1, 1)
+        for label, g, r in zip(("y", "state", "dx", "ddt", "dA", "dB", "dC"),
+                               (y.detach(), st.detach()) + grads,
+                               (ry.detach(), rst.detach()) + refs):
+            errs[label] = float((g - r).abs().max())
+            tops[label] = float(r.abs().max())
+            ok = ok and bool(torch.isfinite(g).all()) and bool((
+                (g - r).abs() <= SSD_BWD_TOL["atol_of_max"] * tops[label]
+                + SSD_BWD_TOL["rtol"] * r.abs()).all())
+        emit({"phase": "kernel_vs_plain_examples", "kernel": "ssd",
+              "op": "ssd_chunked", "against": "sequential ssd_ref, autograd",
+              "shape": {"b": b, "S": s, "nh": nh, "hd": hd, "ds": ds,
+                        "chunk": ch}, "padded_rows": (-s) % ch,
+              "differentiated_in_example": grad,
+              "launched_fwd_bwd": list(launched), "max_abs_err": errs,
+              "max": tops, "tol": SSD_BWD_TOL, "dtype": "float32",
+              "ok": ok})
+        if not ok:
+            misses.append(("ssd_chunked", (b, s, nh, hd, ds, ch), "float32"))
+    emit({"phase": "kernel_vs_plain_examples",
+          **{f"{kind}_shapes": sorted(
+              [[str(k), g] for k, g in seen[kind].items()])
+             for kind in seen}, "seconds": time.perf_counter() - t0})
+    if misses:
+        fail(f"a kernel disagrees with its plain version at an example's "
+             f"shape: {misses}")
     return counts
 
 
@@ -2391,6 +2819,8 @@ def main():
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output", flush=True)
+    # the f32 parity runs' CPU halves, beside the build and the kernel checks
+    parity = CpuParity()
     emit({"phase": "device", **device, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc_version[-1] if nvcc_version else None,
@@ -3120,14 +3550,14 @@ def main():
         t for ts in flash_family.values() for t in ts]
 
     # -- 4b. training on the card -----------------------------------------
-    train_counts = training_phases(smi, ops)
+    dryrun_cli = start_dryrun_cli()     # off the card, read in 4d
+    train_counts = training_phases(smi, ops, parity)
     train_counts.update(embeddings_phases(smi, ops))
-    # -- 4c. the distributed layer: two ranks share the card --------------
-    train_counts.update(distributed_phases(smi))
-    # -- 4d. prefill and decode sharded, the SSM and hybrid families -------
-    train_counts.update(sharded_phases(smi))
-    # -- 4e. the dry-run's counts against the card --------------------------
-    train_counts.update(dryrun_phases(smi, ops))
+    # -- 4c. the distributed layer: ranks share the card; prefill and
+    # decode sharded, the SSM and hybrid families -------------------------
+    train_counts.update(rank_phases(smi))
+    # -- 4d. the dry-run's counts against the card --------------------------
+    train_counts.update(dryrun_phases(smi, ops, dryrun_cli))
 
     # -- 5. full width, depth 2, float32: engine tokens == a reference -----
     def faults(monitor) -> list:
@@ -4304,6 +4734,10 @@ def main():
     if misses:
         fail(f"a kernel disagrees with its plain version at a served "
              f"shape: {misses}")
+    # -- 7b. the port's examples at their card defaults ----------------------
+    train_counts.update(examples_phases(smi, ops, check_flash,
+                                        check_flash_bwd, check_gmm_bwd,
+                                        misses))
     # each kernel's launches on its own path's served run; the backward
     # kernels' on the training runs (train_yi9b's 10 steps, train_granite's
     # first 10), beside the forward kernels' there

@@ -63,11 +63,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace, monitor: Monitor = None):
+def run(args: argparse.Namespace, monitor: Monitor = None, cfg=None):
     """The training run of ``args``: (losses, the final train state).
     ``monitor`` (default: a new one) times each step to the end of its
-    device work (``train/step``), not the checkpoint saves."""
-    cfg = get_config(args.arch)
+    device work (``train/step``), not the checkpoint saves. ``cfg``, where
+    given, is trained in place of ``args.arch``'s config."""
+    if cfg is None:
+        cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
     device = resolve_device(args.device)

@@ -1,6 +1,7 @@
 """The port stands alone: importing any of ``repro_torch`` loads neither JAX
 nor any module of the JAX package, and no source of the port (or
-``chip_smoke.py``) imports them."""
+``chip_smoke.py``, or an example of the port, ``examples/torch_*.py``)
+imports them."""
 import json
 import os
 import re
@@ -10,6 +11,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _port_modules():
@@ -48,8 +50,11 @@ def test_importing_the_port_loads_no_jax():
 def test_port_sources_do_not_import_jax_or_the_jax_package():
     bad = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|"
                      r"from\s+(jax|repro)\b(?!_torch))", re.M)
-    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
     assert (ROOT / "chip_smoke.py").exists()
+    assert [f.stem for f in EXAMPLES] == [
+        "torch_elastic_restart", "torch_quickstart", "torch_serve_batched",
+        "torch_train_e2e", "torch_workflow_pipeline"]
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if bad.search(f.read_text())]
     assert offenders == []
@@ -89,4 +94,22 @@ def test_distributed_modules_and_rank_bodies_import_without_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, timeout=120)
     assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_examples_import_without_jax():
+    """The port's examples, imported in a fresh process: no JAX, nothing of
+    the JAX package."""
+    mods = [f.stem for f in EXAMPLES]
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'examples')!r})\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert len(mods) == 5
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
